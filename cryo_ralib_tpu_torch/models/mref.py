@@ -1,0 +1,182 @@
+"""Multireference 2D alignment, the entry point (PyTorch).
+
+Counterpart of ``cryo_ralib_tpu/models/mref.py::mref_ali2d_tpu``: K
+references, every particle searched against all of them (mirror + shift
+grid), class assignment by the ccf argmax, even/odd class sums,
+vanished-class reseeding from ``random.Random(rand_seed)``, per-class FSC
+averaged over classes, the ``ref_ali2d`` filter, and the outputs
+``aqm%03d.hdf``, ``drm%03d%04d.txt`` and ``final2Dparams.txt``.
+
+The stack is uploaded to ``device`` once and normalised there; the
+engine keeps that tensor.  The reference update (K small images) runs on
+the host.
+"""
+
+from __future__ import annotations
+
+import os
+import random as _random
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..config import AlignConfig
+from ..params import params_table
+from ..ops.fsc import fsc, write_fsc
+from ..ops.masks import model_circle, normalize_mask
+from ..io.eman_hdf import write_image
+from ..io.star import write_text_row
+from ..utils.log import RunLogger
+from .engine import AlignmentEngine
+from .user_functions import factory
+
+
+@dataclass
+class MrefResult:
+    params: np.ndarray            # (N, 4) header [alpha, sx, sy, mirror]
+    assignments: np.ndarray       # (N,) class ids
+    references: np.ndarray        # (K, H, W) final references
+    class_counts: np.ndarray      # (K,) final member counts
+    members: list = field(default_factory=list)  # per-class particle ids
+    iterations: int = 0
+
+
+def mref_ali2d(
+    images,
+    refs: np.ndarray,
+    outdir: str | None = None,
+    maskfile: np.ndarray | None = None,
+    ir: int = 1,
+    ou: int = -1,
+    rs: int = 1,
+    xr: float = 0.0,
+    yr: float = 0.0,
+    ts: float = 1.0,
+    center: int = -1,
+    maxit: int = 0,
+    user_func_name: str = "ref_ali2d",
+    rand_seed: int = 1000,
+    log: RunLogger | None = None,
+    device="cpu",
+    sampler: str = "auto",
+) -> MrefResult:
+    """Multireference-align ``images`` (N, H, W; numpy or tensor) against
+    ``refs`` (K, H, W) on ``device``.
+
+    Flags as ``mref_ali2d_tpu``: ``yr < 0`` means ``yr = xr``; ``ou=-1``
+    means ``nx//2 - 2``; ``maxit=0`` means 10 iterations.  ``sampler``
+    picks the search: "auto" (the CUDA kernel on a CUDA device, the plain
+    version on the CPU), "kernel" or "plain".
+    """
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+    log = log or RunLogger(outdir)
+    user_func = factory[user_func_name]
+    if int(center) > 0:
+        raise NotImplementedError(
+            f"--center={int(center)} needs ops/center.py, which is not "
+            "ported yet")
+    # TF32 would cut the f32 semantics the port is held to
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    n, ny, nx = images.shape
+    if nx != ny:
+        raise ValueError("images must be square")
+    numref = refs.shape[0]
+    last_ring = int(ou) if int(ou) != -1 else nx // 2 - 2
+    max_iter = int(maxit) if int(maxit) else 10
+    if yr is None or yr < 0:
+        yr = xr
+    ir, rs = int(ir), int(rs)
+    if ir < 1 or rs < 1 or ir > last_ring:
+        raise ValueError(f"invalid ring plan: ir={ir} rs={rs} ou={last_ring}")
+    n_rings = len(range(ir, last_ring + 1, rs))
+    cfg = AlignConfig(img_dim=nx, ring_num=n_rings, ring_len=256,
+                      first_ring=ir, ring_step=rs,
+                      shift_step=float(ts), shift_rng_x=float(xr),
+                      shift_rng_y=float(yr))
+
+    mask = maskfile if maskfile is not None else model_circle(last_ring, nx)
+    mask_host = torch.as_tensor(np.asarray(mask, np.float32))
+    # particles: no_sigma=False (N(0,1) under the mask); refs: mean only
+    data = torch.as_tensor(images, dtype=torch.float32, device=device)
+    data = normalize_mask(data, mask_host.to(device), no_sigma=False)
+    refi = normalize_mask(torch.as_tensor(np.asarray(refs, np.float32)),
+                          mask_host, no_sigma=True).numpy()
+
+    rng = _random.Random(rand_seed)
+    engine = AlignmentEngine(data, cfg, n_classes=numref, device=device,
+                             sampler=sampler)
+
+    counts = np.zeros(numref, np.int64)
+    assign = np.zeros(n, np.int64)
+    members: list = [[] for _ in range(numref)]
+    for it in range(max_iter):
+        out = engine.iterate(refi)
+        sums = out.class_sums                  # (K, 2, H, W)
+        counts = out.counts
+        assign = engine.params_np().ref_id.astype(np.int64)
+        members = [list(np.nonzero(assign == j)[0]) for j in range(numref)]
+
+        # ---- reference update on the host
+        ave_fsc = None
+        c_fsc = 0
+        frsc = None
+        new_refs = np.empty_like(refi)
+        vanished = []
+        for j in range(numref):
+            if counts[j] < 4:
+                # vanished class: reseed with a random particle
+                pick = rng.randint(0, n - 1)
+                members[j] = [pick]
+                new_refs[j] = data[pick].cpu().numpy()
+                vanished.append(j)
+            else:
+                cur = fsc(sums[j, 0], sums[j, 1], 1.0)
+                if outdir:
+                    write_fsc(os.path.join(outdir, "drm%03d%04d.txt"
+                                           % (it, j)), *cur)
+                new_refs[j] = (sums[j, 0] + sums[j, 1]) / float(counts[j])
+                if ave_fsc is None:
+                    ave_fsc = np.array(cur[1], np.float64)
+                    c_fsc = 1
+                else:
+                    ave_fsc += np.asarray(cur[1])
+                    c_fsc += 1
+                frsc = cur
+        if ave_fsc is not None and ave_fsc.sum() != 0:
+            ave_fsc /= float(c_fsc)
+            frsc = (frsc[0], ave_fsc, frsc[2])
+
+        for j in range(numref):
+            filtered = (user_func([mask, center, new_refs[j], frsc])[0]
+                        if frsc is not None else new_refs[j])
+            new_refs[j] = normalize_mask(
+                torch.as_tensor(np.asarray(filtered, np.float32)),
+                mask_host, no_sigma=True).numpy()
+        if outdir:
+            refim = os.path.join(outdir, "aqm%03d.hdf" % it)
+            for j in range(numref):
+                write_image(refim, new_refs[j], j, header={
+                    "ave_n": int(counts[j]),
+                    "members": sorted(float(m) for m in members[j]),
+                })
+        refi = new_refs
+
+        log.add("ITERATION #%3d" % (it + 1))
+        for j in range(numref):
+            log.add("   group #%3d   number of particles = %7d"
+                    % (j, int(counts[j])))
+        if vanished:
+            log.add("   reseeded vanished classes: %s" % vanished)
+
+    # final params in header convention
+    table = params_table(engine.params)
+    if outdir:
+        write_text_row(table, os.path.join(outdir, "final2Dparams.txt"))
+    log.add("Finished mref_ali2d")
+    return MrefResult(params=table, assignments=assign, references=refi,
+                      class_counts=counts, members=members,
+                      iterations=max_iter)

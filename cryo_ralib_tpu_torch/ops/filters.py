@@ -1,0 +1,40 @@
+"""Fourier-space tangent low-pass filter (PyTorch).
+
+Counterpart of ``cryo_ralib_tpu/ops/filters.py::filt_tanl``, the
+FSC-driven filter of the ``ref_ali2d`` user function, on
+``torch.fft.rfft2`` / ``irfft2``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _freq_grid(h: int, w: int) -> np.ndarray:
+    """|f| grid in rfft2 layout, absolute units (0 .. ~0.707)."""
+    fy = np.fft.fftfreq(h).astype(np.float32)
+    fx = np.fft.rfftfreq(w).astype(np.float32)
+    return np.sqrt(fy[:, None] ** 2 + fx[None, :] ** 2)
+
+
+def tanl_response(freq: np.ndarray, cutoff: float,
+                  falloff: float) -> np.ndarray:
+    """``0.5*(tanh(c*(f+cutoff)) - tanh(c*(f-cutoff)))``,
+    ``c = pi/(2*falloff*cutoff)``; all-pass for a non-positive argument."""
+    cutoff = float(cutoff)
+    falloff = float(falloff)
+    if cutoff <= 0.0 or falloff <= 0.0:
+        return np.ones_like(freq)
+    c = np.pi / (2.0 * falloff * cutoff)
+    return (0.5 * (np.tanh(c * (freq + cutoff))
+                   - np.tanh(c * (freq - cutoff)))).astype(np.float32)
+
+
+def filt_tanl(img, cutoff: float, falloff: float):
+    """Apply the tangent low-pass filter to (..., H, W) images."""
+    h, w = img.shape[-2:]
+    resp = torch.as_tensor(tanl_response(_freq_grid(h, w), cutoff, falloff),
+                           device=img.device)
+    f = torch.fft.rfft2(img)
+    return torch.fft.irfft2(f * resp, s=(h, w)).to(img.dtype)

@@ -1,0 +1,84 @@
+"""Per-particle 2D alignment parameters (PyTorch).
+
+Counterpart of ``cryo_ralib_tpu/params.py``: the struct-of-arrays
+``AlignParams`` state, the search-to-header shift decode and the
+``params_table`` rows of ``final2Dparams.txt``.  ``params_from_numpy`` /
+``AlignParams.to_numpy`` carry state across packages: they take and give
+exactly the dict of the JAX ``AlignParams.to_numpy()``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class AlignParams(NamedTuple):
+    """Alignment state for a stack of N particles, one tensor per field:
+    angle, shift_x, shift_y (N,) float32; mirror, ref_id (N,) int32."""
+
+    angle: torch.Tensor
+    shift_x: torch.Tensor
+    shift_y: torch.Tensor
+    mirror: torch.Tensor
+    ref_id: torch.Tensor
+
+    @staticmethod
+    def zeros(n: int, device="cpu", ref_id: int = 0) -> "AlignParams":
+        """Fresh params with every particle assigned to ``ref_id``."""
+        return AlignParams(
+            torch.zeros(n, dtype=torch.float32, device=device),
+            torch.zeros(n, dtype=torch.float32, device=device),
+            torch.zeros(n, dtype=torch.float32, device=device),
+            torch.zeros(n, dtype=torch.int32, device=device),
+            torch.full((n,), ref_id, dtype=torch.int32, device=device),
+        )
+
+    def to_numpy(self) -> dict:
+        return {name: getattr(self, name).cpu().numpy()
+                for name in self._fields}
+
+
+_DTYPES = {"angle": torch.float32, "shift_x": torch.float32,
+           "shift_y": torch.float32, "mirror": torch.int32,
+           "ref_id": torch.int32}
+
+
+def params_from_numpy(d: dict, device="cpu") -> AlignParams:
+    """``AlignParams`` from the dict that either package's ``to_numpy``
+    returns."""
+    return AlignParams(*[torch.as_tensor(np.array(d[name]), dtype=dt,
+                                         device=device)
+                         for name, dt in _DTYPES.items()])
+
+
+def gpu_params_to_align2d(angle, shift_x, shift_y):
+    """Search params (shift before rotation) -> header-convention shifts
+    (shift after rotation): ``(sx', sy') = R(-angle) @ (-sx, -sy)``."""
+    ang = angle * (math.pi / 180.0)
+    c = torch.cos(ang)
+    s = -torch.sin(ang)
+    sx_neg = -shift_x
+    sy_neg = -shift_y
+    out_sx = sx_neg * c - sy_neg * s
+    out_sy = sx_neg * s + sy_neg * c
+    return out_sx, out_sy
+
+
+def params_table(params: AlignParams) -> np.ndarray:
+    """(N, 4) float64 rows [alpha, sx, sy, mirror] in header convention,
+    alpha wrapped into [0, 360)."""
+    sx, sy = gpu_params_to_align2d(params.angle, params.shift_x,
+                                   params.shift_y)
+    return np.stack(
+        [
+            params.angle.cpu().numpy().astype(np.float64) % 360.0,
+            sx.cpu().numpy().astype(np.float64),
+            sy.cpu().numpy().astype(np.float64),
+            params.mirror.cpu().numpy().astype(np.float64),
+        ],
+        axis=1,
+    )

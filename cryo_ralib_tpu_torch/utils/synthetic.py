@@ -1,0 +1,87 @@
+"""Synthetic particle stacks for tests, smoke runs and demos.
+
+``class_templates`` and ``asymmetric_templates`` are copies of
+``cryo_ralib_tpu/utils/synthetic.py``'s (numpy).  ``scattered_stack`` is
+this package's own generator: numpy-seeded classes, angles, shifts,
+mirrors and noise, applied to the templates with the port's
+``transform_batch`` on any device (the JAX package's version goes
+through its quadri ``rot_shift2d`` instead).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..params import AlignParams
+from ..ops.transform import transform_batch
+
+
+def class_templates(n_classes: int, nx: int) -> np.ndarray:
+    """Well-separated rotationally-informative class templates: class k
+    carries 2+k gaussian bumps on a ring of distinct radius, unit-sigma
+    normalized."""
+    yy, xx = np.mgrid[0:nx, 0:nx]
+    cy = cx = nx // 2
+    out = np.zeros((n_classes, nx, nx), np.float32)
+    for k in range(n_classes):
+        # cap the ring radius so features stay inside typical alignment
+        # masks (ou ~ 0.4 nx) even for many classes
+        r0 = nx * min(0.12 + k * 0.07, 0.30)
+        img = np.zeros((nx, nx), np.float64)
+        n_bumps = 2 + k
+        for b in range(n_bumps):
+            ang = 2 * np.pi * b / n_bumps + 0.5 * k
+            by = cy + r0 * np.sin(ang)
+            bx = cx + r0 * np.cos(ang)
+            img += np.exp(-((yy - by) ** 2 + (xx - bx) ** 2) / (2 * 2.5 ** 2))
+        img -= img.mean()
+        img /= img.std()
+        out[k] = img.astype(np.float32)
+    return out
+
+
+def asymmetric_templates(n_classes: int, nx: int) -> np.ndarray:
+    """`class_templates` plus two distinct off-ring bumps per class, so
+    that no pose is a symmetric tie (class_templates are dihedral)."""
+    base = class_templates(n_classes, nx).astype(np.float64)
+    yy, xx = np.mgrid[0:nx, 0:nx]
+    cy = cx = nx // 2
+    for i in range(n_classes):
+        for amp, r, ang in ((2.0, 0.18 * nx, 0.7 + i),
+                            (1.2, 0.08 * nx, 2.9 + 2 * i)):
+            by, bx = cy + r * np.sin(ang), cx + r * np.cos(ang)
+            base[i] += amp * np.exp(-((yy - by) ** 2 + (xx - bx) ** 2)
+                                    / (2 * 2.0 ** 2))
+        base[i] -= base[i].mean()
+        base[i] /= base[i].std()
+    return base.astype(np.float32)
+
+
+def scattered_stack(templates: np.ndarray, n: int, max_shift: int = 2,
+                    noise: float = 0.02, seed: int = 0, device="cpu"):
+    """Transformed, noisy copies of randomly chosen templates.
+
+    Returns ``(images, class_ids, angles, shifts, mirrors)``: images an
+    (n, H, W) float32 tensor on ``device``; the rest numpy ground truth
+    (class ids, angles in degrees, (n, 2) integer shifts, 0/1 mirrors).
+    """
+    rng = np.random.default_rng(seed)
+    k = templates.shape[0]
+    cls = rng.integers(0, k, n)
+    angs = rng.uniform(0, 360, n).astype(np.float32)
+    sxs = rng.integers(-max_shift, max_shift + 1, n).astype(np.float32)
+    sys_ = rng.integers(-max_shift, max_shift + 1, n).astype(np.float32)
+    mirrors = rng.integers(0, 2, n).astype(np.int32)
+    noise_img = rng.standard_normal((n,) + templates.shape[1:],
+                                    dtype=np.float32)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    params = AlignParams(dev(angs), dev(sxs), dev(sys_), dev(mirrors),
+                         dev(cls.astype(np.int32)))
+    imgs = transform_batch(dev(templates.astype(np.float32))[dev(cls)],
+                           params)
+    imgs += noise * dev(noise_img)
+    return imgs, cls, angs, np.stack([sxs, sys_], 1), mirrors

@@ -1,0 +1,118 @@
+"""The PyTorch port's copied numpy modules against their JAX-package
+originals, and the port's import boundary (no jax, no cryo_ralib_tpu)."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from cryo_ralib_tpu.config import AlignConfig as JaxConfig
+from cryo_ralib_tpu.ops.fsc import fit_tanh as jax_fit_tanh
+from cryo_ralib_tpu.ops.fsc import fsc as jax_fsc
+from cryo_ralib_tpu.utils import synthetic as jax_synthetic
+from cryo_ralib_tpu_torch.config import AlignConfig
+from cryo_ralib_tpu_torch.ops.fsc import fit_tanh, fsc
+from cryo_ralib_tpu_torch.utils import synthetic as port_synthetic
+
+CONFIGS = {
+    "headline": dict(img_dim=90, ring_num=36, shift_step=1.0,
+                     shift_rng_x=3.0, shift_rng_y=3.0),
+    "fractional_ts": dict(img_dim=64, ring_num=20, shift_step=0.5,
+                          shift_rng_x=1.5, shift_rng_y=1.0),
+    "mode_h": dict(img_dim=64, ring_num=20, shift_step=1.0,
+                   shift_rng_x=2.0, shift_rng_y=2.0, mode="H"),
+    "ir4_rs2": dict(img_dim=90, ring_num=12, first_ring=4, ring_step=2,
+                    shift_step=1.0, shift_rng_x=2.0, shift_rng_y=2.0),
+}
+TABLES = ("polar_coords", "shifts", "shift_x_vals", "shift_y_vals",
+          "ring_weights", "radii", "shift_limit", "angle_step", "n_shifts",
+          "n_freq", "max_radius", "eman_rings", "eman_ring_weights")
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_config_tables_equal_jax(name):
+    port = AlignConfig(**CONFIGS[name])
+    ref = JaxConfig(**CONFIGS[name])
+    assert port == AlignConfig(**CONFIGS[name])
+    for table in TABLES:
+        got, want = getattr(port, table), getattr(ref, table)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
+                                      err_msg=table)
+        assert np.asarray(got).dtype == np.asarray(want).dtype, table
+
+
+def test_config_rejects_like_jax():
+    bad = dict(img_dim=48, ring_num=22, shift_rng_x=3.0, shift_rng_y=3.0)
+    with pytest.raises(ValueError, match="crosses image boundary"):
+        AlignConfig(**bad)
+    with pytest.raises(ValueError, match="crosses image boundary"):
+        JaxConfig(**bad)
+
+
+def test_fsc_and_fit_tanh_equal_jax():
+    rng = np.random.default_rng(5)
+    base = rng.standard_normal((48, 48)).astype(np.float32)
+    a = base + 0.3 * rng.standard_normal((48, 48)).astype(np.float32)
+    b = base + 0.3 * rng.standard_normal((48, 48)).astype(np.float32)
+    got = fsc(a, b, 1.0)
+    want = jax_fsc(a, b, 1.0)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert fit_tanh(got) == jax_fit_tanh(want)
+
+
+@pytest.mark.parametrize("name", ["class_templates", "asymmetric_templates"])
+def test_templates_equal_jax(name):
+    np.testing.assert_array_equal(getattr(port_synthetic, name)(5, 48),
+                                  getattr(jax_synthetic, name)(5, 48))
+
+
+def test_scattered_stack_shapes_and_truth():
+    tmpl = port_synthetic.asymmetric_templates(3, 32)
+    imgs, cls, angs, shifts, mirrors = port_synthetic.scattered_stack(
+        tmpl, 6, max_shift=1, noise=0.0, seed=4)
+    assert imgs.shape == (6, 32, 32) and imgs.dtype == torch.float32
+    assert cls.shape == angs.shape == mirrors.shape == (6,)
+    assert shifts.shape == (6, 2) and np.abs(shifts).max() <= 1
+    assert set(np.unique(mirrors)) <= {0, 1}
+    again = port_synthetic.scattered_stack(tmpl, 6, max_shift=1, noise=0.0,
+                                           seed=4)
+    assert torch.equal(imgs, again[0])
+
+
+def test_port_imports_neither_jax_nor_jax_package():
+    code = (
+        "import sys, pkgutil, importlib, cryo_ralib_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'cryo_ralib_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_hdf_writers_read_back_by_jax_reader(tmp_path):
+    pytest.importorskip("h5py")
+    from cryo_ralib_tpu.io.eman_hdf import read_hdf_stack
+    from cryo_ralib_tpu_torch.io.eman_hdf import write_hdf_stack, write_image
+
+    rng = np.random.default_rng(2)
+    imgs = rng.standard_normal((3, 8, 8)).astype(np.float32)
+    path = str(tmp_path / "stack.hdf")
+    write_hdf_stack(path, imgs[:2], headers=[{"ave_n": 4}, {"ave_n": 5}])
+    write_hdf_stack(path, imgs[2], append=True)
+    got, headers = read_hdf_stack(path)
+    np.testing.assert_array_equal(got, imgs)
+    assert [h.get("ave_n") for h in headers] == [4, 5, None]
+    assert headers[0]["nx"] == 8
+    write_image(path, imgs[0] * 2, 1, header={"members": [1.0, 3.0]})
+    got, headers = read_hdf_stack(path)
+    np.testing.assert_array_equal(got[1], imgs[0] * 2)
+    assert headers[1]["members"] == [1.0, 3.0]

@@ -1,0 +1,197 @@
+"""The hand-written CUDA search kernel against its plain PyTorch version.
+
+These tests need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.
+They import no JAX, so on the GPU machine they run with::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernel_gpu.py
+
+Tolerances: winners (ref, shift, mirror, angle bin) identical on
+structured data; peak values and winning rows within 1e-4 of the largest
+peak (a twiddle-table DFT in the kernel against cuFFT in the plain
+version, both f32).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from cryo_ralib_tpu_torch.config import AlignConfig
+from cryo_ralib_tpu_torch.ops import fused_search as fs
+from cryo_ralib_tpu_torch.ops import search
+from cryo_ralib_tpu_torch.params import AlignParams, params_from_numpy
+from cryo_ralib_tpu_torch.utils.synthetic import (asymmetric_templates,
+                                                  scattered_stack)
+
+WINNERS = ("best_ref", "best_sidx", "best_mirror", "best_aidx")
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc for sm_90a)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _params(n, dev, seed=2):
+    rng = np.random.default_rng(seed)
+    return params_from_numpy(
+        {"angle": np.zeros(n, np.float32),
+         "shift_x": rng.choice([0.0, 1.0, -0.5], n).astype(np.float32),
+         "shift_y": rng.choice([0.0, -2.0, 0.25], n).astype(np.float32),
+         "mirror": np.zeros(n, np.int32), "ref_id": np.zeros(n, np.int32)},
+        dev)
+
+
+def _check(got, want, winners_equal=True):
+    torch.cuda.synchronize()
+    if winners_equal:
+        for f in WINNERS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    scale = want.best_val.abs().max()
+    assert (got.best_val - want.best_val).abs().max() <= 1e-4 * scale
+    assert (got.best_row - want.best_row).abs().max() <= 1e-4 * scale
+
+
+# (img_dim, rings, xr, refs, ring_step): the headline, the 160 px box, a
+# 256 px box at ou=100, an odd box with a ring count that is no multiple
+# of the kernel's ring group, more refs than one ref group, and a
+# --ir/--rs ring plan
+GEOMETRIES = [(90, 36, 3.0, 8, 1), (160, 48, 2.0, 4, 1),
+              (256, 100, 1.0, 2, 1), (75, 20, 2.0, 3, 1),
+              (64, 24, 1.0, 11, 1), (90, 12, 2.0, 2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=str)
+def test_kernel_matches_plain(cuda_device, geom):
+    nx, rings, xr, k, rs = geom
+    cfg = AlignConfig(img_dim=nx, ring_num=rings, ring_step=rs,
+                      first_ring=1 + (rs > 1), shift_step=1.0,
+                      shift_rng_x=xr, shift_rng_y=xr)
+    tmpl = asymmetric_templates(k, nx)
+    n = 64
+    imgs = scattered_stack(tmpl, n, max_shift=1, noise=0.1, seed=4,
+                           device=cuda_device)[0].contiguous()
+    params = _params(n, cuda_device)
+    rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
+                                                     device=cuda_device), cfg)
+    before = fs.fused_search.launches
+    got = fs.fused_search(imgs, rfw, params, cfg)
+    assert fs.fused_search.launches == before + 1
+    _check(got, fs.search_plain(imgs, rfw, params, cfg))
+
+
+@pytest.mark.cuda
+def test_kernel_fractional_shift_step(cuda_device):
+    cfg = AlignConfig(img_dim=64, ring_num=20, shift_step=0.5,
+                      shift_rng_x=1.0, shift_rng_y=1.5)
+    tmpl = asymmetric_templates(3, 64)
+    imgs = scattered_stack(tmpl, 32, max_shift=1, noise=0.1, seed=6,
+                           device=cuda_device)[0].contiguous()
+    params = _params(32, cuda_device, seed=3)
+    rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
+                                                     device=cuda_device), cfg)
+    _check(fs.fused_search(imgs, rfw, params, cfg),
+           fs.search_plain(imgs, rfw, params, cfg))
+
+
+@pytest.mark.cuda
+def test_kernel_ties_take_lowest_priority(cuda_device):
+    """Identical refs tie exactly; a constant particle ties every
+    mirror, shift and angle: the lowest priority index wins."""
+    cfg = AlignConfig(img_dim=64, ring_num=24, shift_step=1.0,
+                      shift_rng_x=1.0, shift_rng_y=1.0)
+    a, b = asymmetric_templates(2, 64)
+    refs = torch.as_tensor(np.stack([a, a, b]), device=cuda_device)
+    imgs = torch.as_tensor(np.stack([a, np.ones_like(a), b]),
+                           device=cuda_device)
+    params = AlignParams.zeros(3, cuda_device)
+    rfw = search.prepare_ref_spectra(refs, cfg)
+    got = fs.fused_search(imgs, rfw, params, cfg)
+    want = fs.search_plain(imgs, rfw, params, cfg)
+    _check(got, want)
+    assert int(got.best_ref[0]) == 0
+    assert [int(getattr(got, f)[1]) for f in
+            ("best_sidx", "best_mirror", "best_aidx")] == [0, 0, 0]
+
+
+@pytest.mark.cuda
+def test_kernel_pure_noise_mostly_agrees(cuda_device):
+    """On pure noise near-ties may flip: at most 1% of particles, and
+    then only between peaks within 1e-5 relative."""
+    cfg = AlignConfig(img_dim=90, ring_num=36, shift_step=1.0,
+                      shift_rng_x=3.0, shift_rng_y=3.0)
+    rng = np.random.default_rng(8)
+    n = 256
+    imgs = torch.as_tensor(rng.standard_normal((n, 90, 90), dtype=np.float32),
+                           device=cuda_device)
+    refs = torch.as_tensor(rng.standard_normal((8, 90, 90), dtype=np.float32),
+                           device=cuda_device)
+    params = _params(n, cuda_device)
+    rfw = search.prepare_ref_spectra(refs, cfg)
+    got = fs.fused_search(imgs, rfw, params, cfg)
+    want = fs.search_plain(imgs, rfw, params, cfg)
+    _check(got, want, winners_equal=False)
+    same = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    for f in WINNERS:
+        same &= getattr(got, f) == getattr(want, f)
+    assert int((~same).sum()) <= 0.01 * n
+    rel = (got.best_val - want.best_val).abs() / want.best_val.abs()
+    assert bool((rel[~same] <= 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
+    imgs = torch.zeros((2, 64, 64), device=cuda_device)
+    rfw = torch.zeros((1, 20, 129), dtype=torch.complex64,
+                      device=cuda_device)
+    params = AlignParams.zeros(2, cuda_device)
+    with pytest.raises(NotImplementedError, match="nomirror"):
+        fs.fused_search(imgs, rfw, params,
+                        AlignConfig(img_dim=64, ring_num=20, mirror=False))
+    cfg = AlignConfig(img_dim=64, ring_num=20)
+    with pytest.raises(TypeError):
+        fs.fused_search(imgs.double(), rfw, params, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.fused_search(imgs.transpose(1, 2), rfw, params, cfg)
+    with pytest.raises(ValueError, match="shape"):
+        fs.fused_search(imgs, rfw[:, :10].contiguous(), params, cfg)
+
+
+def _random_cfg(rng):
+    """A random geometry of the kind tests/test_fuzz_engines.py sweeps
+    (odd boxes, asymmetric xr/yr, overshooting fractional steps, small
+    ring counts), restricted to what the kernel takes: 256-angle full
+    rings with the mirror channel."""
+    img_dim = int(rng.choice([48, 56, 64, 75, 90]))
+    ring_num = int(rng.integers(8, min(24, img_dim // 2 - 4)))
+    xr = float(rng.choice([1.0, 2.0, 3.0]))
+    return AlignConfig(img_dim=img_dim, ring_num=ring_num,
+                       shift_step=float(rng.choice([0.5, 0.75, 1.0, 2.0])),
+                       shift_rng_x=xr,
+                       shift_rng_y=float(rng.choice([0.0, 1.0, xr])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(8))
+def test_kernel_matches_plain_random_geometry(cuda_device, seed):
+    """Winners equal the plain version's, except between peaks within
+    1e-5 relative (f32 rounding of two DFT orders)."""
+    rng = np.random.default_rng(9000 + seed)
+    cfg = _random_cfg(rng)
+    tmpl = asymmetric_templates(3, cfg.img_dim)
+    imgs = scattered_stack(tmpl, 16, max_shift=1, noise=0.3, seed=seed,
+                           device=cuda_device)[0].contiguous()
+    params = _params(16, cuda_device, seed=seed)
+    rfw = search.prepare_ref_spectra(
+        torch.as_tensor(tmpl, device=cuda_device), cfg)
+    got = fs.fused_search(imgs, rfw, params, cfg)
+    want = fs.search_plain(imgs, rfw, params, cfg)
+    _check(got, want, winners_equal=False)
+    same = torch.ones(16, dtype=torch.bool, device=cuda_device)
+    for f in WINNERS:
+        same &= getattr(got, f) == getattr(want, f)
+    rel = (got.best_val - want.best_val).abs() / want.best_val.abs()
+    assert bool((rel[~same] <= 1e-5).all()), (cfg, rel[~same])

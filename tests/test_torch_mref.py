@@ -1,0 +1,187 @@
+"""The port's multireference alignment (the slice end to end) against
+``mref_ali2d_tpu(sampler="gather")`` on the CPU, at the sizes of
+tests/test_parity_e2e.py.
+
+Tolerances: assignments, mirrors and class counts exactly equal;
+header params within 1e-3 (the parity bar of BASELINE.json); class
+averages within 1e-4 and the FSC / params text files within 1e-3 (f32
+FFTs against f32 matmul DFTs, summed over iterations and through the
+Nelder-Mead tanh fit).
+"""
+
+import functools
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+h5py = pytest.importorskip("h5py")
+
+import jax
+import jax.numpy as jnp
+
+from cryo_ralib_tpu.config import AlignConfig as JaxConfig
+from cryo_ralib_tpu.models import mref_ali2d_tpu
+from cryo_ralib_tpu.models.steps import align_step as jax_align_step
+from cryo_ralib_tpu.params import AlignParams as JaxParams
+from cryo_ralib_tpu.utils.log import RunLogger as JaxLogger
+from cryo_ralib_tpu.utils.synthetic import (asymmetric_templates,
+                                            class_templates, scattered_stack)
+from cryo_ralib_tpu_torch.config import AlignConfig
+from cryo_ralib_tpu_torch.models.mref import mref_ali2d
+from cryo_ralib_tpu_torch.models.steps import align_step
+from cryo_ralib_tpu_torch.params import params_from_numpy
+from cryo_ralib_tpu_torch.utils.log import RunLogger
+
+K, NX, N, ITERS, OU, XR = 2, 48, 8, 2, 16, 1
+
+
+def _stack(seed=43):
+    base = class_templates(K, NX)
+    # seed 43 gives mixed class labels, so no class vanishes
+    imgs, cls, _, _ = scattered_stack(base, N, max_shift=1, noise=0.01,
+                                      seed=seed)
+    return base, imgs, cls
+
+
+def _run_both(imgs, refs, user_func, outdirs=(None, None),
+              log_to_outdir=False):
+    kw = dict(ou=OU, xr=XR, yr=XR, ts=1, maxit=ITERS,
+              user_func_name=user_func, rand_seed=1000)
+    want = mref_ali2d_tpu(
+        imgs, refs.copy(), outdir=outdirs[0], sampler="gather",
+        log=None if log_to_outdir else JaxLogger(None, quiet=True), **kw)
+    got = mref_ali2d(
+        imgs, refs.copy(), outdir=outdirs[1], device="cpu",
+        log=None if log_to_outdir else RunLogger(None, quiet=True), **kw)
+    return got, want
+
+
+def _assert_results_match(got, want):
+    np.testing.assert_array_equal(got.assignments, want.assignments)
+    np.testing.assert_array_equal(got.class_counts, want.class_counts)
+    np.testing.assert_array_equal(got.params[:, 3], want.params[:, 3])
+    d_ang = np.abs(got.params[:, 0] - want.params[:, 0])
+    assert np.minimum(d_ang, 360.0 - d_ang).max() < 1e-3
+    np.testing.assert_allclose(got.params[:, 1:3], want.params[:, 1:3],
+                               atol=1e-3)
+    assert [list(m) for m in got.members] == [list(m) for m in want.members]
+    assert got.iterations == want.iterations == ITERS
+
+
+@pytest.mark.parametrize("update_ref", [True, False])
+def test_align_step_matches_jax_gather(update_ref):
+    """One step: search, decode, transform and even/odd sums against JAX
+    ``align_step(sampler="gather")``, with accumulated shifts, a padding
+    mask and odd global indices."""
+    n, nx, k = 16, 64, 3
+    kw = dict(img_dim=nx, ring_num=20, ring_len=256, shift_step=1.0,
+              shift_rng_x=2.0, shift_rng_y=2.0)
+    base = asymmetric_templates(k, nx)
+    imgs, _, _, _ = scattered_stack(base, n, max_shift=2, noise=0.05, seed=5)
+    rng = np.random.default_rng(12)
+    state = {"angle": np.zeros(n, np.float32),
+             "shift_x": rng.choice([0.0, 1.0, -0.5], n).astype(np.float32),
+             "shift_y": rng.choice([0.0, -1.0, 0.25], n).astype(np.float32),
+             "mirror": np.zeros(n, np.int32),
+             "ref_id": rng.integers(0, k, n).astype(np.int32)}
+    gidx = (np.arange(n) + 3).astype(np.int32)
+    valid = (np.arange(n) < 13).astype(np.float32)
+    step = jax.jit(functools.partial(
+        jax_align_step, cfg=JaxConfig(**kw), n_classes=k,
+        update_ref=update_ref, sampler="gather"))
+    want = step(jnp.asarray(imgs), jnp.asarray(base),
+                JaxParams(*[jnp.asarray(state[f]) for f in JaxParams._fields]),
+                jnp.asarray(gidx), jnp.asarray(valid))
+    got = align_step(torch.as_tensor(imgs), torch.as_tensor(base),
+                     params_from_numpy(state), torch.as_tensor(gidx),
+                     torch.as_tensor(valid), AlignConfig(**kw), n_classes=k,
+                     update_ref=update_ref)
+    for f in ("shift_x", "shift_y", "mirror", "ref_id"):
+        np.testing.assert_array_equal(getattr(got.params, f).numpy(),
+                                      np.asarray(getattr(want.params, f)))
+    d = np.abs(got.params.angle.numpy() - np.asarray(want.params.angle))
+    assert np.minimum(d, 360.0 - d).max() < 1e-3
+    np.testing.assert_array_equal(got.counts.numpy(), np.asarray(want.counts))
+    sums = np.asarray(want.class_sums)
+    np.testing.assert_allclose(got.class_sums.numpy(), sums, rtol=0,
+                               atol=1e-4 * np.abs(sums).max())
+    peak = np.asarray(want.peak)
+    np.testing.assert_allclose(got.peak.numpy(), peak, rtol=0,
+                               atol=1e-5 * np.abs(peak).max())
+    for f in ("sx_sum", "sy_sum"):
+        np.testing.assert_allclose(float(getattr(got, f)),
+                                   float(getattr(want, f)), atol=1e-3)
+
+
+def test_mref_matches_jax_no_filter():
+    base, imgs, cls = _stack()
+    got, want = _run_both(imgs, base, "ref_ali2d_no_filter")
+    assert (want.class_counts >= 4).all()
+    _assert_results_match(got, want)
+    np.testing.assert_allclose(got.references, want.references, atol=1e-4)
+    assert (got.assignments == cls).all()
+
+
+def test_mref_matches_jax_ref_ali2d_with_outputs(tmp_path):
+    base, imgs, _ = _stack()
+    d_jax, d_port = str(tmp_path / "jax"), str(tmp_path / "port")
+    got, want = _run_both(imgs, base, "ref_ali2d", (d_jax, d_port))
+    _assert_results_match(got, want)
+    np.testing.assert_allclose(got.references, want.references, atol=1e-4)
+
+    # the same outputs, less the JAX package's resume checkpoint
+    want_files = set(os.listdir(d_jax)) - {"checkpoint.npz",
+                                           "checkpoint_rng.pkl"}
+    assert set(os.listdir(d_port)) == want_files
+    assert {"aqm000.hdf", "aqm001.hdf", "drm0000000.txt",
+            "final2Dparams.txt"} <= want_files
+    for name in sorted(want_files):
+        a, b = os.path.join(d_port, name), os.path.join(d_jax, name)
+        if name.endswith(".hdf"):
+            with h5py.File(a, "r") as fa, h5py.File(b, "r") as fb:
+                ga, gb = fa["MDF/images"], fb["MDF/images"]
+                assert ga.attrs["imageid_max"] == gb.attrs["imageid_max"]
+                for key in gb:
+                    np.testing.assert_allclose(ga[key]["image"][()],
+                                               gb[key]["image"][()],
+                                               atol=1e-4)
+                    assert dict(ga[key].attrs).keys() == \
+                        dict(gb[key].attrs).keys()
+                    np.testing.assert_array_equal(
+                        ga[key].attrs["EMAN.members"],
+                        gb[key].attrs["EMAN.members"])
+                    assert ga[key].attrs["EMAN.ave_n"] == \
+                        gb[key].attrs["EMAN.ave_n"]
+        else:
+            np.testing.assert_allclose(np.loadtxt(a), np.loadtxt(b),
+                                       atol=1e-3, err_msg=name)
+
+
+def test_mref_vanished_class_reseeds_like_jax(tmp_path):
+    """A blank reference matches no particle and vanishes (< 4 members);
+    both packages reseed it from the same particle of
+    random.Random(rand_seed) and carry on alike."""
+    base, imgs, _ = _stack()
+    refs = np.concatenate([base, np.zeros((1, NX, NX), np.float32)])
+    d_jax, d_port = str(tmp_path / "jax"), str(tmp_path / "port")
+    got, want = _run_both(imgs, refs, "ref_ali2d_no_filter", (d_jax, d_port),
+                          log_to_outdir=True)
+    _assert_results_match(got, want)
+    np.testing.assert_allclose(got.references, want.references, atol=1e-4)
+
+    def reseeds(d):
+        with open(os.path.join(d, "logfile.txt")) as f:
+            return [line.split(" :: ")[1].strip() for line in f
+                    if "reseeded" in line]
+
+    assert reseeds(d_port) == reseeds(d_jax)
+    assert reseeds(d_jax)[0].endswith("[2]")
+
+
+def test_mref_rejects_unported_centering():
+    base, imgs, _ = _stack()
+    with pytest.raises(NotImplementedError, match="center"):
+        mref_ali2d(imgs, base, ou=OU, xr=XR, maxit=1, center=1,
+                   log=RunLogger(None, quiet=True))
