@@ -8,21 +8,45 @@ and the CUDA toolkit::
 
 Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card, its power limit and the versions;
-  2. build the search kernel (csrc/search.cu, nvcc for sm_90a);
+  2. build the search kernel (csrc/search.cu, nvcc for sm_90a; eight
+     instantiations: mirror or not, angle mask or not, ref group 8 or 1);
   3. kernel vs its plain PyTorch version at 90 px / ou=36 / K=8 / xr=3
      and 160 px / ou=48 / K=4 / xr=2, 512 particles with integer and
      fractional accumulated shifts: structured stacks must give identical
      winners, pure noise may differ on at most 1% of particles, and
      then only between peaks within 1e-5 relative; peak values within
      1e-4 of the largest, decoded params within 1e-3;
+  3b. the same rules for the four variants {mirror, nomirror} x {no
+     mask, the --dst=15 angle mask} at K=1 (the reference-free search)
+     in both geometries (rows compared on the allowed bins under a
+     mask, decoded with refine=False), and for K=64 (eight ref groups in
+     one launch) at 90 px on a structured stack of distinct templates;
+     K=64 asymmetric_templates (near-duplicate refs) at N=512 and 16384
+     under the noise rule, each refined angle within 1e-3 plus twice the
+     change its 7-point fit takes from the two rows' difference;
   4. mref_ali2d through the kernel and through the plain search agree
      on a small stack;
-  5. kernel and plain timed (CUDA events) at the main path's shape;
+  4b. ali2d_base through the kernel and through the plain search, 512
+     particles, maxit=11, dst=15, with and without mirrors: at least 99%
+     of particles with the same mirror and params within 1e-3;
+  5. kernel and plain timed (CUDA events) at the main paths' shapes:
+     K=8 and K=64 mref, K=1 for every variant of the reffree driver;
   6. the main path: mref_ali2d on 16384 synthetic 90 px particles, K=8,
      ou=36, xr=yr=3, 6 iterations, through the kernel (its launch count
      must rise by exactly 6); counts sum to N, nothing is NaN, class
-     purity against the known labels >= 0.9.
-The last two lines are the kernels' JSON record and the run's verdict.
+     purity against the known labels >= 0.9;
+  6b. mref_ali2d at K=64 (BASELINE config 4), 2 iterations: 2 launches
+     (listed as search_k64), counts sum to N, nothing is NaN;
+  7. the reference-free main paths on 16384 particles from one template
+     (ou=36, xr=yr=3, ts=1, K=1, center=-1, dst=15): run A with mirrors
+     and maxit=11 (exactly 1 masked and 10 unmasked launches), run B
+     without mirrors, nomirror=True, maxit=6 (exactly 6 no-mirror
+     launches), run C as B with maxit=11 (1 no-mirror masked and 10
+     no-mirror launches); nothing NaN, counts sum to N, and in run A the
+     last criterion is at least half the first.
+Every launch counter is set to 0 just before each main-path run (6, 6b,
+7) and read just after it.  The last lines are the card, the kernels'
+JSON record and the run's verdict.
 """
 
 import json
@@ -38,8 +62,21 @@ BIG_BOX = dict(nx=160, ou=48, xr=2.0, k=4)
 N_CHECK = 512
 N_SLICE = 16384
 MAXIT = 6
+K_LARGE = 64
+DST = 15.0
 SOURCE = "cryo_ralib_tpu_torch/csrc/search.cu"
 REPLACES = "cryo_ralib_tpu/ops/fused_search.py:129"
+# the TPU kernel's lines of each variant (one body, static flags)
+VARIANT_REPLACES = {
+    "search": REPLACES,
+    "search_nomirror": "cryo_ralib_tpu/ops/fused_search.py:147",
+    "search_masked": "cryo_ralib_tpu/ops/fused_search.py:162",
+    "search_nomirror_masked": "cryo_ralib_tpu/ops/fused_search.py:147",
+    "search_k64": "cryo_ralib_tpu/ops/fused_search.py:356",
+}
+F32_PEAK = 67e12     # FLOP/s, H100 SXM, outside the tensor cores
+HBM_RATE = 3.35e12   # bytes/s
+L, F = 256, 129
 
 
 def log(msg):
@@ -74,12 +111,34 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def geometry(geom):
+def geometry(geom, mirror=True):
     from cryo_ralib_tpu_torch.config import AlignConfig
 
     return AlignConfig(img_dim=geom["nx"], ring_num=geom["ou"],
                        shift_step=1.0, shift_rng_x=geom["xr"],
-                       shift_rng_y=geom["xr"])
+                       shift_rng_y=geom["xr"], mirror=mirror)
+
+
+def search_bound(n, nx, r, s, k, n_mirr):
+    """(bound_ms, bound_by, direct_tflop) of one search.  The bound is
+    the larger of the f32 operations the search needs over the f32 peak
+    and its bytes (each input read once, each output written once) over
+    the memory rate.  Per particle and shift it needs r x 256 bilinear
+    samples (8 operations each), r forward and n_mirr x k inverse real
+    FFTs of 256 points (2.5 L log2 L each) and the k x r x 129 complex
+    products (8 operations each, both mirror channels from the same
+    four real products).  direct_tflop is the kernel's own work, whose
+    DFTs are direct (L x L per forward, 2 x 129 x L per inverse)."""
+    per_shift = (r * L * 8 + (r + n_mirr * k) * 2.5 * L * 8
+                 + 8 * k * r * F)
+    per_shift_direct = 2 * (r * L * L + n_mirr * k * F * L * 2
+                            + 4 * k * r * F)
+    flops = float(n * s * per_shift)
+    nbytes = (4 * n * nx * nx + 8 * n + 8 * r * L + 8 * s + 8 * k * r * F
+              + 8 * L + n * 4 * (1 + L + 4))
+    t_op, t_mem = flops / F32_PEAK, nbytes / HBM_RATE
+    return (1e3 * max(t_op, t_mem), "operations" if t_op >= t_mem
+            else "bytes", n * s * per_shift_direct / 1e12)
 
 
 def acc_params(n, seed, dev):
@@ -96,33 +155,87 @@ def acc_params(n, seed, dev):
         dev)
 
 
-def make_case(geom, n, kind, seed, dev):
+def make_case(geom, n, kind, seed, dev, mirror=True, refs=None):
     from cryo_ralib_tpu_torch.ops.search import prepare_ref_spectra
     from cryo_ralib_tpu_torch.utils.synthetic import (asymmetric_templates,
                                                       scattered_stack)
 
     nx = geom["nx"]
-    refs = asymmetric_templates(geom["k"], nx)
+    if refs is None:
+        refs = asymmetric_templates(geom["k"], nx)
     if kind == "structured":
         imgs = scattered_stack(refs, n, max_shift=1, noise=0.1, seed=seed,
-                               device=dev)[0]
+                               device=dev, mirror=mirror)[0]
     else:
         rng = np.random.default_rng(seed)
         imgs = torch.as_tensor(
             rng.standard_normal((n, nx, nx), dtype=np.float32), device=dev)
-    cfg = geometry(geom)
+    cfg = geometry(geom, mirror)
     rfw = prepare_ref_spectra(torch.as_tensor(refs, device=dev), cfg)
     return cfg, imgs.contiguous(), rfw, acc_params(n, seed + 1, dev)
 
 
-def compare(cfg, imgs, rfw, params, kind, label):
-    """Kernel vs plain on one input; returns max |best_val| difference."""
+C2 = torch.tensor([49.0, 6.0, -21.0, -32.0, -27.0, -6.0, 31.0],
+                  dtype=torch.float64)
+C3 = torch.tensor([5.0, 0.0, -3.0, -4.0, -3.0, 0.0, 5.0],
+                  dtype=torch.float64)
+
+
+def fit_points(res):
+    """(N, 7) float64: the 7 row values around the winning bin that
+    decode_params' parabolic fit reads."""
+    offs = torch.arange(-3, 4, device=res.best_row.device)
+    cols = (res.best_aidx.long()[:, None] + offs) % L
+    return torch.gather(res.best_row, 1, cols).double()
+
+
+def fit_change(got, want, cfg, d, label):
+    """Per particle, twice the first-order change that the 7-point fit
+    (c2 / (2 c3), decode_params) takes from the two rows' difference e
+    on its points: step x (172 e + |c2 / c3| x 20 e) / (2 |c3|), with
+    172 and 20 the sums of |c2| and |c3| coefficients.  Prints the
+    particle with the largest refined-angle difference ``d`` (its 7
+    points in both, c3 and the change) and how flat the peaks are
+    (|c3| / peak) by the ref that won them."""
+    xk, xp = fit_points(got), fit_points(want)
+    c2, c3 = xp @ C2.to(xp.device), xp @ C3.to(xp.device)
+    e = (xk - xp).abs().max(1).values
+    change = (cfg.angle_step * (172.0 + (c2 / c3).abs() * 20.0) * e
+              / (2.0 * c3.abs()))
+    flat = (c3 / xp[:, 3]).abs()
+    over = d > 1e-3
+    ref = want.best_ref
+    i = int(d.argmax())
+    log(f"  {label}: largest refined-angle difference {float(d[i]):.3e} deg "
+        f"at particle {i}: 7 points kernel {xk[i].tolist()} plain "
+        f"{xp[i].tolist()}, c3 {float(c3[i]):.6e}, |c3| / peak "
+        f"{float(flat[i]):.3e}, first-order change from the rows "
+        f"{float(change[i]):.3e} deg.  {int(over.sum())} particles over "
+        f"1e-3 deg, their largest |c3| / peak "
+        f"{float(flat[over].max()) if bool(over.any()) else 0.0:.3e}, "
+        f"their lowest ref {int(ref[over].min()) if bool(over.any()) else -1}"
+        f"; median |c3| / peak of all {float(flat.median()):.3e}, of the "
+        f"particles won by refs 0-7 {float(flat[ref < 8].median()):.3e}, "
+        f"by refs 8-{int(ref.max())} {float(flat[ref >= 8].median()):.3e}")
+    return 2.0 * change
+
+
+def compare(cfg, imgs, rfw, params, kind, label, mask=None):
+    """Kernel vs plain on one input; returns max |best_val| difference.
+    ``kind`` "structured" wants identical winners; "noise" lets at most
+    1% differ, between peaks within 1e-5 relative; "flat" (near-duplicate
+    refs with flat angular peaks) is "noise" with each refined angle
+    allowed 1e-3 plus ``fit_change``, the others 1e-3.  Under an angle
+    mask the rows are compared on the allowed bins (the kernel's row is
+    unmasked, the plain version's masked) and the params decoded with
+    refine=False."""
     from cryo_ralib_tpu_torch.ops import fused_search as fs
     from cryo_ralib_tpu_torch.ops.search import decode_params
 
     shift_chunk = 8 if imgs.shape[0] <= 4096 else 1
-    got = fs.fused_search(imgs, rfw, params, cfg)
-    want = fs.search_plain(imgs, rfw, params, cfg, shift_chunk=shift_chunk)
+    got = fs.fused_search(imgs, rfw, params, cfg, angle_mask=mask)
+    want = fs.search_plain(imgs, rfw, params, cfg, shift_chunk=shift_chunk,
+                           angle_mask=mask)
     torch.cuda.synchronize()
     same = torch.ones_like(got.best_ref, dtype=torch.bool)
     for f in ("best_ref", "best_sidx", "best_mirror", "best_aidx"):
@@ -139,14 +252,31 @@ def compare(cfg, imgs, rfw, params, kind, label):
         if n_diff:
             rel = ((got.best_val - want.best_val).abs()
                    / want.best_val.abs())[~same]
+            log(f"  {label}: max rel peak difference among them "
+                f"{float(rel.max()):.2e}")
             check(float(rel.max()) <= 1e-5, f"{label}: rel {rel.max()}")
     check(err <= 1e-4 * scale, f"{label}: best_val off by {err}")
     check(bool(torch.isfinite(got.best_row).all()), f"{label}: rows")
-    p_got = decode_params(got, params, cfg)
-    p_want = decode_params(want, params, cfg)
-    d = (p_got.angle - p_want.angle).abs()[same]
-    d = torch.minimum(d, 360.0 - d)
-    check(float(d.max()) < 1e-3, f"{label}: angle off by {float(d.max())}")
+    if mask is not None:
+        allowed = mask == 0
+        check(bool(allowed[got.best_aidx.long()].all()),
+              f"{label}: a masked angle bin won")
+        row_err = float((got.best_row - want.best_row)[same][:, allowed]
+                        .abs().max())
+        check(row_err <= 1e-4 * scale, f"{label}: row off by {row_err}")
+    if not cfg.mirror:
+        check(int(got.best_mirror.max()) == 0, f"{label}: mirrored winner")
+    refine = mask is None
+    p_got = decode_params(got, params, cfg, refine=refine)
+    p_want = decode_params(want, params, cfg, refine=refine)
+    d = (p_got.angle - p_want.angle).abs().double()
+    d = torch.where(same, torch.minimum(d, 360.0 - d), torch.zeros_like(d))
+    tol = 1e-3
+    if kind == "flat":
+        tol = tol + fit_change(got, want, cfg, d, label)
+    bad = d >= tol
+    check(not bool(bad.any()), f"{label}: {int(bad.sum())} angles off, by "
+          f"up to {float(d.max())}")
     for f in ("shift_x", "shift_y"):
         check(torch.equal(getattr(p_got, f)[same], getattr(p_want, f)[same]),
               f"{label}: decoded {f} differs")
@@ -160,6 +290,21 @@ def purity(assign, truth, k):
         if members.size:
             hits += np.bincount(members, minlength=k).max()
     return hits / truth.size
+
+
+def reffree_agree(a, b, label):
+    """Share of particles with the same mirror and params within 1e-3 in
+    two reffree results; lists the others."""
+    d = np.abs(a.params[:, 0] - b.params[:, 0])
+    ok = ((a.params[:, 3] == b.params[:, 3])
+          & (np.minimum(d, 360.0 - d) < 1e-3)
+          & (np.abs(a.params[:, 1:3] - b.params[:, 1:3]) < 1e-3).all(1))
+    share = float(ok.mean())
+    log(f"  {label}: {share:.4f} of particles agree; differing: "
+        + "; ".join(f"#{i} kernel {a.params[i].round(3).tolist()} plain "
+                    f"{b.params[i].round(3).tolist()}"
+                    for i in np.nonzero(~ok)[0][:20]))
+    check(share >= 0.99, f"{label}: only {share:.4f} agree")
 
 
 def main():
@@ -177,20 +322,29 @@ def main():
 
     from cryo_ralib_tpu_torch import kernels
     from cryo_ralib_tpu_torch.models.mref import mref_ali2d
+    from cryo_ralib_tpu_torch.models.reffree import ali2d_base
     from cryo_ralib_tpu_torch.ops import fused_search as fs
-    from cryo_ralib_tpu_torch.ops.search import prepare_ref_spectra
+    from cryo_ralib_tpu_torch.ops.search import (delta_angle_mask,
+                                                 prepare_ref_spectra)
     from cryo_ralib_tpu_torch.utils.log import RunLogger
     from cryo_ralib_tpu_torch.utils.synthetic import (asymmetric_templates,
+                                                      blob_stack,
                                                       scattered_stack)
 
     # ---- 2. build
-    fs.build()
+    lib = fs.build()
     info = kernels.build_log["search"]
     log(f"build: search kernel in {info['seconds']:.2f} s "
         f"(cached={info['cached']})")
     for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if ("registers" in line or "spill" in line or "smem" in line
+                or "entry function" in line):
             log("  ptxas: " + line.strip())
+    for mirror in (1, 0):
+        for k in (HEADLINE["k"], 1):
+            log(f"  shared memory per block at ou={HEADLINE['ou']}, "
+                f"mirror={mirror}, K={k}: "
+                f"{lib.cryo_search_smem_bytes(HEADLINE['ou'], mirror, k)} B")
 
     # ---- 3. kernel vs plain at N=512
     log("kernel vs plain, N=%d" % N_CHECK)
@@ -202,6 +356,39 @@ def main():
             err = compare(*case, kind, label)
             if geom is HEADLINE and kind == "structured":
                 errs.append(err)
+
+    # ---- 3b. the variants at K=1, and K=64, against plain at N=512
+    mask = torch.as_tensor(delta_angle_mask(L, DST), device=dev)
+    var_errs = {name: [] for name in VARIANT_REPLACES}
+    for gi, geom in enumerate((HEADLINE, BIG_BOX)):
+        geom1 = dict(geom, k=1)
+        for mirror in (True, False):
+            for masked in (False, True):
+                name = fs.variant(geometry(geom1, mirror), masked)
+                for kind in ("structured", "noise"):
+                    case = make_case(geom1, N_CHECK, kind, seed=20 + gi,
+                                     dev=dev, mirror=mirror)
+                    label = f"{name} {geom['nx']}px ou={geom['ou']} K=1 {kind}"
+                    err = compare(*case, kind, label,
+                                  mask=mask if masked else None)
+                    if kind == "structured":
+                        var_errs[name].append(err)
+    # K=64: asymmetric_templates repeat themselves beyond ~40 classes
+    # (template i+44 is template i turned by ~1 degree), so their
+    # winners are near-ties and their peaks can be flat: they take the
+    # noise rule and the fit's conditioning (compare kind "flat").
+    # Seeded random blobs are distinct and take the structured rule.
+    tmpl64 = blob_stack(K_LARGE, HEADLINE["nx"], blobs=6, noise=0.0, seed=64)
+    tmpl64 = ((tmpl64 - tmpl64.mean((1, 2), keepdims=True))
+              / tmpl64.std((1, 2), keepdims=True))   # unit sigma, as above
+    geom64 = dict(HEADLINE, k=K_LARGE)
+    var_errs["search_k64"].append(compare(
+        *make_case(geom64, N_CHECK, "structured", seed=30, dev=dev,
+                   refs=tmpl64),
+        "structured", f"90px ou=36 K={K_LARGE} blob templates structured"))
+    var_errs["search_k64"].append(compare(
+        *make_case(geom64, N_CHECK, "structured", seed=30, dev=dev),
+        "flat", f"90px ou=36 K={K_LARGE} asymmetric_templates"))
 
     # ---- 4. mref_ali2d: kernel path vs plain path on a small stack
     tmpl = asymmetric_templates(HEADLINE["k"], HEADLINE["nx"])
@@ -223,6 +410,21 @@ def main():
     log("mref_ali2d: kernel and plain paths agree on %d particles, 2 "
         "iterations" % N_CHECK)
 
+    # ---- 4b. ali2d_base: kernel path vs plain path on a small stack
+    tmpl1 = asymmetric_templates(1, HEADLINE["nx"])
+    rf_kw = dict(ou=HEADLINE["ou"], xr=HEADLINE["xr"], ts=1.0, dst=DST,
+                 device=dev)
+    for mirror in (True, False):
+        stack = scattered_stack(tmpl1, N_CHECK, max_shift=2, noise=1.0,
+                                seed=4, device=dev, mirror=mirror)[0]
+        runs = {sampler: ali2d_base(stack, maxit=11, nomirror=not mirror,
+                                    sampler=sampler,
+                                    log=RunLogger(None, quiet=True), **rf_kw)
+                for sampler in ("kernel", "plain")}
+        reffree_agree(runs["kernel"], runs["plain"],
+                      f"ali2d_base N={N_CHECK} maxit=11 dst={DST:g} "
+                      f"{'mirror' if mirror else 'nomirror'}")
+
     # ---- 5. the main path's input and shape: compare and time.  The
     # noisy stack may hold a rare rounding-level near-tie, so it is held
     # to the noise rule.  Asymmetric templates: the dihedral
@@ -234,32 +436,87 @@ def main():
     rfw = prepare_ref_spectra(torch.as_tensor(tmpl, device=dev), cfg)
     errs.append(compare(cfg, imgs, rfw, params, "noise",
                         f"90px K=8 N={N_SLICE}"))
-    ms = cuda_ms(lambda: fs.fused_search(imgs, rfw, params, cfg), 3)
-    ms_small = cuda_ms(lambda: fs.fused_search(
-        imgs[:N_CHECK].contiguous(), rfw, params._replace(
-            shift_x=params.shift_x[:N_CHECK].contiguous(),
-            shift_y=params.shift_y[:N_CHECK].contiguous()), cfg), 10)
-    plain_ms = cuda_ms(lambda: fs.search_plain(imgs, rfw, params, cfg,
-                                               shift_chunk=1), 1)
-    plain_small = cuda_ms(lambda: fs.search_plain(
-        imgs[:N_CHECK], rfw, params._replace(
-            shift_x=params.shift_x[:N_CHECK],
-            shift_y=params.shift_y[:N_CHECK]), cfg), 3)
-    log(f"search 90px K=8 S=49: kernel {ms:.2f} ms, plain {plain_ms:.2f} ms "
-        f"at N={N_SLICE}; kernel {ms_small:.3f} ms, plain "
-        f"{plain_small:.3f} ms at N={N_CHECK}  [{card}]")
+    small_params = params._replace(
+        shift_x=params.shift_x[:N_CHECK].contiguous(),
+        shift_y=params.shift_y[:N_CHECK].contiguous())
+    times = {}   # name -> (ms, plain_ms, ms at N=512, plain_ms at N=512)
+
+    def time_search(name, cfg, imgs, rfw, mask=None):
+        sub = imgs[:N_CHECK].contiguous()
+        times[name] = (
+            cuda_ms(lambda: fs.fused_search(imgs, rfw, params, cfg,
+                                            angle_mask=mask), 3),
+            cuda_ms(lambda: fs.search_plain(imgs, rfw, params, cfg,
+                                            shift_chunk=1,
+                                            angle_mask=mask), 1),
+            cuda_ms(lambda: fs.fused_search(sub, rfw, small_params, cfg,
+                                            angle_mask=mask), 10),
+            cuda_ms(lambda: fs.search_plain(sub, rfw, small_params, cfg,
+                                            angle_mask=mask), 3))
+        log(f"time {name} {imgs.shape[1]}px K={rfw.shape[0]} "
+            f"S={cfg.n_shifts}: kernel {times[name][0]:.2f} ms, plain "
+            f"{times[name][1]:.2f} ms at N={imgs.shape[0]}; kernel "
+            f"{times[name][2]:.3f} ms, plain {times[name][3]:.3f} ms at "
+            f"N={N_CHECK}  [{card}]")
+
+    time_search("search", cfg, imgs, rfw)
+    # the reference-free shape: K=1, with and without mirrors and mask
+    imgs1 = scattered_stack(tmpl1, N_SLICE, max_shift=2, noise=1.0, seed=8,
+                            device=dev)[0]
+    for mirror in (True, False):
+        cfg1 = geometry(HEADLINE, mirror)
+        rfw1 = prepare_ref_spectra(torch.as_tensor(tmpl1, device=dev), cfg1)
+        for masked in (False, True):
+            m = mask if masked else None
+            name = fs.variant(cfg1, masked)
+            errs_n = compare(cfg1, imgs1, rfw1, params, "noise",
+                             f"{name} 90px K=1 N={N_SLICE}", mask=m)
+            var_errs[name].append(errs_n)
+            time_search(name + "_k1", cfg1, imgs1, rfw1, m)
+    imgs64 = scattered_stack(tmpl64, N_SLICE, max_shift=2, noise=1.0,
+                             seed=9, device=dev)[0]
+    rfw64 = prepare_ref_spectra(torch.as_tensor(tmpl64, device=dev), cfg)
+    var_errs["search_k64"].append(compare(
+        cfg, imgs64, rfw64, params, "noise", f"90px K={K_LARGE} N={N_SLICE}"))
+    time_search("search_k64", cfg, imgs64, rfw64)
+    tmpl64a = asymmetric_templates(K_LARGE, HEADLINE["nx"])
+    imgs64 = scattered_stack(tmpl64a, N_SLICE, max_shift=2, noise=1.0,
+                             seed=9, device=dev)[0]
+    var_errs["search_k64"].append(compare(
+        cfg, imgs64, prepare_ref_spectra(torch.as_tensor(tmpl64a, device=dev),
+                                         cfg), params,
+        "flat", f"90px K={K_LARGE} asymmetric_templates N={N_SLICE}"))
+    del imgs1, imgs64
+    ms, plain_ms = times["search"][:2]
+
+    launches = {}   # kernel entry -> {main path: launches}
+
+    def main_path(label, fn, expect, entry=None):
+        """Run one main path between a reset and a read of the launch
+        counters; ``entry`` names the record its default-variant
+        launches belong to (the K=64 shape has its own)."""
+        fs.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = dict(fs.fused_search.launches)
+        log(f"{label}: launches {got}")
+        for key, want in expect.items():
+            check(got[key] == want, f"{label}: {key} launched {got[key]} "
+                  f"times, not {want}")
+        for key, n_l in got.items():
+            if n_l:
+                name = entry if entry and key == "search" else key
+                launches.setdefault(name, {})[label] = n_l
+        return res, seconds
 
     # ---- 6. the main path
-    fs.fused_search.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = mref_ali2d(imgs, tmpl, ou=HEADLINE["ou"], xr=HEADLINE["xr"],
-                     yr=HEADLINE["xr"], ts=1, maxit=MAXIT, device=dev,
-                     log=RunLogger(None, quiet=True))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = fs.fused_search.launches
-    check(launches == MAXIT, f"kernel launched {launches} times, not {MAXIT}")
+    res, seconds = main_path("mref K=8", lambda: mref_ali2d(
+        imgs, tmpl, ou=HEADLINE["ou"], xr=HEADLINE["xr"], yr=HEADLINE["xr"],
+        ts=1, maxit=MAXIT, device=dev, log=RunLogger(None, quiet=True)),
+        {"search": MAXIT})
     check(res.params.shape == (N_SLICE, 4), f"params {res.params.shape}")
     check(bool(np.isfinite(res.params).all()
                and np.isfinite(res.references).all()), "NaN in the outputs")
@@ -271,11 +528,90 @@ def main():
         f"{N_SLICE * MAXIT / seconds:.0f} particles/s, purity {pur:.4f}, "
         f"counts {res.class_counts.tolist()}  [{card}]")
     check(pur >= 0.9, f"class purity {pur}")
+    del imgs
 
-    print(json.dumps({"kernels": [{
-        "name": "search", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}]}))
+    # ---- 6b. mref at K=64
+    imgs64, cls64 = scattered_stack(tmpl64, N_SLICE, max_shift=2, noise=1.0,
+                                    seed=11, device=dev)[:2]
+    res, seconds = main_path(f"mref K={K_LARGE}", lambda: mref_ali2d(
+        imgs64, tmpl64, ou=HEADLINE["ou"], xr=HEADLINE["xr"],
+        yr=HEADLINE["xr"], ts=1, maxit=2, device=dev,
+        log=RunLogger(None, quiet=True)),
+        {"search": 2}, entry="search_k64")
+    check(bool(np.isfinite(res.params).all()
+               and np.isfinite(res.references).all()), "K=64: NaN")
+    check(int(res.class_counts.sum()) == N_SLICE, "K=64: counts")
+    log(f"mref_ali2d N={N_SLICE} K={K_LARGE} maxit=2: {seconds:.2f} s, "
+        f"{seconds / 2:.3f} s/iteration, {2 * N_SLICE / seconds:.0f} "
+        f"particles/s, purity {purity(res.assignments, cls64, K_LARGE):.4f}"
+        f"  [{card}]")
+    del imgs64
+
+    # ---- 7. the reference-free main paths
+    rf_kw = dict(ou=HEADLINE["ou"], xr=HEADLINE["xr"], yr=HEADLINE["xr"],
+                 ts=1.0, center=-1, dst=DST, device=dev,
+                 log=RunLogger(None, quiet=True))
+    for label, mirror, maxit, expect in (
+            ("reffree A", True, 11, {"search": 10, "search_masked": 1}),
+            ("reffree B", False, 6, {"search_nomirror": 6}),
+            ("reffree C", False, 11, {"search_nomirror": 10,
+                                      "search_nomirror_masked": 1})):
+        stack, _, _, _, mir = scattered_stack(
+            tmpl1, N_SLICE, max_shift=2, noise=1.0, seed=12, device=dev,
+            mirror=mirror)
+        res, seconds = main_path(label, lambda: ali2d_base(
+            stack, maxit=maxit, nomirror=not mirror, **rf_kw), expect)
+        check(res.iterations == maxit, f"{label}: {res.iterations} iterations")
+        check(bool(np.isfinite(res.params).all()
+                   and np.isfinite(res.average).all()
+                   and np.isfinite(res.criteria).all()), f"{label}: NaN")
+        check(int(res.class_counts.sum()) == N_SLICE, f"{label}: counts")
+        flip = float((res.params[:, 3] == mir).mean())
+        log(f"{label}: ali2d_base N={N_SLICE} 90px ou=36 xr=yr=3 ts=1 "
+            f"{'mirror' if mirror else 'nomirror'} dst={DST:g} "
+            f"maxit={maxit}: {seconds:.2f} s, {seconds / maxit:.3f} "
+            f"s/iteration, {N_SLICE * maxit / seconds:.0f} particles/s; "
+            f"criteria {res.criteria[0]:.6e} -> {res.criteria[-1]:.6e}; "
+            f"mirror flags matching the truth up to a global flip "
+            f"{max(flip, 1.0 - flip):.4f}; last mirror consistency "
+            f"{res.mirror_consistency[-1]:.4f}, pixel error "
+            f"{res.pixel_errors[-1]:.4f}  [{card}]")
+        if label == "reffree A":
+            check(res.criteria[-1] >= 0.5 * res.criteria[0],
+                  f"{label}: criterion fell to {res.criteria[-1]}")
+        del stack
+
+    shapes = {   # entry -> (timing key, K, mirror channels)
+        "search": ("search", HEADLINE["k"], 2),
+        "search_nomirror": ("search_nomirror_k1", 1, 1),
+        "search_masked": ("search_masked_k1", 1, 2),
+        "search_nomirror_masked": ("search_nomirror_masked_k1", 1, 1),
+        "search_k64": ("search_k64", K_LARGE, 2),
+    }
+    records = []
+    for name, (tkey, k, n_mirr) in shapes.items():
+        bound_ms, bound_by, direct_tflop = search_bound(
+            N_SLICE, HEADLINE["nx"], HEADLINE["ou"], cfg.n_shifts, k, n_mirr)
+        log(f"{name}: bound {bound_ms:.3f} ms ({bound_by}); the kernel's "
+            f"direct DFTs do {direct_tflop:.3f} TFLOP, "
+            f"{1e3 * direct_tflop * 1e12 / F32_PEAK:.2f} ms at the f32 peak")
+        by_path = launches.get(name, {})
+        check(sum(by_path.values()) > 0, f"{name}: no launch on a main path")
+        max_err = max(errs) if name == "search" else max(var_errs[name])
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": VARIANT_REPLACES[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max_err, "ms": times[tkey][0],
+            "plain_ms": times[tkey][1], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "n": N_SLICE, "k": k,
+            "ms_n512": times[tkey][2], "plain_ms_n512": times[tkey][3]})
+    k1 = times["search_k1"]
+    log(f"search default variant at K=1 (reffree unmasked iterations): "
+        f"kernel {k1[0]:.2f} ms, plain {k1[1]:.2f} ms at N={N_SLICE}; "
+        f"{k1[2]:.3f} / {k1[3]:.3f} ms at N={N_CHECK}  [{card}]")
+    log(card)
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,7 @@
 // CUDA kernel for Hopper (sm_90a).
 //
 // Replaces cryo_ralib_tpu/ops/fused_search.py::_kernel_banded2 (the Pallas
-// TPU kernel, default variant: mirrored, unmasked, full stage).  It computes
+// TPU kernel, :129, launched through pl.pallas_call at :512).  It computes
 // what the f32 plain search cryo_ralib_tpu_torch/ops/search.py::
 // rotational_shift_search computes, per particle:
 //   for every grid shift s (S of them):
@@ -21,14 +21,45 @@
 //   Outputs: peak value, winning 256-angle row, angle bin, shift index,
 //   ref and mirror flag.
 //
+// Variants: search_kernel<NMIRR, MASK, KG>, eight instantiations picked at
+// launch (cryo_search_launch); each is one static variant of the TPU body:
+//   NMIRR=2, MASK=false  the default variant (mirrored, unmasked, full
+//                        stage; fused_search.py:129).
+//   NMIRR=1              do_mirror=False, --nomirror (fused_search.py:147-152,
+//                        :181-183, :289-291, :505-507): the ccf builds and the
+//                        inverse DFT inverts the original channel only, so
+//                        half the ccf stores and inverse-DFT rows; m stays 0
+//                        in e, so ties still break by (shift, ref, angle).
+//   MASK=true            has_mask=True, --dst (fused_search.py:162-167,
+//                        :389-394, :439-443, :533-535): thread t adds
+//                        mask[t] (0 on allowed bins, -3e38 elsewhere) to the
+//                        value it offers for angle t before the argmax.  The
+//                        reported peak is the masked value (equal to the
+//                        unmasked one on an allowed bin, where the mask is
+//                        exactly 0); the winning row stays unmasked, as the
+//                        TPU kernel keeps it.  A masked candidate rounds to
+//                        exactly -3e38 and may tie the initial best and take
+//                        it on its lower e, but any allowed candidate beats
+//                        it, so while one bin is allowed (the wrapper
+//                        checks) the winner is allowed.
+//   KG=1 or 8            the refs per ccf / inverse-DFT group: 1 when K=1
+//                        (the reference-free driver), else 8.  Large K
+//                        (fold=True and the ref-axis chunks of
+//                        fused_search.py:356-424, :752-781, _merge_chunk
+//                        :791) needs no variant: the ref-group loop covers any
+//                        K in one launch with the same priority rule.
+// The ablation stages (stage in {no_ccf, no_yred, sample_only}, :329-348)
+// are a TPU measurement harness and are not ported; raw4 (:174-176) is a
+// TPU accumulator layout with the default variant's outputs.
+//
 // What bounds it on the H100.  Per particle at the headline geometry
-// (R=36, K=8, S=49): the ring DFT is S*R*129*256 ~ 58 M complex-by-real
-// MACs, the ccf 2*K*S*R*129 ~ 3.6 M complex MACs and the inverse DFT
-// 2*K*S*256*129 ~ 26 M MACs, against a 32 KB image read.  So the direct
-// DFTs dominate and the kernel is bound by f32 arithmetic (and the shared
-// memory traffic that feeds it), not by device memory.  Measured on one
-// H100 SXM at a 700 W limit: 274 ms per 16384-particle headline search,
-// ~21 TFLOP/s of direct-DFT work, about a third of the f32 peak.
+// (R=36, K=8, S=49): the ring DFT is S*R*256*256 ~ 116 M real MACs, the
+// ccf 4*K*S*R*129 ~ 7.3 M MACs and the inverse DFT 2*K*S*256*129*2 ~ 52 M
+// MACs, against a 32 KB image read.  So the direct DFTs dominate and the
+// kernel is bound by f32 arithmetic (and the shared memory traffic that
+// feeds it), not by device memory.  Measured on one H100 SXM at a 700 W
+// limit: 274 ms per 16384-particle headline search, ~21 TFLOP/s of
+// direct-DFT work, about a third of the f32 peak.
 //
 // What the design does about it.  One 256-thread block per particle loops
 // over the shifts; nothing leaves the block but the winner, so device
@@ -39,16 +70,16 @@
 // the sin rows of bins 0 and 128 are zero) with RG accumulators in
 // registers, reading each ring sample once per four angles as a float4
 // broadcast and the twiddle from a 256-entry cos table in shared memory.
-// The inverse DFT is the transpose: thread t owns angle t for 2*KG rows.
-// A radix-2 FFT and tensor-core variants are later work.
+// The inverse DFT is the transpose: thread t owns angle t for NMIRR*KG
+// rows.  A radix-2 FFT and tensor-core variants are later work.
 //
 // Shared memory per block: twiddles 1 KB, warp partials, one ring group of
 // samples (RG x 256 floats, 12 KB), the ring spectra (R rounded up to RG,
 // x 256 floats: 36 KB at R=36, 108 KB at R=100) and the ccf spectra of
-// one ref group (2*KG*129 float2, 16.5 KB): 67 KB at the headline, so
-// three blocks fit on an SM.  The image is read through the read-only
-// cache (__ldg), so any box size runs; only R bounds the shared memory
-// (R <= 192 fits the 227 KB a block may take).
+// one ref group (NMIRR*KG*129 float2, 16.5 KB for the default variant):
+// 67 KB at the headline, so three blocks fit on an SM.  The image is read
+// through the read-only cache (__ldg), so any box size runs; only R bounds
+// the shared memory (R <= 192 fits the 227 KB a block may take).
 
 #include <cuda_runtime.h>
 
@@ -57,7 +88,6 @@
 #define NTHREADS 256
 #define NWARPS (NTHREADS / 32)
 #define RG 12  // rings per register group of the forward DFT
-#define KG 8   // references per ccf / inverse-DFT group
 
 __device__ __forceinline__ bool beats(float v, int e, float bv, int be) {
   return v > bv || (v == bv && e < be);
@@ -85,14 +115,17 @@ __device__ __forceinline__ float bilinear(const float* __restrict__ img,
 
 static inline int ring_pad(int n_rings) { return (n_rings + RG - 1) / RG * RG; }
 
-static inline size_t smem_bytes(int n_rings) {
+static inline int ref_group(int n_refs) { return n_refs == 1 ? 1 : 8; }
+
+static inline size_t smem_bytes(int n_rings, int n_mirr, int kg) {
   const size_t r_pad = (size_t)ring_pad(n_rings);
   return sizeof(float) * (L + 2 * NWARPS)      // twiddles, warp partials
          + sizeof(float) * RG * L              // one ring group of samples
          + sizeof(float) * r_pad * L           // ring spectra
-         + sizeof(float2) * 2 * KG * F;        // ccf spectra of a ref group
+         + sizeof(float2) * n_mirr * kg * F;   // ccf spectra of a ref group
 }
 
+template <int NMIRR, bool MASK, int KG>
 __global__ void __launch_bounds__(NTHREADS)
 search_kernel(const float* __restrict__ images,   // (N, H, W)
               const float* __restrict__ acc_sx,   // (N,) accumulated shifts
@@ -101,6 +134,7 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
               const float* __restrict__ shifts,   // (S, 2) grid shifts
               const float2* __restrict__ ref_fw,  // (K, R, F) ref spectra
               const float* __restrict__ twiddle,  // (L,) cos(2 pi j / L)
+              const float* __restrict__ mask,     // (L,) angle mask if MASK
               int h, int w, int n_rings, int n_shifts, int n_refs,
               float* __restrict__ out_val,        // (N,)
               float* __restrict__ out_row,        // (N, L)
@@ -113,7 +147,7 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
   int* red_e = (int*)(red_v + NWARPS);             // NWARPS
   float* polar = (float*)(red_e + NWARPS);         // RG * L
   float* spec = polar + RG * L;                    // r_pad * L
-  float2* X = (float2*)(spec + r_pad * L);         // 2 * KG * F
+  float2* X = (float2*)(spec + r_pad * L);         // NMIRR * KG * F
 
   const int n = blockIdx.x;
   const int t = threadIdx.x;
@@ -128,6 +162,7 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
   // (-sin(theta) = cos(theta + pi/2), a quarter turn = 64 table entries)
   const int f_col = (t <= 128) ? t : t - 128;
   const int off_col = (t <= 128) ? 0 : 64;
+  const float mask_t = MASK ? mask[t] : 0.f;
 
   float best_v = -3.0e38f;  // identical in every thread
   int best_e = 0x7fffffff;
@@ -200,36 +235,39 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
         const float im_o = has_im ? (c - d) * scale : 0.f;
         const float im_m = has_im ? -(c + d) * scale : 0.f;
         X[kl * F + f] = make_float2((a + b) * scale, im_o);          // orig
-        X[(KG + kl) * F + f] = make_float2((a - b) * scale, im_m);   // mirr
+        if (NMIRR == 2)
+          X[(KG + kl) * F + f] = make_float2((a - b) * scale, im_m);  // mirr
       }
       __syncthreads();
 
       // 4. inverse DFT: thread t = angle t, rows g = m*KG + kl
-      float racc[2 * KG];
+      float racc[NMIRR * KG];
 #pragma unroll
-      for (int g = 0; g < 2 * KG; ++g) racc[g] = 0.f;
+      for (int g = 0; g < NMIRR * KG; ++g) racc[g] = 0.f;
       int idx = 0;
       for (int f = 0; f < F; ++f) {
         const float cw = tw[idx & (L - 1)];          // cos(2 pi f t / L)
         const float sw = tw[(idx + 64) & (L - 1)];   // -sin(2 pi f t / L)
         idx += t;
 #pragma unroll
-        for (int g = 0; g < 2 * KG; ++g) {
+        for (int g = 0; g < NMIRR * KG; ++g) {
           const float2 xv = X[g * F + f];
           racc[g] = fmaf(xv.x, cw, racc[g]);
           racc[g] = fmaf(xv.y, sw, racc[g]);
         }
       }
 
-      // 5. priority argmax over this thread's rows, then the block
+      // 5. priority argmax over this thread's rows (masked values under
+      //    MASK), then the block
       float tv = -3.0e38f;
       int te = 0x7fffffff;
 #pragma unroll
-      for (int g = 0; g < 2 * KG; ++g) {
+      for (int g = 0; g < NMIRR * KG; ++g) {
         const int m = g / KG, kl = g % KG;
         if (kl < kn) {
           const int e = ((m * n_shifts + s) * n_refs + k0 + kl) * L + t;
-          if (beats(racc[g], e, tv, te)) { tv = racc[g]; te = e; }
+          const float v = MASK ? racc[g] + mask_t : racc[g];
+          if (beats(v, e, tv, te)) { tv = v; te = e; }
         }
       }
 #pragma unroll
@@ -251,8 +289,8 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
         const int rest = ge / L;
         const int gw = (rest / n_refs / n_shifts) * KG + (rest % n_refs - k0);
 #pragma unroll
-        for (int g = 0; g < 2 * KG; ++g)
-          if (g == gw) my_row = racc[g];
+        for (int g = 0; g < NMIRR * KG; ++g)
+          if (g == gw) my_row = racc[g];   // unmasked
       }
       // the partials are rewritten only after the next group's ccf barrier
     }
@@ -269,30 +307,78 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
   }
 }
 
+template <int NMIRR, bool MASK, int KG>
+static cudaError_t launch(const float* images, const float* acc_sx,
+                          const float* acc_sy, const float* coords,
+                          const float* shifts, const float* ref_fw,
+                          const float* twiddle, const float* mask, int n,
+                          int h, int w, int n_rings, int n_shifts, int n_refs,
+                          float* out_val, float* out_row, int* out_aidx,
+                          int* out_sidx, int* out_ref, int* out_mirror,
+                          cudaStream_t stream) {
+  const size_t smem = smem_bytes(n_rings, NMIRR, KG);
+  cudaError_t err = cudaFuncSetAttribute(
+      search_kernel<NMIRR, MASK, KG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  search_kernel<NMIRR, MASK, KG><<<n, NTHREADS, smem, stream>>>(
+      images, acc_sx, acc_sy, coords, shifts, (const float2*)ref_fw, twiddle,
+      mask, h, w, n_rings, n_shifts, n_refs, out_val, out_row, out_aidx,
+      out_sidx, out_ref, out_mirror);
+  return cudaGetLastError();
+}
+
+template <int NMIRR, bool MASK>
+static cudaError_t launch_kg(int n_refs, const float* images,
+                             const float* acc_sx, const float* acc_sy,
+                             const float* coords, const float* shifts,
+                             const float* ref_fw, const float* twiddle,
+                             const float* mask, int n, int h, int w,
+                             int n_rings, int n_shifts, float* out_val,
+                             float* out_row, int* out_aidx, int* out_sidx,
+                             int* out_ref, int* out_mirror,
+                             cudaStream_t stream) {
+  if (ref_group(n_refs) == 1)
+    return launch<NMIRR, MASK, 1>(images, acc_sx, acc_sy, coords, shifts,
+                                  ref_fw, twiddle, mask, n, h, w, n_rings,
+                                  n_shifts, n_refs, out_val, out_row,
+                                  out_aidx, out_sidx, out_ref, out_mirror,
+                                  stream);
+  return launch<NMIRR, MASK, 8>(images, acc_sx, acc_sy, coords, shifts,
+                                ref_fw, twiddle, mask, n, h, w, n_rings,
+                                n_shifts, n_refs, out_val, out_row, out_aidx,
+                                out_sidx, out_ref, out_mirror, stream);
+}
+
 extern "C" {
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+// Launch on `stream`; `mirror` is 0 or 1, `mask` is null for an unmasked
+// search.  Returns the cudaError_t of the launch (0 = success).
 int cryo_search_launch(const float* images, const float* acc_sx,
                        const float* acc_sy, const float* coords,
                        const float* shifts, const float* ref_fw,
-                       const float* twiddle, int n, int h, int w, int n_rings,
-                       int n_shifts, int n_refs, float* out_val,
-                       float* out_row, int* out_aidx, int* out_sidx,
-                       int* out_ref, int* out_mirror, void* stream) {
-  const size_t smem = smem_bytes(n_rings);
-  cudaError_t err = cudaFuncSetAttribute(
-      search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  search_kernel<<<n, NTHREADS, smem, (cudaStream_t)stream>>>(
-      images, acc_sx, acc_sy, coords, shifts, (const float2*)ref_fw, twiddle,
-      h, w, n_rings, n_shifts, n_refs, out_val, out_row, out_aidx, out_sidx,
-      out_ref, out_mirror);
-  return (int)cudaGetLastError();
+                       const float* twiddle, const float* mask, int n, int h,
+                       int w, int n_rings, int n_shifts, int n_refs,
+                       int mirror, float* out_val, float* out_row,
+                       int* out_aidx, int* out_sidx, int* out_ref,
+                       int* out_mirror, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+#define CRYO_LAUNCH(NM, MK)                                                  \
+  launch_kg<NM, MK>(n_refs, images, acc_sx, acc_sy, coords, shifts, ref_fw, \
+                    twiddle, mask, n, h, w, n_rings, n_shifts, out_val,     \
+                    out_row, out_aidx, out_sidx, out_ref, out_mirror, st)
+  cudaError_t err;
+  if (mirror)
+    err = mask ? CRYO_LAUNCH(2, true) : CRYO_LAUNCH(2, false);
+  else
+    err = mask ? CRYO_LAUNCH(1, true) : CRYO_LAUNCH(1, false);
+#undef CRYO_LAUNCH
+  return (int)err;
 }
 
-// Dynamic shared memory one block takes for `n_rings` rings.
-long long cryo_search_smem_bytes(int n_rings) {
-  return (long long)smem_bytes(n_rings);
+// Dynamic shared memory one block takes for this geometry.
+long long cryo_search_smem_bytes(int n_rings, int mirror, int n_refs) {
+  return (long long)smem_bytes(n_rings, mirror ? 2 : 1, ref_group(n_refs));
 }
 
 const char* cryo_search_error_string(int err) {

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from ..config import AlignConfig
-from ..params import AlignParams
+from ..params import AlignParams, params_from_numpy
+from ..ops.search import delta_angle_mask
 from .steps import align_step
 
 # Device memory one particle needs per iteration beyond its own image,
@@ -25,26 +26,45 @@ from .steps import align_step
 _TRANSFORM_BUFFERS = 32
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without CUDA raises
+    rather than running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} needs CUDA, which is not available here; "
+            "pass device='cpu' to run on the CPU")
+    return dev
+
+
 @dataclass
 class IterationResult:
     class_sums: np.ndarray   # (K, 2, H, W)
     counts: np.ndarray       # (K,)
     peak: np.ndarray         # (N,)
+    sx_sum: float            # mirror-aware sum of header x-shifts
+    sy_sum: float            # sum of header y-shifts
 
 
 class AlignmentEngine:
     """Per-iteration executor owning the device stack and params.
 
     ``data`` is an (N, H, W) float32 tensor; it is moved to ``device``
-    once (a no-op when it is already there)."""
+    once (a no-op when it is already there).  ``delta`` (``--dst``) is
+    the discrete-angle step that ``iterate(discrete=True)`` searches;
+    its angle mask is built once, on the device."""
 
     def __init__(self, data, cfg: AlignConfig, n_classes: int,
-                 device="cpu", sampler: str = "auto"):
-        self.device = torch.device(device)
+                 device="cuda", sampler: str = "auto",
+                 update_ref: bool = True, delta: float = 0.0):
+        self.device = resolve_device(device)
         self.n = int(data.shape[0])
         self.cfg = cfg
         self.n_classes = n_classes
         self.sampler = sampler
+        self.update_ref = update_ref
+        self.delta = float(delta)
+        self._angle_mask = None
         if self.device.type == "cuda":
             free, _total = torch.cuda.mem_get_info(self.device)
             need = data.numel() * 4 * (1 + _TRANSFORM_BUFFERS)
@@ -62,15 +82,38 @@ class AlignmentEngine:
         """Current per-particle params as host numpy arrays."""
         return AlignParams(*[f.cpu().numpy() for f in self.params])
 
-    def iterate(self, refs: np.ndarray) -> IterationResult:
-        """One alignment pass against (K, H, W) references."""
+    def set_params(self, params: AlignParams):
+        """Restore per-particle params from host arrays (checkpoint
+        resume)."""
+        self.params = params_from_numpy(params._asdict(), self.device)
+
+    def _mask(self, discrete: bool):
+        if not discrete:
+            return None
+        if not self.delta:
+            raise ValueError("iterate(discrete=True) requires the engine "
+                             "to be built with delta != 0 (--dst)")
+        if self._angle_mask is None:
+            self._angle_mask = torch.as_tensor(
+                delta_angle_mask(self.cfg.ring_len, self.delta,
+                                 self.cfg.mode), device=self.device)
+        return self._angle_mask
+
+    def iterate(self, refs: np.ndarray,
+                discrete: bool = False) -> IterationResult:
+        """One alignment pass against (K, H, W) references.
+        ``discrete=True`` restricts the rotation search to multiples of
+        the engine's ``delta``."""
+        mask = self._mask(discrete)
         refs_t = torch.as_tensor(np.asarray(refs, np.float32),
                                  device=self.device)
         out = align_step(self._imgs, refs_t, self.params, self._gidx, None,
                          self.cfg, n_classes=self.n_classes,
-                         sampler=self.sampler)
+                         update_ref=self.update_ref, sampler=self.sampler,
+                         angle_mask=mask)
         self.params = out.params
         return IterationResult(
             class_sums=out.class_sums.cpu().numpy(),
             counts=out.counts.cpu().numpy().astype(np.int64),
-            peak=out.peak.cpu().numpy())
+            peak=out.peak.cpu().numpy(),
+            sx_sum=float(out.sx_sum), sy_sum=float(out.sy_sum))

@@ -4,8 +4,10 @@ Counterpart of ``cryo_ralib_tpu/models/mref.py::mref_ali2d_tpu``: K
 references, every particle searched against all of them (mirror + shift
 grid), class assignment by the ccf argmax, even/odd class sums,
 vanished-class reseeding from ``random.Random(rand_seed)``, per-class FSC
-averaged over classes, the ``ref_ali2d`` filter, and the outputs
-``aqm%03d.hdf``, ``drm%03d%04d.txt`` and ``final2Dparams.txt``.
+averaged over classes, the ``ref_ali2d`` filter (and centering with
+``center=1``), the outputs ``aqm%03d.hdf``, ``drm%03d%04d.txt`` and
+``final2Dparams.txt``, and a ``checkpoint.npz`` after every iteration
+that ``resume=True`` continues from.
 
 The stack is uploaded to ``device`` once and normalised there; the
 engine keeps that tensor.  The reference update (K small images) runs on
@@ -28,7 +30,8 @@ from ..ops.masks import model_circle, normalize_mask
 from ..io.eman_hdf import write_image
 from ..io.star import write_text_row
 from ..utils.log import RunLogger
-from .engine import AlignmentEngine
+from .checkpoint import load_checkpoint, save_checkpoint
+from .engine import AlignmentEngine, resolve_device
 from .user_functions import factory
 
 
@@ -58,25 +61,28 @@ def mref_ali2d(
     user_func_name: str = "ref_ali2d",
     rand_seed: int = 1000,
     log: RunLogger | None = None,
-    device="cpu",
+    resume: bool = False,
+    device="cuda",
     sampler: str = "auto",
 ) -> MrefResult:
     """Multireference-align ``images`` (N, H, W; numpy or tensor) against
-    ``refs`` (K, H, W) on ``device``.
+    ``refs`` (K, H, W) on ``device`` (the GPU unless ``device="cpu"``).
 
     Flags as ``mref_ali2d_tpu``: ``yr < 0`` means ``yr = xr``; ``ou=-1``
-    means ``nx//2 - 2``; ``maxit=0`` means 10 iterations.  ``sampler``
-    picks the search: "auto" (the CUDA kernel on a CUDA device, the plain
-    version on the CPU), "kernel" or "plain".
+    means ``nx//2 - 2``; ``maxit=0`` means 10 iterations; ``center`` is
+    -1 or 0 (none) or 1 (center each reference).  ``sampler`` picks the
+    search: "auto" (the CUDA kernel on a CUDA device, the plain version
+    on the CPU), "kernel" or "plain".
     """
+    device = resolve_device(device)
     if outdir:
         os.makedirs(outdir, exist_ok=True)
     log = log or RunLogger(outdir)
     user_func = factory[user_func_name]
-    if int(center) > 0:
-        raise NotImplementedError(
-            f"--center={int(center)} needs ops/center.py, which is not "
-            "ported yet")
+    if int(center) > 1:
+        raise ValueError(f"--center={int(center)} is not supported "
+                         "(reference-documented values: 0, 1; -1 for the "
+                         "reffree average centering)")
     # TF32 would cut the f32 semantics the port is held to
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -113,7 +119,17 @@ def mref_ali2d(
     counts = np.zeros(numref, np.int64)
     assign = np.zeros(n, np.int64)
     members: list = [[] for _ in range(numref)]
-    for it in range(max_iter):
+
+    start_it = 0
+    if resume and outdir:
+        ck = load_checkpoint(outdir, rng)
+        if ck is not None:
+            start_it, ck_params, refi, _extra = ck
+            start_it += 1
+            engine.set_params(ck_params)
+            log.add("resumed from checkpoint at iteration %d" % start_it)
+
+    for it in range(start_it, max_iter):
         out = engine.iterate(refi)
         sums = out.class_sums                  # (K, 2, H, W)
         counts = out.counts
@@ -165,6 +181,8 @@ def mref_ali2d(
                 })
         refi = new_refs
 
+        if outdir:
+            save_checkpoint(outdir, it, engine.params_np(), refi, rng=rng)
         log.add("ITERATION #%3d" % (it + 1))
         for j in range(numref):
             log.add("   group #%3d   number of particles = %7d"

@@ -1,0 +1,254 @@
+"""Reference-free 2D alignment, the entry point (PyTorch).
+
+Counterpart of ``cryo_ralib_tpu/models/reffree.py::ali2d_base_tpu``:
+every particle is aligned to the running global average with the full
+rotation / shift / mirror search (``--nomirror`` drops the mirror
+channel), with FSC-driven tangent filtering, average centering, the
+``a1`` dot criterion with auto-stop at ``maxit=0``, the ``--dst``
+discrete-angle schedule, per-iteration QC (pixel error, mirror
+consistency), a ``checkpoint.npz`` per iteration that ``resume=True``
+continues from (either package's file), and the outputs ``aqc.hdf``,
+``aqf.hdf``, ``aqfinal.hdf``, ``resolution%03d``, ``initial2Dparams.txt``
+and ``logfile.txt``.
+
+The stack is uploaded to ``device`` once and its masked mean taken off
+there; the engine keeps that tensor.  The average conditioning (one
+H x W image per iteration) runs on the host.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..config import AlignConfig
+from ..params import params_table, pixel_error_2D
+from ..ops.filters import fshift
+from ..ops.fsc import fsc_mask, write_fsc
+from ..ops.masks import infomask, model_circle
+from ..io.eman_hdf import write_image
+from ..io.star import write_text_row
+from ..utils.log import RunLogger
+from .checkpoint import load_checkpoint, save_checkpoint
+from .engine import AlignmentEngine, resolve_device
+from .user_functions import factory
+
+
+@dataclass
+class RefFreeResult:
+    params: np.ndarray          # (N, 4) header [alpha, sx, sy, mirror]
+    average: np.ndarray         # final filtered average
+    criteria: list = field(default_factory=list)
+    pixel_errors: list = field(default_factory=list)
+    mirror_consistency: list = field(default_factory=list)
+    iterations: int = 0
+    class_counts: np.ndarray = field(   # (1,) members of the last pass
+        default_factory=lambda: np.zeros(1, np.int64))
+
+
+def ali2d_base(
+    images,
+    outdir: str | None = None,
+    maskfile: np.ndarray | None = None,
+    ir: int = 1,
+    ou: int = -1,
+    rs: int = 1,
+    xr: float = 4.0,
+    yr: float = -1.0,
+    ts: float = 2.0,
+    dst: float = 0.0,
+    center: int = -1,
+    maxit: int = 0,
+    CTF: bool = False,
+    Fourvar: bool = False,
+    user_func_name: str = "ref_ali2d",
+    random_method: str = "",
+    nomirror: bool = False,
+    mode: str = "F",
+    log: RunLogger | None = None,
+    resume: bool = False,
+    ring_scheme: str = "cuda",
+    device="cuda",
+    sampler: str = "auto",
+) -> RefFreeResult:
+    """Align ``images`` (N, H, W; numpy or tensor) to their iteratively
+    refined global average on ``device`` (the GPU unless
+    ``device="cpu"``).
+
+    Flags as ``ali2d_base_tpu``: ``yr < 0`` means ``yr = xr``; ``ou=-1``
+    means ``nx//2 - 2``; ``maxit=0`` means up to 10 iterations with
+    auto-stop when the criterion falls; ``center`` -1 subtracts the mean
+    particle shift from the average, 0 leaves it, 1 centers it on its
+    center of gravity; ``dst`` makes every 4th iteration (except the
+    last 10) search multiples of ``dst`` degrees only, with no angle
+    refinement.  ``sampler`` as in ``mref_ali2d``.  Not ported yet, and
+    raising ``NotImplementedError``: ``CTF``, ``Fourvar``,
+    ``random_method`` (SHC, SCF), ``mode="H"`` and
+    ``ring_scheme="eman2"``.
+    """
+    for flag, unported in (("CTF", CTF), ("Fourvar", Fourvar),
+                           ("random_method", random_method),
+                           ("mode='H'", mode != "F"),
+                           ("ring_scheme='eman2'", ring_scheme != "cuda")):
+        if unported:
+            raise NotImplementedError(f"{flag} is not ported yet")
+    device = resolve_device(device)
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+    log = log or RunLogger(outdir)
+    user_func = factory[user_func_name]
+    # TF32 would cut the f32 semantics the port is held to
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    n, ny, nx = images.shape
+    if nx != ny:
+        raise ValueError("images must be square")
+    last_ring = int(ou) if int(ou) != -1 else nx // 2 - 2
+    if yr is None or yr < 0:
+        yr = xr
+    max_iter = int(maxit) if int(maxit) else 10
+    auto_stop = int(maxit) == 0
+    ir, rs = int(ir), int(rs)
+    if ir < 1 or rs < 1 or ir > last_ring:
+        raise ValueError(f"invalid ring plan: ir={ir} rs={rs} ou={last_ring}")
+    if int(center) > 1:
+        raise ValueError(f"--center={int(center)} is not supported "
+                         "(reference-documented values: -1, 0, 1)")
+    n_rings = len(range(ir, last_ring + 1, rs))
+    cfg = AlignConfig(img_dim=nx, ring_num=n_rings, ring_len=256,
+                      first_ring=ir, ring_step=rs,
+                      shift_step=float(ts), shift_rng_x=float(xr),
+                      shift_rng_y=float(yr), mirror=not nomirror)
+
+    mask = maskfile if maskfile is not None else model_circle(last_ring, nx)
+    mask = np.asarray(mask, np.float32)
+    # subtract each particle's mean under the mask, on the device
+    data = torch.as_tensor(images, dtype=torch.float32, device=device)
+    mean, _sigma = infomask(data, torch.as_tensor(mask, device=device))
+    data = data - mean[:, None, None]
+
+    engine = AlignmentEngine(data, cfg, n_classes=1, device=device,
+                             sampler=sampler, update_ref=False, delta=dst)
+    if dst:
+        log.add("Discrete angle used         : %d" % int(dst))
+
+    result = RefFreeResult(params=np.zeros((n, 4)),
+                           average=np.zeros((nx, nx)))
+    a0 = -1.0e22
+    sx_sum = 0.0
+    sy_sum = 0.0
+    sums = None
+    tavg = np.zeros((nx, nx), np.float32)
+    total_iter = 0
+
+    start_it = 0
+    if resume and outdir:
+        ck = load_checkpoint(outdir)
+        if ck is not None:
+            start_it, ck_params, tavg_ck, extra = ck
+            start_it += 1
+            engine.set_params(ck_params)
+            tavg = tavg_ck[0]
+            sums = np.asarray(extra["sums"])
+            a0 = float(extra["a0"])
+            sx_sum = float(extra["sx_sum"])
+            sy_sum = float(extra["sy_sum"])
+            total_iter = start_it
+            log.add("resumed from checkpoint at iteration %d" % start_it)
+
+    def _delta_for(j: int) -> float:
+        """--dst schedule: discrete angles every 4th iteration, except
+        within the last 10."""
+        if not dst or j < 0:
+            return 0.0
+        return dst if (j % 4 == 0 and (j + 1) <= max_iter - 10) else 0.0
+
+    for it in range(start_it, max_iter):
+        total_iter += 1
+        # ---- the new average from the previous iteration's sums
+        if sums is None:
+            # iteration 0: even/odd sums of the raw stack
+            sums = torch.stack([data[0::2].sum(0),
+                                data[1::2].sum(0)])[None].cpu().numpy()
+        ave1, ave2 = sums[0, 0], sums[0, 1]
+        tavg = ((ave1 + ave2) / n).astype(np.float32)
+
+        log.add("Iteration #%4d" % total_iter)
+        log.add("X range = %5.2f   Y range = %5.2f   Step = %5.2f"
+                % (xr, yr, ts))
+        frsc = fsc_mask(ave1, ave2, mask, 1.0)
+        if outdir:
+            write_image(os.path.join(outdir, "aqc.hdf"), tavg, total_iter - 1)
+            write_fsc(os.path.join(outdir, "resolution%03d" % total_iter),
+                      *frsc)
+
+        # ---- stopping criterion on the unfiltered average
+        a1 = float(np.sum(tavg * tavg * mask))
+        log.add("Criterion %d = %15.8e" % (total_iter, a1))
+        result.criteria.append(a1)
+
+        # ---- user function: tangent filter (+ centering)
+        if center == -1:
+            tavg_f, _cs = user_func([mask, 0, tavg, frsc])
+            cs = [float(sx_sum) / n, float(sy_sum) / n]
+            tavg_f = fshift(torch.as_tensor(np.asarray(tavg_f, np.float32)),
+                            -cs[0], -cs[1]).numpy()
+            log.add("Average center x = %10.3f        Center y = %10.3f"
+                    % (cs[0], cs[1]))
+        else:
+            # after a discrete-angle iteration, centering is off for one
+            # call of the user function
+            c_eff = 0 if _delta_for(it - 1) != 0.0 else center
+            tavg_f, _cs = user_func([mask, c_eff, tavg, frsc])
+        tavg = np.asarray(tavg_f, np.float32)
+        if outdir:
+            write_image(os.path.join(outdir, "aqf.hdf"), tavg, total_iter - 1)
+        if a1 < a0:
+            if auto_stop:
+                break
+        else:
+            a0 = a1
+
+        # ---- alignment against the new average
+        old_tab = params_table(engine.params)
+        delta_it = _delta_for(it)
+        if delta_it:
+            log.add("Iteration %d uses discrete angles (delta=%g)"
+                    % (total_iter, delta_it))
+        out = engine.iterate(tavg[None], discrete=delta_it != 0.0)
+        sums = out.class_sums
+        result.class_counts = out.counts
+        sx_sum = out.sx_sum
+        sy_sum = out.sy_sum
+
+        # ---- QC: pixel error / mirror consistency against the old params
+        new_tab = params_table(engine.params)
+        consistent = old_tab[:, 3] == new_tab[:, 3]
+        errs = pixel_error_2D(
+            (old_tab[:, 0], old_tab[:, 1], old_tab[:, 2]),
+            (new_tab[:, 0], new_tab[:, 1], new_tab[:, 2]), last_ring).numpy()
+        n_cons = int(consistent.sum())
+        result.mirror_consistency.append(n_cons / n)
+        result.pixel_errors.append(
+            float(errs[consistent].sum() / max(n_cons, 1)))
+        log.add("Mirror consistency %6.2f%%, mean pixel error %.4f"
+                % (100.0 * n_cons / n, result.pixel_errors[-1]))
+        if outdir:
+            save_checkpoint(outdir, it, engine.params_np(), tavg[None],
+                            extra={"sums": sums, "a0": a0,
+                                   "sx_sum": sx_sum, "sy_sum": sy_sum})
+
+    if outdir:
+        write_image(os.path.join(outdir, "aqfinal.hdf"), tavg, 0)
+    result.average = tavg
+    result.iterations = total_iter
+    result.params = params_table(engine.params)
+    if outdir:
+        write_text_row(result.params,
+                       os.path.join(outdir, "initial2Dparams.txt"))
+    log.add("Finished ali2d_base")
+    return result

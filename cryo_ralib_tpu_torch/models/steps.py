@@ -2,9 +2,10 @@
 
 Counterpart of ``cryo_ralib_tpu/models/steps.py::align_step`` on the
 standard path: search every particle against every reference (kernel or
-plain), decode the winners, transform and sum the classes even/odd.
-SHC, SCF, ``--dst`` angle masks, the eman2 ring scheme and mode H are not
-ported yet and raise.
+plain), decode the winners, transform and sum the classes even/odd.  An
+``angle_mask`` (``--dst``) restricts the angle argmax and turns off the
+parabolic refinement.  SHC, SCF, the eman2 ring scheme and mode H are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ def resolve_sampler(sampler: str, device) -> str:
 
 def align_step(images, refs, params: AlignParams, global_index, valid,
                cfg: AlignConfig, *, n_classes: int, update_ref: bool = True,
-               sampler: str = "auto") -> StepOutput:
+               sampler: str = "auto", angle_mask=None) -> StepOutput:
     """One alignment iteration over a resident stack.
 
     Args:
@@ -68,6 +69,8 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
       sampler: "kernel" = the CUDA search kernel (CUDA tensors only),
         "plain" = its PyTorch version, "auto" = kernel on CUDA, plain on
         the CPU.
+      angle_mask: optional (L,) float32 additive angle mask on the
+        device of ``images`` (``delta_angle_mask``).
     """
     if cfg.ring_scheme != "cuda":
         raise NotImplementedError("ring_scheme='eman2' is not ported yet")
@@ -76,10 +79,13 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
     sampler = resolve_sampler(sampler, images.device)
     ref_fw = prepare_ref_spectra(refs, cfg)
     if sampler == "kernel":
-        result = fused_search(images, ref_fw, params, cfg)
+        result = fused_search(images, ref_fw, params, cfg,
+                              angle_mask=angle_mask)
     else:
-        result = search_plain(images, ref_fw, params, cfg)
-    new_params = decode_params(result, params, cfg, update_ref=update_ref)
+        result = search_plain(images, ref_fw, params, cfg,
+                              angle_mask=angle_mask)
+    new_params = decode_params(result, params, cfg, update_ref=update_ref,
+                               refine=angle_mask is None)
     transformed = transform_batch(images, new_params)
     sums, counts = class_sum_oe(transformed, new_params.ref_id, n_classes,
                                 global_index=global_index, valid=valid)

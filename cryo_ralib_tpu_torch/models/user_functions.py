@@ -10,22 +10,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.center import center_2D
 from ..ops.filters import filt_tanl
 from ..ops.fsc import fit_tanh
 
 
 def ref_ali2d(ref_data):
-    """Tangent low-pass the raw average at the FSC-fitted cutoff.
-
-    Centering (``center > 0``) is not ported yet (``ops/center.py``)."""
+    """Tangent low-pass the raw average at the FSC-fitted cutoff; center
+    it (``ops/center.py::center_2D``) when the center flag is positive."""
     _mask, center, tavg, frsc = ref_data
-    if center is not None and center > 0:
-        raise NotImplementedError(
-            "ref_ali2d centering (center > 0) needs ops/center.py, which "
-            "is not ported yet")
     fl, aa = fit_tanh(frsc)
-    tavg = torch.as_tensor(np.asarray(tavg, np.float32))
-    return filt_tanl(tavg, fl, aa).numpy(), [0.0, 0.0]
+    out = filt_tanl(torch.as_tensor(np.asarray(tavg, np.float32)), fl, aa)
+    cs = [0.0, 0.0]
+    if center is not None and center > 0:
+        out, sx, sy = center_2D(out, int(center))
+        cs = [float(sx), float(sy)]
+    return out.numpy(), cs
 
 
 def ref_ali2d_no_filter(ref_data):

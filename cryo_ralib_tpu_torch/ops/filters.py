@@ -1,7 +1,8 @@
-"""Fourier-space tangent low-pass filter (PyTorch).
+"""Fourier-space filters and shifts (PyTorch).
 
-Counterpart of ``cryo_ralib_tpu/ops/filters.py::filt_tanl``, the
-FSC-driven filter of the ``ref_ali2d`` user function, on
+Counterparts of ``cryo_ralib_tpu/ops/filters.py``: ``filt_tanl``, the
+FSC-driven filter of the ``ref_ali2d`` user function, and ``fshift``,
+the sub-pixel Fourier shift of average centering, on
 ``torch.fft.rfft2`` / ``irfft2``.
 """
 
@@ -38,3 +39,21 @@ def filt_tanl(img, cutoff: float, falloff: float):
                            device=img.device)
     f = torch.fft.rfft2(img)
     return torch.fft.irfft2(f * resp, s=(h, w)).to(img.dtype)
+
+
+def fshift(img, sx, sy):
+    """Sub-pixel translation by a Fourier phase ramp (EMAN2 ``fshift``):
+    shifts the content of (..., H, W) images by (+sx, +sy) pixels; scalar
+    or broadcastable per-image shifts."""
+    img = torch.as_tensor(img)
+    h, w = img.shape[-2:]
+    dev = img.device
+    fy = torch.as_tensor(np.fft.fftfreq(h).astype(np.float32), device=dev)
+    fx = torch.as_tensor(np.fft.rfftfreq(w).astype(np.float32), device=dev)
+    sx = torch.as_tensor(sx, dtype=torch.float32, device=dev)
+    sy = torch.as_tensor(sy, dtype=torch.float32, device=dev)
+    phase = -2.0 * torch.pi * (fy[:, None] * sy[..., None, None]
+                               + fx[None, :] * sx[..., None, None])
+    ramp = torch.complex(torch.cos(phase), torch.sin(phase))
+    f = torch.fft.rfft2(img)
+    return torch.fft.irfft2(f * ramp, s=(h, w)).to(img.dtype)

@@ -2,7 +2,8 @@
 
 Counterpart of ``cryo_ralib_tpu/ops/search.py``: reference spectra, the
 plain search (``rotational_shift_search``, the f32 twin of the
-hand-written kernel in ``ops/fused_search.py``) and ``decode_params``.
+hand-written kernel in ``ops/fused_search.py``), the ``--dst``
+discrete-angle mask and ``decode_params``.
 
 The search keeps a running per-particle best over chunks of the shift
 grid, so it never holds the whole (N, 2, S, K, L) ccf table.  Winners
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import AlignConfig
@@ -24,6 +26,28 @@ from .ccf import ccf_rows, ccf_spectra, ring_spectra, weight_ring_spectra
 from .polar import polar_resample
 
 _NEG_INF = -3.0e38
+
+
+def delta_angle_bins(ring_len: int, delta: float,
+                     mode: str = "F") -> np.ndarray:
+    """Sorted unique angle bins nearest each multiple of ``delta`` degrees
+    within the ring span (360 for mode "F", 180 for "H"): the rotations a
+    ``--dst`` discrete-angle iteration may pick."""
+    if delta <= 0.0:
+        raise ValueError("delta must be positive")
+    span = 360.0 if mode == "F" else 180.0
+    step = span / ring_len
+    angles = np.arange(0.0, span - 1e-9, delta)
+    return np.unique(np.round(angles / step).astype(np.int64) % ring_len)
+
+
+def delta_angle_mask(ring_len: int, delta: float,
+                     mode: str = "F") -> np.ndarray:
+    """Additive (L,) f32 mask: 0 at ``delta_angle_bins``, -3e38 elsewhere.
+    Bin 0 is always allowed."""
+    mask = np.full(ring_len, _NEG_INF, np.float32)
+    mask[delta_angle_bins(ring_len, delta, mode)] = 0.0
+    return mask
 
 
 class SearchResult(NamedTuple):
@@ -53,8 +77,8 @@ def priority_index(mirror, sidx, ref, aidx, n_shifts: int, n_refs: int,
 
 
 def rotational_shift_search(images, ref_fw, params: AlignParams,
-                            cfg: AlignConfig,
-                            shift_chunk: int = 8) -> SearchResult:
+                            cfg: AlignConfig, shift_chunk: int = 8,
+                            angle_mask=None) -> SearchResult:
     """Full (mirror x shift x ref x angle) search for one batch.
 
     Args:
@@ -64,6 +88,9 @@ def rotational_shift_search(images, ref_fw, params: AlignParams,
         sampling centre.
       cfg:    AlignConfig (shift grid, rings, mirror flag).
       shift_chunk: shifts evaluated at once; a memory knob only.
+      angle_mask: optional (L,) additive f32 mask (``delta_angle_mask``)
+        added to every row before the argmax, so the winning row comes
+        back masked; decode with ``refine=False``.
     """
     n = images.shape[0]
     dev = images.device
@@ -73,6 +100,9 @@ def rotational_shift_search(images, ref_fw, params: AlignParams,
     s_total = shifts.shape[0]
     coords = torch.as_tensor(cfg.polar_coords, device=dev)
     chunk = max(1, min(shift_chunk, s_total))
+    if angle_mask is not None:
+        angle_mask = torch.as_tensor(angle_mask, dtype=torch.float32,
+                                     device=dev)
 
     def zeros_i():
         return torch.zeros(n, dtype=torch.int32, device=dev)
@@ -89,6 +119,8 @@ def rotational_shift_search(images, ref_fw, params: AlignParams,
         polar = polar_resample(images, coords, sx, sy)  # (N, C, R, L)
         orig_f, mirr_f = ccf_spectra(ring_spectra(polar), ref_fw)
         rows = ccf_rows(orig_f, mirr_f if cfg.mirror else None, ring_len)
+        if angle_mask is not None:
+            rows = rows + angle_mask
         best = _update_best(best, rows, s0, s_total, n_refs)
     return best
 
@@ -126,29 +158,35 @@ def _update_best(best: SearchResult, rows, s0: int, s_total: int,
 
 
 def decode_params(result: SearchResult, params: AlignParams,
-                  cfg: AlignConfig, update_ref: bool = True) -> AlignParams:
+                  cfg: AlignConfig, update_ref: bool = True,
+                  refine: bool = True) -> AlignParams:
     """SearchResult -> updated AlignParams.
 
     * shifts accumulate and clamp to ``+/- cfg.shift_limit``;
     * angle = 7-point parabolic (prb1d) refinement of the peak bin, with
       no offset when the fit is flat (``c3 == 0``), then ``360 - angle``,
       and ``+180`` when mirrored, wrapped into [0, 360) on that branch
-      only — as the reference does.
+      only — as the reference does.  ``refine=False`` (the discrete-angle
+      search) takes the bin's exact angle and never reads the row.
     """
     ring_len = cfg.ring_len
     step = cfg.angle_step
     row = result.best_row
     base_angle = step * result.best_aidx.float()
-    offs = torch.arange(-3, 4, device=row.device)
-    cols = (result.best_aidx.long()[:, None] + offs[None, :]) % ring_len
-    x = torch.gather(row, 1, cols)  # (N, 7)
-    c2 = (49.0 * x[:, 0] + 6.0 * x[:, 1] - 21.0 * x[:, 2] - 32.0 * x[:, 3]
-          - 27.0 * x[:, 4] - 6.0 * x[:, 5] + 31.0 * x[:, 6])
-    c3 = (5.0 * x[:, 0] - 3.0 * x[:, 2] - 4.0 * x[:, 3] - 3.0 * x[:, 4]
-          + 5.0 * x[:, 6])
-    frac = torch.where(c3 != 0.0, step * (c2 / (2.0 * c3) - 4.0),
-                       torch.zeros_like(c3))
-    angle = 360.0 - (base_angle + frac)
+    if refine:
+        offs = torch.arange(-3, 4, device=row.device)
+        cols = (result.best_aidx.long()[:, None] + offs[None, :]) % ring_len
+        x = torch.gather(row, 1, cols)  # (N, 7)
+        c2 = (49.0 * x[:, 0] + 6.0 * x[:, 1] - 21.0 * x[:, 2]
+              - 32.0 * x[:, 3] - 27.0 * x[:, 4] - 6.0 * x[:, 5]
+              + 31.0 * x[:, 6])
+        c3 = (5.0 * x[:, 0] - 3.0 * x[:, 2] - 4.0 * x[:, 3] - 3.0 * x[:, 4]
+              + 5.0 * x[:, 6])
+        frac = torch.where(c3 != 0.0, step * (c2 / (2.0 * c3) - 4.0),
+                           torch.zeros_like(c3))
+        angle = 360.0 - (base_angle + frac)
+    else:
+        angle = 360.0 - base_angle
     angle_m = angle + 180.0
     angle_m = torch.where(angle_m >= 360.0, angle_m - 360.0, angle_m)
     angle = torch.where(result.best_mirror == 1, angle_m, angle)

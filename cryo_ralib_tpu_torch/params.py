@@ -1,8 +1,9 @@
 """Per-particle 2D alignment parameters (PyTorch).
 
 Counterpart of ``cryo_ralib_tpu/params.py``: the struct-of-arrays
-``AlignParams`` state, the search-to-header shift decode and the
-``params_table`` rows of ``final2Dparams.txt``.  ``params_from_numpy`` /
+``AlignParams`` state, the search-to-header shift decode, the
+``params_table`` rows of ``final2Dparams.txt`` and the ``pixel_error_2D``
+QC metric.  ``params_from_numpy`` /
 ``AlignParams.to_numpy`` carry state across packages: they take and give
 exactly the dict of the JAX ``AlignParams.to_numpy()``.
 """
@@ -82,3 +83,16 @@ def params_table(params: AlignParams) -> np.ndarray:
         ],
         axis=1,
     )
+
+
+def pixel_error_2D(params1, params2, r: float):
+    """Mean pixel displacement between two 2D transforms over a disk of
+    radius ``r`` (SPHIRE ``pixel_error_2D``): ``sqrt(|r^2 (1 - cos d_alpha)
+    + d_sx^2 + d_sy^2|)``.  ``params1``/``params2`` are (alpha, sx, sy)
+    triples of arrays, tensors or scalars; returns a tensor (float64 for
+    float64 or Python-float inputs)."""
+    a1, sx1, sy1, a2, sx2, sy2 = [torch.as_tensor(v)
+                                  for v in (*params1, *params2)]
+    rot_term = (r * r) * (1.0 - torch.cos(torch.deg2rad(a1 - a2)))
+    return torch.sqrt(torch.abs(rot_term + (sx1 - sx2) ** 2
+                                + (sy1 - sy2) ** 2))

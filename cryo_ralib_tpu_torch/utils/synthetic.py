@@ -1,7 +1,7 @@
 """Synthetic particle stacks for tests, smoke runs and demos.
 
-``class_templates`` and ``asymmetric_templates`` are copies of
-``cryo_ralib_tpu/utils/synthetic.py``'s (numpy).  ``scattered_stack`` is
+``class_templates``, ``asymmetric_templates`` and ``blob_stack`` are
+copies of ``cryo_ralib_tpu/utils/synthetic.py``'s (numpy).  ``scattered_stack`` is
 this package's own generator: numpy-seeded classes, angles, shifts,
 mirrors and noise, applied to the templates with the port's
 ``transform_batch`` on any device (the JAX package's version goes
@@ -58,13 +58,37 @@ def asymmetric_templates(n_classes: int, nx: int) -> np.ndarray:
     return base.astype(np.float32)
 
 
+def blob_stack(n: int, nx: int, blobs: int = 3, noise: float = 0.05,
+               seed: int = 0) -> np.ndarray:
+    """Particle-like images: gaussian blobs in a disc plus noise.  With
+    a few blobs and no noise, many distinct templates (asymmetric_templates
+    repeat themselves, rotated, beyond ~40 classes)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:nx, 0:nx]
+    imgs = np.zeros((n, nx, nx), np.float32)
+    for i in range(n):
+        img = np.zeros((nx, nx), np.float64)
+        for _ in range(blobs):
+            cy = rng.uniform(nx * 0.3, nx * 0.7)
+            cx = rng.uniform(nx * 0.3, nx * 0.7)
+            s = rng.uniform(1.5, 4.0)
+            img += rng.uniform(0.5, 2.0) * np.exp(
+                -((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))
+        img += rng.normal(0, noise, (nx, nx))
+        imgs[i] = img.astype(np.float32)
+    return imgs
+
+
 def scattered_stack(templates: np.ndarray, n: int, max_shift: int = 2,
-                    noise: float = 0.02, seed: int = 0, device="cpu"):
+                    noise: float = 0.02, seed: int = 0, device="cpu",
+                    mirror: bool = True):
     """Transformed, noisy copies of randomly chosen templates.
 
     Returns ``(images, class_ids, angles, shifts, mirrors)``: images an
     (n, H, W) float32 tensor on ``device``; the rest numpy ground truth
     (class ids, angles in degrees, (n, 2) integer shifts, 0/1 mirrors).
+    ``mirror=False`` makes a stack with no mirrored copies (all mirrors
+    0; the other draws are those of ``mirror=True``), for ``--nomirror``.
     """
     rng = np.random.default_rng(seed)
     k = templates.shape[0]
@@ -72,7 +96,7 @@ def scattered_stack(templates: np.ndarray, n: int, max_shift: int = 2,
     angs = rng.uniform(0, 360, n).astype(np.float32)
     sxs = rng.integers(-max_shift, max_shift + 1, n).astype(np.float32)
     sys_ = rng.integers(-max_shift, max_shift + 1, n).astype(np.float32)
-    mirrors = rng.integers(0, 2, n).astype(np.int32)
+    mirrors = rng.integers(0, 2, n).astype(np.int32) * int(mirror)
     noise_img = rng.standard_normal((n,) + templates.shape[1:],
                                     dtype=np.float32)
 

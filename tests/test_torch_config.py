@@ -64,7 +64,8 @@ def test_fsc_and_fit_tanh_equal_jax():
     assert fit_tanh(got) == jax_fit_tanh(want)
 
 
-@pytest.mark.parametrize("name", ["class_templates", "asymmetric_templates"])
+@pytest.mark.parametrize("name", ["class_templates", "asymmetric_templates",
+                                  "blob_stack"])
 def test_templates_equal_jax(name):
     np.testing.assert_array_equal(getattr(port_synthetic, name)(5, 48),
                                   getattr(jax_synthetic, name)(5, 48))
@@ -81,6 +82,14 @@ def test_scattered_stack_shapes_and_truth():
     again = port_synthetic.scattered_stack(tmpl, 6, max_shift=1, noise=0.0,
                                            seed=4)
     assert torch.equal(imgs, again[0])
+    # no mirrored copies: the same draws with every mirror flag 0
+    flat = port_synthetic.scattered_stack(tmpl, 6, max_shift=1, noise=0.0,
+                                          seed=4, mirror=False)
+    for got, want in zip(flat[1:4], (cls, angs, shifts)):
+        np.testing.assert_array_equal(got, want)
+    assert (flat[4] == 0).all() and mirrors.any()
+    unmirrored = mirrors == 0
+    assert torch.equal(flat[0][unmirrored], imgs[unmirrored])
 
 
 def test_port_imports_neither_jax_nor_jax_package():

@@ -8,7 +8,9 @@ They import no JAX, so on the GPU machine they run with::
 Tolerances: winners (ref, shift, mirror, angle bin) identical on
 structured data; peak values and winning rows within 1e-4 of the largest
 peak (a twiddle-table DFT in the kernel against cuFFT in the plain
-version, both f32).
+version, both f32).  Under an angle mask the rows are compared on the
+allowed bins only: the kernel's row is unmasked, the plain version's
+masked.
 """
 
 import numpy as np
@@ -19,9 +21,10 @@ torch = pytest.importorskip("torch")
 from cryo_ralib_tpu_torch.config import AlignConfig
 from cryo_ralib_tpu_torch.ops import fused_search as fs
 from cryo_ralib_tpu_torch.ops import search
+from cryo_ralib_tpu_torch.ops.search import decode_params, delta_angle_mask
 from cryo_ralib_tpu_torch.params import AlignParams, params_from_numpy
 from cryo_ralib_tpu_torch.utils.synthetic import (asymmetric_templates,
-                                                  scattered_stack)
+                                                  blob_stack, scattered_stack)
 
 WINNERS = ("best_ref", "best_sidx", "best_mirror", "best_aidx")
 
@@ -44,14 +47,16 @@ def _params(n, dev, seed=2):
         dev)
 
 
-def _check(got, want, winners_equal=True):
+def _check(got, want, winners_equal=True, allowed=None):
     torch.cuda.synchronize()
     if winners_equal:
         for f in WINNERS:
             assert torch.equal(getattr(got, f), getattr(want, f)), f
     scale = want.best_val.abs().max()
     assert (got.best_val - want.best_val).abs().max() <= 1e-4 * scale
-    assert (got.best_row - want.best_row).abs().max() <= 1e-4 * scale
+    rows = slice(None) if allowed is None else allowed
+    assert ((got.best_row[:, rows] - want.best_row[:, rows]).abs().max()
+            <= 1e-4 * scale)
 
 
 # (img_dim, rings, xr, refs, ring_step): the headline, the 160 px box, a
@@ -77,9 +82,68 @@ def test_kernel_matches_plain(cuda_device, geom):
     params = _params(n, cuda_device)
     rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
                                                      device=cuda_device), cfg)
-    before = fs.fused_search.launches
+    before = dict(fs.fused_search.launches)
     got = fs.fused_search(imgs, rfw, params, cfg)
-    assert fs.fused_search.launches == before + 1
+    assert fs.fused_search.launches["search"] == before["search"] + 1
+    _check(got, fs.search_plain(imgs, rfw, params, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mirror", [True, False], ids=["mirror", "nomirror"])
+@pytest.mark.parametrize("delta", [0.0, 15.0, 77.0],
+                         ids=["unmasked", "dst15", "dst77"])
+@pytest.mark.parametrize("geom", [(90, 36, 3.0, 1), (90, 36, 3.0, 8),
+                                  (160, 48, 2.0, 4)], ids=str)
+def test_kernel_variants_match_plain(cuda_device, geom, delta, mirror):
+    """The no-mirror (K2) and angle-mask (K3) variants and both together,
+    at K=1 (the reference-free driver) and K>1: winners equal the plain
+    version's, masked winners sit on allowed bins, and the refine-free
+    decode agrees."""
+    nx, rings, xr, k = geom
+    cfg = AlignConfig(img_dim=nx, ring_num=rings, shift_step=1.0,
+                      shift_rng_x=xr, shift_rng_y=xr, mirror=mirror)
+    tmpl = asymmetric_templates(k, nx)
+    n = 64
+    imgs = scattered_stack(tmpl, n, max_shift=1, noise=0.1, seed=5,
+                           device=cuda_device, mirror=mirror)[0].contiguous()
+    params = _params(n, cuda_device, seed=7)
+    rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
+                                                     device=cuda_device), cfg)
+    mask = (torch.as_tensor(delta_angle_mask(256, delta), device=cuda_device)
+            if delta else None)
+    key = fs.variant(cfg, mask is not None)
+    before = fs.fused_search.launches[key]
+    got = fs.fused_search(imgs, rfw, params, cfg, angle_mask=mask)
+    assert fs.fused_search.launches[key] == before + 1
+    want = fs.search_plain(imgs, rfw, params, cfg, angle_mask=mask)
+    allowed = None if mask is None else mask == 0
+    _check(got, want, allowed=allowed)
+    if not mirror:
+        assert int(got.best_mirror.max()) == 0
+    if mask is not None:
+        assert bool(allowed[got.best_aidx.long()].all())
+        p_got = decode_params(got, params, cfg, refine=False)
+        p_want = decode_params(want, params, cfg, refine=False)
+        for f in p_got._fields:
+            assert torch.equal(getattr(p_got, f), getattr(p_want, f)), f
+
+
+@pytest.mark.cuda
+def test_kernel_large_k_matches_plain(cuda_device):
+    """K=64 (eight ref groups in one launch, the large-K case K4), on
+    distinct random-blob templates (asymmetric_templates repeat
+    themselves, turned by ~1 degree, beyond ~40 classes)."""
+    cfg = AlignConfig(img_dim=90, ring_num=36, shift_step=1.0,
+                      shift_rng_x=3.0, shift_rng_y=3.0)
+    tmpl = blob_stack(64, 90, blobs=6, noise=0.0, seed=64)
+    imgs = scattered_stack(tmpl, 128, max_shift=1, noise=0.1, seed=9,
+                           device=cuda_device)[0].contiguous()
+    params = _params(128, cuda_device, seed=4)
+    rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
+                                                     device=cuda_device), cfg)
+    before = fs.fused_search.launches["search"]
+    got = fs.fused_search(imgs, rfw, params, cfg)
+    assert fs.fused_search.launches["search"] == before + 1
     _check(got, fs.search_plain(imgs, rfw, params, cfg))
 
 
@@ -148,10 +212,16 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
     rfw = torch.zeros((1, 20, 129), dtype=torch.complex64,
                       device=cuda_device)
     params = AlignParams.zeros(2, cuda_device)
-    with pytest.raises(NotImplementedError, match="nomirror"):
-        fs.fused_search(imgs, rfw, params,
-                        AlignConfig(img_dim=64, ring_num=20, mirror=False))
     cfg = AlignConfig(img_dim=64, ring_num=20)
+    with pytest.raises(NotImplementedError, match="256"):
+        fs.fused_search(imgs, rfw, params,
+                        AlignConfig(img_dim=64, ring_num=20, ring_len=128))
+    with pytest.raises(ValueError, match="shape"):
+        fs.fused_search(imgs, rfw, params, cfg,
+                        angle_mask=torch.zeros(128, device=cuda_device))
+    with pytest.raises(ValueError, match="no angle bin"):
+        fs.fused_search(imgs, rfw, params, cfg, angle_mask=torch.full(
+            (256,), -3.0e38, device=cuda_device))
     with pytest.raises(TypeError):
         fs.fused_search(imgs.double(), rfw, params, cfg)
     with pytest.raises(ValueError, match="contiguous"):

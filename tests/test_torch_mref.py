@@ -46,9 +46,9 @@ def _stack(seed=43):
 
 
 def _run_both(imgs, refs, user_func, outdirs=(None, None),
-              log_to_outdir=False):
+              log_to_outdir=False, center=-1):
     kw = dict(ou=OU, xr=XR, yr=XR, ts=1, maxit=ITERS,
-              user_func_name=user_func, rand_seed=1000)
+              user_func_name=user_func, rand_seed=1000, center=center)
     want = mref_ali2d_tpu(
         imgs, refs.copy(), outdir=outdirs[0], sampler="gather",
         log=None if log_to_outdir else JaxLogger(None, quiet=True), **kw)
@@ -115,6 +115,45 @@ def test_align_step_matches_jax_gather(update_ref):
                                    float(getattr(want, f)), atol=1e-3)
 
 
+@pytest.mark.parametrize("mirror", [True, False])
+def test_align_step_masked_matches_jax_gather(mirror):
+    """One --dst step: the angle-masked search decoded without
+    refinement, on the reference-free shape (K=1, refs kept), against
+    JAX ``align_step(sampler="gather", angle_mask=...)``."""
+    from cryo_ralib_tpu.ops.search import delta_angle_mask
+
+    n, nx = 12, 64
+    kw = dict(img_dim=nx, ring_num=20, ring_len=256, shift_step=1.0,
+              shift_rng_x=1.0, shift_rng_y=1.0, mirror=mirror)
+    ref = asymmetric_templates(1, nx)
+    imgs, _, _, _ = scattered_stack(ref, n, max_shift=1, noise=0.05, seed=8)
+    mask = delta_angle_mask(256, 15.0)
+    state = {f: np.zeros(n, np.int32 if f in ("mirror", "ref_id")
+                         else np.float32) for f in JaxParams._fields}
+    gidx = np.arange(n, dtype=np.int32)
+    want = jax_align_step(jnp.asarray(imgs), jnp.asarray(ref),
+                          JaxParams(*[jnp.asarray(state[f])
+                                      for f in JaxParams._fields]),
+                          jnp.asarray(gidx), None, JaxConfig(**kw),
+                          n_classes=1, update_ref=False, sampler="gather",
+                          angle_mask=jnp.asarray(mask))
+    got = align_step(torch.as_tensor(imgs), torch.as_tensor(ref),
+                     params_from_numpy(state), torch.as_tensor(gidx), None,
+                     AlignConfig(**kw), n_classes=1, update_ref=False,
+                     angle_mask=torch.as_tensor(mask))
+    for f in JaxParams._fields:
+        np.testing.assert_array_equal(getattr(got.params, f).numpy(),
+                                      np.asarray(getattr(want.params, f)),
+                                      err_msg=f)
+    # exact bin angles: 360 - step * bin, +180 on the mirrored branch
+    ang = got.params.angle.numpy() - 180.0 * got.params.mirror.numpy()
+    bins = np.round((360.0 - ang) / (360.0 / 256)).astype(int) % 256
+    assert (mask[bins] == 0).all()
+    sums = np.asarray(want.class_sums)
+    np.testing.assert_allclose(got.class_sums.numpy(), sums, rtol=0,
+                               atol=1e-4 * np.abs(sums).max())
+
+
 def test_mref_matches_jax_no_filter():
     base, imgs, cls = _stack()
     got, want = _run_both(imgs, base, "ref_ali2d_no_filter")
@@ -131,15 +170,24 @@ def test_mref_matches_jax_ref_ali2d_with_outputs(tmp_path):
     _assert_results_match(got, want)
     np.testing.assert_allclose(got.references, want.references, atol=1e-4)
 
-    # the same outputs, less the JAX package's resume checkpoint
-    want_files = set(os.listdir(d_jax)) - {"checkpoint.npz",
-                                           "checkpoint_rng.pkl"}
+    # the same outputs, the resume checkpoint included
+    want_files = set(os.listdir(d_jax))
     assert set(os.listdir(d_port)) == want_files
     assert {"aqm000.hdf", "aqm001.hdf", "drm0000000.txt",
-            "final2Dparams.txt"} <= want_files
+            "final2Dparams.txt", "checkpoint.npz",
+            "checkpoint_rng.pkl"} <= want_files
     for name in sorted(want_files):
         a, b = os.path.join(d_port, name), os.path.join(d_jax, name)
-        if name.endswith(".hdf"):
+        if name == "checkpoint.npz":
+            za, zb = np.load(a), np.load(b)
+            assert set(za.files) == set(zb.files)
+            for key in ("iteration", "mirror", "ref_id"):
+                np.testing.assert_array_equal(za[key], zb[key])
+            np.testing.assert_allclose(za["refs"], zb["refs"], atol=1e-4)
+        elif name == "checkpoint_rng.pkl":
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                assert fa.read() == fb.read()
+        elif name.endswith(".hdf"):
             with h5py.File(a, "r") as fa, h5py.File(b, "r") as fb:
                 ga, gb = fa["MDF/images"], fb["MDF/images"]
                 assert ga.attrs["imageid_max"] == gb.attrs["imageid_max"]
@@ -180,8 +228,65 @@ def test_mref_vanished_class_reseeds_like_jax(tmp_path):
     assert reseeds(d_jax)[0].endswith("[2]")
 
 
-def test_mref_rejects_unported_centering():
+def test_mref_center1_matches_jax(tmp_path):
+    """--center=1: each filtered reference is centered on its positive
+    center of gravity (ops/center.py), as in the JAX package."""
     base, imgs, _ = _stack()
-    with pytest.raises(NotImplementedError, match="center"):
-        mref_ali2d(imgs, base, ou=OU, xr=XR, maxit=1, center=1,
-                   log=RunLogger(None, quiet=True))
+    got, want = _run_both(imgs, base, "ref_ali2d", center=1)
+    _assert_results_match(got, want)
+    np.testing.assert_allclose(got.references, want.references, atol=1e-4)
+    with pytest.raises(ValueError, match="center=2"):
+        mref_ali2d(imgs, base, ou=OU, xr=XR, maxit=1, center=2,
+                   device="cpu", log=RunLogger(None, quiet=True))
+
+
+def test_mref_resumes_like_a_straight_run(tmp_path):
+    """Two iterations (by either package), then the port resumes to four:
+    the same as a straight run of four (the vanished-class RNG state
+    comes back from checkpoint_rng.pkl)."""
+    base, imgs, _ = _stack()
+    kw = dict(ou=OU, xr=XR, yr=XR, ts=1, user_func_name="ref_ali2d")
+    straight = mref_ali2d(imgs, base.copy(), maxit=4, device="cpu",
+                          outdir=str(tmp_path / "straight"),
+                          log=RunLogger(None, quiet=True), **kw)
+    for pkg in ("port", "jax"):
+        d = str(tmp_path / pkg)
+        if pkg == "port":
+            mref_ali2d(imgs, base.copy(), outdir=d, maxit=2, device="cpu",
+                       log=RunLogger(None, quiet=True), **kw)
+        else:
+            mref_ali2d_tpu(imgs, base.copy(), outdir=d, maxit=2,
+                           sampler="gather", log=JaxLogger(None, quiet=True),
+                           **kw)
+        resumed = mref_ali2d(imgs, base.copy(), outdir=d, maxit=4,
+                             resume=True, device="cpu",
+                             log=RunLogger(None, quiet=True), **kw)
+        np.testing.assert_array_equal(resumed.assignments,
+                                      straight.assignments)
+        np.testing.assert_array_equal(resumed.params[:, 3],
+                                      straight.params[:, 3])
+        np.testing.assert_allclose(resumed.params[:, 1:3],
+                                   straight.params[:, 1:3], atol=1e-3)
+        np.testing.assert_allclose(resumed.references, straight.references,
+                                   atol=1e-4)
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Called without ``device``, the entry points run on the GPU; with
+    no CUDA they raise an error that names CUDA instead of falling back
+    to the CPU."""
+    from cryo_ralib_tpu_torch.config import AlignConfig
+    from cryo_ralib_tpu_torch.models import ali2d_base
+    from cryo_ralib_tpu_torch.models.engine import AlignmentEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base, imgs, _ = _stack()
+    quiet = RunLogger(None, quiet=True)
+    for call in (
+            lambda: mref_ali2d(imgs, base, ou=OU, xr=XR, maxit=1, log=quiet),
+            lambda: ali2d_base(imgs, ou=OU, xr=XR, maxit=1, log=quiet),
+            lambda: AlignmentEngine(torch.as_tensor(imgs),
+                                    AlignConfig(img_dim=NX, ring_num=OU),
+                                    n_classes=K)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -11,7 +11,10 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 
+from cryo_ralib_tpu.models import checkpoint as jcheckpoint
+from cryo_ralib_tpu.models import user_functions as juser_functions
 from cryo_ralib_tpu.ops import ccf as jccf
+from cryo_ralib_tpu.ops import center as jcenter
 from cryo_ralib_tpu.ops import classavg as jclassavg
 from cryo_ralib_tpu.ops import filters as jfilters
 from cryo_ralib_tpu.ops import interp as jinterp
@@ -20,8 +23,9 @@ from cryo_ralib_tpu.ops import polar as jpolar
 from cryo_ralib_tpu.ops import transform as jtransform
 from cryo_ralib_tpu import params as jparams
 from cryo_ralib_tpu_torch.config import AlignConfig
-from cryo_ralib_tpu_torch.ops import ccf, classavg, filters, interp, masks
-from cryo_ralib_tpu_torch.ops import polar, transform
+from cryo_ralib_tpu_torch.models import checkpoint, user_functions
+from cryo_ralib_tpu_torch.ops import ccf, center, classavg, filters, interp
+from cryo_ralib_tpu_torch.ops import masks, polar, transform
 from cryo_ralib_tpu_torch import params as tparams
 
 def _t(a):
@@ -182,3 +186,105 @@ def test_params_table_and_round_trip():
     want_zeros = jparams.AlignParams.zeros(n, ref_id=2).to_numpy()
     for name in zeros:
         np.testing.assert_array_equal(zeros[name], want_zeros[name])
+
+
+@pytest.mark.parametrize("shift", ["scalar", "per_image"])
+def test_fshift(stack, shift):
+    if shift == "scalar":
+        sx, sy = 1.25, -0.5
+    else:
+        sx = np.array([0.5, -1.0, 2.25, 0.0], np.float32)
+        sy = np.array([-0.75, 0.0, 1.5, 3.0], np.float32)
+    got = filters.fshift(_t(stack), sx, sy)
+    want = jfilters.fshift(jnp.asarray(stack), sx, sy)
+    _close(got, want, float(np.abs(stack).max()))
+    # an integer shift moves the content by whole pixels (circularly)
+    whole = filters.fshift(_t(stack), 2.0, -1.0).numpy()
+    np.testing.assert_allclose(whole, np.roll(stack, (-1, 2), (-2, -1)),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("method", [0, 1])
+def test_center_2D(method):
+    rng = np.random.default_rng(9)
+    yy, xx = np.mgrid[0:32, 0:32]
+    img = (np.exp(-((yy - 19.3) ** 2 + (xx - 12.6) ** 2) / 8.0)
+           + 0.01 * rng.standard_normal((32, 32))).astype(np.float32)
+    got, gsx, gsy = center.center_2D(_t(img), method)
+    want, wsx, wsy = jcenter.center_2D(jnp.asarray(img), method)
+    _close(got, want)
+    np.testing.assert_allclose([float(gsx), float(gsy)],
+                               [float(wsx), float(wsy)], rtol=1e-5, atol=1e-5)
+    if method == 1:
+        # the blob sits 3.4 px left of and 3.3 px below the center
+        assert float(gsx) < -2.0 and float(gsy) > 2.0
+    with pytest.raises(ValueError, match="center=2"):
+        center.center_2D(_t(img), 2)
+
+
+@pytest.mark.parametrize("center_flag", [0, 1])
+def test_ref_ali2d_user_function(center_flag):
+    rng = np.random.default_rng(10)
+    yy, xx = np.mgrid[0:32, 0:32]
+    avg = (np.exp(-((yy - 18.0) ** 2 + (xx - 13.0) ** 2) / 10.0)
+           + 0.05 * rng.standard_normal((32, 32))).astype(np.float32)
+    freqs = np.arange(17) / 32.0
+    frsc = (freqs, np.clip(1.2 - 4.0 * freqs, 0.0, 1.0), np.ones(17))
+    mask = masks.model_circle(14, 32)
+    got, gcs = user_functions.ref_ali2d([mask, center_flag, avg, frsc])
+    want, wcs = juser_functions.ref_ali2d([mask, center_flag, avg, frsc])
+    _close(torch.as_tensor(got), want)
+    np.testing.assert_allclose(gcs, wcs, atol=1e-5)
+    assert (gcs != [0.0, 0.0]) == bool(center_flag)
+
+
+def test_pixel_error_2D():
+    rng = np.random.default_rng(12)
+    p1 = tuple(rng.uniform(-5, 365, 20) if i == 0 else rng.uniform(-3, 3, 20)
+               for i in range(3))
+    p2 = tuple(rng.uniform(-5, 365, 20) if i == 0 else rng.uniform(-3, 3, 20)
+               for i in range(3))
+    got = tparams.pixel_error_2D(p1, p2, 36.0)
+    want = jparams.pixel_error_2D(p1, p2, 36.0)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
+    same = tparams.pixel_error_2D((10.0, 1.0, -1.0), (370.0, 1.0, -1.0), 36.0)
+    assert float(same) < 1e-5
+
+
+def test_checkpoint_round_trip_with_jax_files(tmp_path):
+    """Either package reads the other's checkpoint.npz (and RNG state)."""
+    import random
+
+    rng = np.random.default_rng(13)
+    n = 7
+    state = {"angle": rng.uniform(0, 360, n).astype(np.float32),
+             "shift_x": rng.uniform(-2, 2, n).astype(np.float32),
+             "shift_y": rng.uniform(-2, 2, n).astype(np.float32),
+             "mirror": rng.integers(0, 2, n).astype(np.int32),
+             "ref_id": rng.integers(0, 3, n).astype(np.int32)}
+    refs = rng.standard_normal((3, 8, 8)).astype(np.float32)
+    extra = {"sums": rng.standard_normal((1, 2, 8, 8)).astype(np.float32),
+             "a0": 12.5, "sx_sum": -0.25, "sy_sum": 3.0}
+    for writer, reader in ((jcheckpoint, checkpoint),
+                           (checkpoint, jcheckpoint)):
+        d = tmp_path / writer.__name__.split(".")[0]
+        d.mkdir()
+        wrng = random.Random(5)
+        wrng.random()
+        params = (jparams.AlignParams if writer is jcheckpoint
+                  else tparams.AlignParams)(*[state[f] for f in
+                                              tparams.AlignParams._fields])
+        writer.save_checkpoint(str(d), 4, params, refs, extra=extra,
+                               rng=wrng)
+        rrng = random.Random(0)
+        it, got, got_refs, got_extra = reader.load_checkpoint(str(d), rrng)
+        assert it == 4 and rrng.random() == wrng.random()
+        for f in tparams.AlignParams._fields:
+            np.testing.assert_array_equal(getattr(got, f), state[f])
+            assert getattr(got, f).dtype == state[f].dtype
+        np.testing.assert_array_equal(got_refs, refs)
+        assert set(got_extra) == set(extra)
+        for key, val in extra.items():
+            np.testing.assert_array_equal(got_extra[key], val)
+    assert checkpoint.load_checkpoint(str(tmp_path)) is None

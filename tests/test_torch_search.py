@@ -35,9 +35,9 @@ from cryo_ralib_tpu_torch.params import params_from_numpy
 WINNERS = ("best_ref", "best_sidx", "best_mirror", "best_aidx")
 
 
-def _cfgs(nx=64, rings=24, xr=2.0):
+def _cfgs(nx=64, rings=24, xr=2.0, mirror=True):
     kw = dict(img_dim=nx, ring_num=rings, ring_len=256, shift_step=1.0,
-              shift_rng_x=xr, shift_rng_y=xr)
+              shift_rng_x=xr, shift_rng_y=xr, mirror=mirror)
     return JaxConfig(**kw), AlignConfig(**kw)
 
 
@@ -53,9 +53,10 @@ def _np(result):
     return {f: np.asarray(getattr(result, f)) for f in result._fields}
 
 
-def _assert_decoded_match(port_res, jax_res, tp, jp, cfg, jcfg):
-    got = search.decode_params(port_res, tp, cfg)
-    want = jsearch.decode_params(jax_res, jp, jcfg)
+def _assert_decoded_match(port_res, jax_res, tp, jp, cfg, jcfg,
+                          refine=True):
+    got = search.decode_params(port_res, tp, cfg, refine=refine)
+    want = jsearch.decode_params(jax_res, jp, jcfg, refine=refine)
     d = np.abs(got.angle.numpy() - np.asarray(want.angle))
     assert np.minimum(d, 360.0 - d).max() < 1e-3
     for f in ("shift_x", "shift_y", "mirror", "ref_id"):
@@ -100,6 +101,89 @@ def test_plain_search_matches_jax_gather(shift_chunk):
     np.testing.assert_allclose(g["best_row"], w["best_row"], rtol=0,
                                atol=1e-5 * scale)
     _assert_decoded_match(got, want, tp, jp, cfg, jcfg)
+
+
+@pytest.mark.parametrize("mirror,delta", [(False, 0.0), (True, 15.0),
+                                          (False, 15.0), (True, 77.0)])
+def test_plain_search_variants_match_jax_gather(mirror, delta):
+    """The no-mirror and angle-masked searches (the kernel's K2 and K3
+    variants) against JAX ``rotational_shift_search(angle_mask=...)``
+    with ``cfg.mirror`` set; masked results decode with refine=False.
+    JAX's own tests hold that function against the Pallas kernel in
+    interpret mode (tests/test_delta.py, tests/test_modes.py)."""
+    jcfg, cfg = _cfgs(mirror=mirror)
+    k, n = 2, 12
+    refs = asymmetric_templates(k, 64)
+    imgs, _, _, _ = scattered_stack(refs, n, max_shift=2, seed=11)
+    rng = np.random.default_rng(5)
+    sx = rng.choice([0.0, 1.0, -0.5], n).astype(np.float32)
+    jp = _jax_params(n, sx, -sx)
+    mask = search.delta_angle_mask(256, delta) if delta else None
+    rfw = jsearch.prepare_ref_spectra(jnp.asarray(refs), jcfg)
+    want = jsearch.rotational_shift_search(
+        jnp.asarray(imgs), rfw, jp, jcfg,
+        angle_mask=None if mask is None else jnp.asarray(mask))
+    tp = params_from_numpy(jp.to_numpy())
+    got = search.rotational_shift_search(
+        torch.as_tensor(imgs), torch.as_tensor(np.array(rfw)), tp, cfg,
+        angle_mask=mask)
+    g, w = _np(got), _np(want)
+    for f in WINNERS:
+        np.testing.assert_array_equal(g[f], w[f], err_msg=f)
+    scale = np.abs(w["best_val"]).max()
+    np.testing.assert_allclose(g["best_val"], w["best_val"], rtol=0,
+                               atol=1e-5 * scale)
+    np.testing.assert_allclose(g["best_row"], w["best_row"], rtol=0,
+                               atol=1e-5 * scale)
+    if not mirror:
+        assert (g["best_mirror"] == 0).all()
+    if mask is not None:
+        assert (mask[g["best_aidx"]] == 0).all()
+    _assert_decoded_match(got, want, tp, jp, cfg, jcfg, refine=mask is None)
+
+
+@pytest.mark.parametrize("ring_len,delta,mode", [
+    (256, 15.0, "F"), (256, 77.0, "F"), (128, 90.0, "H"), (256, 400.0, "F")])
+def test_delta_angle_bins_and_mask_equal_jax(ring_len, delta, mode):
+    np.testing.assert_array_equal(
+        search.delta_angle_bins(ring_len, delta, mode),
+        jsearch.delta_angle_bins(ring_len, delta, mode))
+    mask = search.delta_angle_mask(ring_len, delta, mode)
+    np.testing.assert_array_equal(
+        mask, jsearch.delta_angle_mask(ring_len, delta, mode))
+    assert mask.dtype == np.float32 and mask[0] == 0.0
+    with pytest.raises(ValueError):
+        search.delta_angle_bins(ring_len, 0.0, mode)
+
+
+def test_decode_params_without_refinement_matches_jax():
+    """refine=False: the exact bin angle (360 - step * bin, +180 wrapped
+    on the mirrored branch); the row is never read."""
+    jcfg, cfg = _cfgs()
+    rng = np.random.default_rng(21)
+    n = 10
+    fields = {"best_val": rng.standard_normal(n).astype(np.float32),
+              "best_row": np.full((n, 256), -3.0e38, np.float32),
+              "best_aidx": rng.integers(0, 256, n).astype(np.int32),
+              "best_sidx": rng.integers(0, cfg.n_shifts, n).astype(np.int32),
+              "best_ref": rng.integers(0, 3, n).astype(np.int32),
+              "best_mirror": (np.arange(n) % 2).astype(np.int32)}
+    fields["best_aidx"][:2] = [0, 128]
+    jp = _jax_params(n, rng.uniform(-1, 1, n).astype(np.float32))
+    got = search.decode_params(
+        search.SearchResult(*[torch.as_tensor(fields[f])
+                              for f in search.SearchResult._fields]),
+        params_from_numpy(jp.to_numpy()), cfg, refine=False)
+    want = jsearch.decode_params(
+        jsearch.SearchResult(*[jnp.asarray(fields[f])
+                               for f in jsearch.SearchResult._fields]),
+        jp, jcfg, refine=False)
+    for f in got._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), err_msg=f)
+    # bin 0 unmirrored stays 360 (no wrap on that branch); bin 128
+    # mirrored is 180 + 180, wrapped to 0
+    np.testing.assert_array_equal(got.angle.numpy()[:2], [360.0, 0.0])
 
 
 def test_plain_search_matches_jax_pallas_interpret():
@@ -187,13 +271,20 @@ def test_cpu_wrapper_runs_plain_version():
     imgs = refs[torch.tensor([1, 0, 1])] + 0.01
     params = params_from_numpy(_jax_params(3).to_numpy())
     rfw = search.prepare_ref_spectra(refs, cfg)
-    before = fs.fused_search.launches
+    before = dict(fs.fused_search.launches)
     got = fs.fused_search(imgs, rfw, params, cfg)
     assert fs.fused_search.launches == before
     want = search.rotational_shift_search(imgs, rfw, params, cfg)
     for f in got._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     np.testing.assert_array_equal(got.best_ref.numpy(), [1, 0, 1])
+    mask = search.delta_angle_mask(256, 90.0)
+    masked = fs.fused_search(imgs, rfw, params, cfg, angle_mask=mask)
+    assert fs.fused_search.launches == before
+    want = search.rotational_shift_search(imgs, rfw, params, cfg,
+                                          angle_mask=mask)
+    for f in got._fields:
+        assert torch.equal(getattr(masked, f), getattr(want, f)), f
 
 
 def test_twiddle_table_quarter_turns_exact():
