@@ -9,7 +9,10 @@ and the CUDA toolkit::
 Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card, its power limit and the versions;
   2. build the search kernel (csrc/search.cu, nvcc for sm_90a; eight
-     instantiations: mirror or not, angle mask or not, ref group 8 or 1);
+     instantiations: mirror or not, angle mask or not, ref group 8 or 1,
+     and the three ablation stages of the default one); print ptxas'
+     registers and spills and each shape's launch plan (shifts per
+     group, image staged in shared memory, shared memory per block);
   3. kernel vs its plain PyTorch version at 90 px / ou=36 / K=8 / xr=3
      and 160 px / ou=48 / K=4 / xr=2, 512 particles with integer and
      fractional accumulated shifts: structured stacks must give identical
@@ -24,6 +27,10 @@ Phases (any failure raises and the script exits non-zero):
      K=64 asymmetric_templates (near-duplicate refs) at N=512 and 16384
      under the noise rule, each refined angle within 1e-3 plus twice the
      change its 7-point fit takes from the two rows' difference;
+  3c. an SNR sweep (signal variance / noise variance 1.0, 0.3, 0.1,
+     0.03; unit-sigma asymmetric_templates, K=8, N=512, no CTF): kernel
+     and plain under the noise rule, and the share of winners whose ref
+     and mirror match the stack's known class and mirror;
   4. mref_ali2d through the kernel and through the plain search agree
      on a small stack;
   4b. ali2d_base through the kernel and through the plain search, 512
@@ -31,6 +38,8 @@ Phases (any failure raises and the script exits non-zero):
      of particles with the same mirror and params within 1e-3;
   5. kernel and plain timed (CUDA events) at the main paths' shapes:
      K=8 and K=64 mref, K=1 for every variant of the reffree driver;
+     the ablation stages of the default variant at K=8 and K=64
+     (tools/torch_search_ablate.py's), printed as one JSON line;
   6. the main path: mref_ali2d on 16384 synthetic 90 px particles, K=8,
      ou=36, xr=yr=3, 6 iterations, through the kernel (its launch count
      must rise by exactly 6); counts sum to N, nothing is NaN, class
@@ -45,11 +54,14 @@ Phases (any failure raises and the script exits non-zero):
      no-mirror launches); nothing NaN, counts sum to N, and in run A the
      last criterion is at least half the first.
 Every launch counter is set to 0 just before each main-path run (6, 6b,
-7) and read just after it.  The last lines are the card, the kernels'
-JSON record and the run's verdict.
+7) and read just after it.  The last lines are the stage ablation's JSON
+line, the card, the kernels' JSON record (with each instantiation's
+registers, spill bytes and shared memory per block) and the run's
+verdict.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +86,7 @@ VARIANT_REPLACES = {
     "search_nomirror_masked": "cryo_ralib_tpu/ops/fused_search.py:147",
     "search_k64": "cryo_ralib_tpu/ops/fused_search.py:356",
 }
+SNRS = (1.0, 0.3, 0.1, 0.03)   # signal variance / noise variance
 F32_PEAK = 67e12     # FLOP/s, H100 SXM, outside the tensor cores
 HBM_RATE = 3.35e12   # bytes/s
 L, F = 256, 129
@@ -119,26 +132,41 @@ def geometry(geom, mirror=True):
                        shift_rng_y=geom["xr"], mirror=mirror)
 
 
+def ptxas_table(report: str) -> dict:
+    """{(NMIRR, MASK, KG, STAGE): {"registers", "spill_bytes"}} of the
+    search kernel's instantiations, from nvcc's -Xptxas -v report
+    (spill bytes: the spill stores)."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"search_kernelILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)E", line)
+        if m:
+            cur = out.setdefault(tuple(map(int, m.groups())), {})
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and cur is not None:
+            cur["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def search_bound(n, nx, r, s, k, n_mirr):
-    """(bound_ms, bound_by, direct_tflop) of one search.  The bound is
-    the larger of the f32 operations the search needs over the f32 peak
-    and its bytes (each input read once, each output written once) over
-    the memory rate.  Per particle and shift it needs r x 256 bilinear
-    samples (8 operations each), r forward and n_mirr x k inverse real
-    FFTs of 256 points (2.5 L log2 L each) and the k x r x 129 complex
-    products (8 operations each, both mirror channels from the same
-    four real products).  direct_tflop is the kernel's own work, whose
-    DFTs are direct (L x L per forward, 2 x 129 x L per inverse)."""
+    """(bound_ms, bound_by) of one search: the larger of the f32
+    operations the search needs over the f32 peak and its bytes (each
+    input read once, each output written once) over the memory rate.
+    Per particle and shift it needs r x 256 bilinear samples (8
+    operations each), r forward and n_mirr x k inverse real FFTs of 256
+    points (2.5 L log2 L each) and the k x r x 129 complex products (8
+    operations each, both mirror channels from the same four real
+    products)."""
     per_shift = (r * L * 8 + (r + n_mirr * k) * 2.5 * L * 8
                  + 8 * k * r * F)
-    per_shift_direct = 2 * (r * L * L + n_mirr * k * F * L * 2
-                            + 4 * k * r * F)
     flops = float(n * s * per_shift)
     nbytes = (4 * n * nx * nx + 8 * n + 8 * r * L + 8 * s + 8 * k * r * F
               + 8 * L + n * 4 * (1 + L + 4))
     t_op, t_mem = flops / F32_PEAK, nbytes / HBM_RATE
-    return (1e3 * max(t_op, t_mem), "operations" if t_op >= t_mem
-            else "bytes", n * s * per_shift_direct / 1e12)
+    return (1e3 * max(t_op, t_mem),
+            "operations" if t_op >= t_mem else "bytes")
 
 
 def acc_params(n, seed, dev):
@@ -326,10 +354,11 @@ def main():
     from cryo_ralib_tpu_torch.ops import fused_search as fs
     from cryo_ralib_tpu_torch.ops.search import (delta_angle_mask,
                                                  prepare_ref_spectra)
+    from cryo_ralib_tpu_torch.params import AlignParams
     from cryo_ralib_tpu_torch.utils.log import RunLogger
     from cryo_ralib_tpu_torch.utils.synthetic import (asymmetric_templates,
-                                                      blob_stack,
-                                                      scattered_stack)
+                                                      scattered_stack,
+                                                      unit_sigma_blobs)
 
     # ---- 2. build
     lib = fs.build()
@@ -340,11 +369,18 @@ def main():
         if ("registers" in line or "spill" in line or "smem" in line
                 or "entry function" in line):
             log("  ptxas: " + line.strip())
-    for mirror in (1, 0):
-        for k in (HEADLINE["k"], 1):
-            log(f"  shared memory per block at ou={HEADLINE['ou']}, "
-                f"mirror={mirror}, K={k}: "
-                f"{lib.cryo_search_smem_bytes(HEADLINE['ou'], mirror, k)} B")
+    regs = ptxas_table(info["ptxas"])
+    log(f"  registers, spill bytes by (NMIRR, MASK, KG, STAGE): {regs}")
+    check(len(regs) == 11, f"ptxas reports {len(regs)} instantiations")
+    for geom in (HEADLINE, BIG_BOX):
+        n_shifts = geometry(geom).n_shifts
+        for mirror in (1, 0):
+            for k in (geom["k"], 1):
+                log(f"  launch plan at {geom['nx']}px ou={geom['ou']}, "
+                    f"{n_shifts} shifts, mirror={mirror}, K={k}: "
+                    + json.dumps(fs.kernel_plan(geom["ou"], mirror, k,
+                                                n_shifts, geom["nx"],
+                                                geom["nx"])))
 
     # ---- 3. kernel vs plain at N=512
     log("kernel vs plain, N=%d" % N_CHECK)
@@ -378,9 +414,7 @@ def main():
     # winners are near-ties and their peaks can be flat: they take the
     # noise rule and the fit's conditioning (compare kind "flat").
     # Seeded random blobs are distinct and take the structured rule.
-    tmpl64 = blob_stack(K_LARGE, HEADLINE["nx"], blobs=6, noise=0.0, seed=64)
-    tmpl64 = ((tmpl64 - tmpl64.mean((1, 2), keepdims=True))
-              / tmpl64.std((1, 2), keepdims=True))   # unit sigma, as above
+    tmpl64 = unit_sigma_blobs(K_LARGE, HEADLINE["nx"])
     geom64 = dict(HEADLINE, k=K_LARGE)
     var_errs["search_k64"].append(compare(
         *make_case(geom64, N_CHECK, "structured", seed=30, dev=dev,
@@ -390,8 +424,25 @@ def main():
         *make_case(geom64, N_CHECK, "structured", seed=30, dev=dev),
         "flat", f"90px ou=36 K={K_LARGE} asymmetric_templates"))
 
-    # ---- 4. mref_ali2d: kernel path vs plain path on a small stack
+    # ---- 3c. the SNR sweep, no CTF (--CTF is not ported)
     tmpl = asymmetric_templates(HEADLINE["k"], HEADLINE["nx"])
+    cfg = geometry(HEADLINE)
+    rfw = prepare_ref_spectra(torch.as_tensor(tmpl, device=dev), cfg)
+    zero = AlignParams.zeros(N_CHECK, dev)
+    for snr in SNRS:
+        imgs, cls, _, _, mir = scattered_stack(
+            tmpl, N_CHECK, max_shift=2, noise=float(np.sqrt(1.0 / snr)),
+            seed=40, device=dev)
+        label = f"SNR {snr:g} (no CTF) 90px K=8"
+        compare(cfg, imgs.contiguous(), rfw, zero, "noise", label)
+        got = fs.fused_search(imgs.contiguous(), rfw, zero, cfg)
+        truth = ((got.best_ref.cpu().numpy() == cls)
+                 & (got.best_mirror.cpu().numpy() == mir))
+        log(f"  {label}: {truth.mean():.4f} of winners match the known "
+            f"class and mirror (no CTF: --CTF is not ported)")
+    del imgs
+
+    # ---- 4. mref_ali2d: kernel path vs plain path on a small stack
     small = scattered_stack(tmpl, N_CHECK, max_shift=2, noise=0.1, seed=3,
                             device=dev)[0]
     runs = {}
@@ -479,6 +530,18 @@ def main():
     var_errs["search_k64"].append(compare(
         cfg, imgs64, rfw64, params, "noise", f"90px K={K_LARGE} N={N_SLICE}"))
     time_search("search_k64", cfg, imgs64, rfw64)
+
+    def stage_times(imgs, rfw):
+        row = {"full": cuda_ms(lambda: fs.fused_search(imgs, rfw, params,
+                                                       cfg), 3)}
+        for stage in fs.STAGES:
+            row[stage] = cuda_ms(lambda: fs.fused_search_stage(
+                imgs, rfw, params, cfg, stage), 3)
+        return row
+
+    ablation = {"stage_ablation": {
+        "n": N_SLICE, "k8": stage_times(imgs, rfw),
+        "k64": stage_times(imgs64, rfw64), "card": card}}
     tmpl64a = asymmetric_templates(K_LARGE, HEADLINE["nx"])
     imgs64 = scattered_stack(tmpl64a, N_SLICE, max_shift=2, noise=1.0,
                              seed=9, device=dev)[0]
@@ -581,21 +644,21 @@ def main():
                   f"{label}: criterion fell to {res.criteria[-1]}")
         del stack
 
-    shapes = {   # entry -> (timing key, K, mirror channels)
-        "search": ("search", HEADLINE["k"], 2),
-        "search_nomirror": ("search_nomirror_k1", 1, 1),
-        "search_masked": ("search_masked_k1", 1, 2),
-        "search_nomirror_masked": ("search_nomirror_masked_k1", 1, 1),
-        "search_k64": ("search_k64", K_LARGE, 2),
+    shapes = {   # entry -> (timing key, K, mirror channels, mask)
+        "search": ("search", HEADLINE["k"], 2, 0),
+        "search_nomirror": ("search_nomirror_k1", 1, 1, 0),
+        "search_masked": ("search_masked_k1", 1, 2, 1),
+        "search_nomirror_masked": ("search_nomirror_masked_k1", 1, 1, 1),
+        "search_k64": ("search_k64", K_LARGE, 2, 0),
     }
     records = []
-    for name, (tkey, k, n_mirr) in shapes.items():
-        bound_ms, bound_by, direct_tflop = search_bound(
+    for name, (tkey, k, n_mirr, masked) in shapes.items():
+        bound_ms, bound_by = search_bound(
             N_SLICE, HEADLINE["nx"], HEADLINE["ou"], cfg.n_shifts, k, n_mirr)
-        log(f"{name}: bound {bound_ms:.3f} ms ({bound_by}); the kernel's "
-            f"direct DFTs do {direct_tflop:.3f} TFLOP, "
-            f"{1e3 * direct_tflop * 1e12 / F32_PEAK:.2f} ms at the f32 peak")
+        log(f"{name}: bound {bound_ms:.3f} ms ({bound_by})")
         by_path = launches.get(name, {})
+        plan = fs.kernel_plan(HEADLINE["ou"], n_mirr == 2, k, cfg.n_shifts,
+                              HEADLINE["nx"], HEADLINE["nx"])
         check(sum(by_path.values()) > 0, f"{name}: no launch on a main path")
         max_err = max(errs) if name == "search" else max(var_errs[name])
         records.append({
@@ -605,11 +668,15 @@ def main():
             "max_abs_err": max_err, "ms": times[tkey][0],
             "plain_ms": times[tkey][1], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "n": N_SLICE, "k": k,
-            "ms_n512": times[tkey][2], "plain_ms_n512": times[tkey][3]})
+            "ms_n512": times[tkey][2], "plain_ms_n512": times[tkey][3],
+            **regs[(n_mirr, masked, 1 if k == 1 else 8, 0)],
+            "smem_bytes": plan["smem_bytes"], "shift_group": plan["group"],
+            "image_in_smem": plan["image_in_smem"]})
     k1 = times["search_k1"]
     log(f"search default variant at K=1 (reffree unmasked iterations): "
         f"kernel {k1[0]:.2f} ms, plain {k1[1]:.2f} ms at N={N_SLICE}; "
         f"{k1[2]:.3f} / {k1[3]:.3f} ms at N={N_CHECK}  [{card}]")
+    print(json.dumps(ablation))
     log(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -21,80 +21,135 @@
 //   Outputs: peak value, winning 256-angle row, angle bin, shift index,
 //   ref and mirror flag.
 //
-// Variants: search_kernel<NMIRR, MASK, KG>, eight instantiations picked at
-// launch (cryo_search_launch); each is one static variant of the TPU body:
+// Variants: search_kernel<NMIRR, MASK, KG, STAGE>, eight production
+// instantiations (STAGE_FULL) picked at launch (cryo_search_launch); each is
+// one static variant of the TPU body:
 //   NMIRR=2, MASK=false  the default variant (mirrored, unmasked, full
 //                        stage; fused_search.py:129).
 //   NMIRR=1              do_mirror=False, --nomirror (fused_search.py:147-152,
 //                        :181-183, :289-291, :505-507): the ccf builds and the
-//                        inverse DFT inverts the original channel only, so
-//                        half the ccf stores and inverse-DFT rows; m stays 0
-//                        in e, so ties still break by (shift, ref, angle).
+//                        inverse FFT inverts the original channel only; m
+//                        stays 0 in e, so ties still break by (shift, ref,
+//                        angle).
 //   MASK=true            has_mask=True, --dst (fused_search.py:162-167,
-//                        :389-394, :439-443, :533-535): thread t adds
-//                        mask[t] (0 on allowed bins, -3e38 elsewhere) to the
-//                        value it offers for angle t before the argmax.  The
-//                        reported peak is the masked value (equal to the
-//                        unmasked one on an allowed bin, where the mask is
-//                        exactly 0); the winning row stays unmasked, as the
-//                        TPU kernel keeps it.  A masked candidate rounds to
-//                        exactly -3e38 and may tie the initial best and take
-//                        it on its lower e, but any allowed candidate beats
-//                        it, so while one bin is allowed (the wrapper
-//                        checks) the winner is allowed.
-//   KG=1 or 8            the refs per ccf / inverse-DFT group: 1 when K=1
+//                        :389-394, :439-443, :533-535): mask[a] (0 on allowed
+//                        bins, -3e38 elsewhere) is added to the value offered
+//                        for angle a before the argmax.  The reported peak is
+//                        the masked value (equal to the unmasked one on an
+//                        allowed bin, where the mask is exactly 0); the
+//                        winning row stays unmasked, as the TPU kernel keeps
+//                        it.  A masked candidate rounds to exactly -3e38 and
+//                        may tie the initial best and take it on its lower e,
+//                        but any allowed candidate beats it, so while one bin
+//                        is allowed (the wrapper checks) the winner is
+//                        allowed.
+//   KG=1 or 8            the refs per ccf / inverse-FFT group: 1 when K=1
 //                        (the reference-free driver), else 8.  Large K
 //                        (fold=True and the ref-axis chunks of
 //                        fused_search.py:356-424, :752-781, _merge_chunk
 //                        :791) needs no variant: the ref-group loop covers any
 //                        K in one launch with the same priority rule.
-// The ablation stages (stage in {no_ccf, no_yred, sample_only}, :329-348)
-// are a TPU measurement harness and are not ported; raw4 (:174-176) is a
-// TPU accumulator layout with the default variant's outputs.
+//   STAGE                the TPU kernel's ablation stages (stage in {no_ccf,
+//                        no_yred, sample_only}, :221-233, :329-348), default
+//                        instantiation only, reached through
+//                        ops/fused_search.py::fused_search_stage.  Their
+//                        outputs have the production shapes and values that
+//                        mean nothing.  raw4 (:174-176) is a TPU accumulator
+//                        layout with the default variant's outputs.
 //
 // What bounds it on the H100.  Per particle at the headline geometry
-// (R=36, K=8, S=49): the ring DFT is S*R*256*256 ~ 116 M real MACs, the
-// ccf 4*K*S*R*129 ~ 7.3 M MACs and the inverse DFT 2*K*S*256*129*2 ~ 52 M
-// MACs, against a 32 KB image read.  So the direct DFTs dominate and the
-// kernel is bound by f32 arithmetic (and the shared memory traffic that
-// feeds it), not by device memory.  Measured on one H100 SXM at a 700 W
-// limit: 274 ms per 16384-particle headline search, ~21 TFLOP/s of
-// direct-DFT work, about a third of the f32 peak.
+// (R=36, K=8, S=49) the search needs, per shift, 9216 bilinear samples
+// (four gathers each), 36 forward and 16 inverse 256-point real FFTs and
+// 4*K*R*129 ~ 149 K multiply-adds of the ccf, against a 32 KB image: f32
+// arithmetic and on-chip traffic, not device memory.  The ccf reads the
+// K x R x 129 ref spectra (297 KB at K=8, 2.4 MB at K=64), too large to
+// stay in L1: read once per shift they would be 238 GB per 16384-particle
+// headline search, and 80 GB at G=3.  Measured on one H100 SXM at a 700 W
+// limit (tools/torch_search_ablate.py): 68 ms per such search, of which
+// the sampling takes ~28 ms, the ccf ~21 ms, the forward FFTs ~11 ms and
+// the inverse FFTs and argmax ~7 ms; one block per SM (the shared memory)
+// leaves 8 warps to hide the latency of each stage.  What bounds the ccf
+// is not measured: G=3 cut its assumed L2 reads threefold against the
+// earlier one-shift kernel, yet its time per ref stayed the same (2.65
+// against 2.62 ms), which argues against L2 bandwidth.
 //
 // What the design does about it.  One 256-thread block per particle loops
-// over the shifts; nothing leaves the block but the winner, so device
-// memory sees only the image, the ref spectra (L2-resident) and the
-// outputs.  The DFT is a (R x 256) x (256 x 256) product, taken RG rings at
-// a time: the block samples RG rings, then thread t computes one output
-// column for them (cos bins 0..128 for t <= 128, -sin bins 1..127 above;
-// the sin rows of bins 0 and 128 are zero) with RG accumulators in
-// registers, reading each ring sample once per four angles as a float4
-// broadcast and the twiddle from a 256-entry cos table in shared memory.
-// The inverse DFT is the transpose: thread t owns angle t for NMIRR*KG
-// rows.  A radix-2 FFT and tensor-core variants are later work.
+// over groups of G shifts (G chosen at launch by plan(), up to GMAX; the
+// last group is ragged).  For each group:
+//   a. forward FFTs.  The G*R rings of the group, in (shift, ring) order,
+//      are packed two by two into complex sequences z = x_a + i x_b (an odd
+//      count leaves the last ring paired with zeros).  Each 256-point FFT
+//      runs as 16 x 16 on 16 threads: thread j samples the stride-16 column
+//      z[16 n1 + j] straight into registers, takes its 16-point DFT (radix
+//      4 x 4, quarter turns exact), multiplies by the 256-point twiddles
+//      W^(j k1) (a Python-built table, one column per thread, loaded into
+//      registers once), and writes the column transposed to shared memory
+//      at a row stride of 17, so that a half-warp hits distinct banks; then
+//      thread k1 takes the second 16-point DFT of row k1, which gives
+//      Z[k1 + 16 k2].  Sixteen FFTs (two rings each) run per round of 256
+//      threads.  The two rings' spectra are split with a warp shuffle:
+//      X_a[f] = (Z[f] + conj Z[256-f]) / 2, X_b[f] = (Z[f] - conj Z[256-f])
+//      / 2i; a ring stores bins 1..127 and, in slot 0, (DC, Nyquist), both
+//      real: their imaginary parts vanish exactly in the split.
+//   b. the ccf.  Thread t takes ref t%8 of the group and bins t/8 + 32 i
+//      (i = 0..3, all at once, so four ref reads are in flight), so a warp
+//      reads 4 spectrum entries (broadcasts) and 32 ref entries per ring;
+//      each ref entry, read through the read-only cache, serves all G
+//      shifts: G times less L2 traffic than one shift at a time.
+//      Slot 0 multiplies (DC, Nyquist) pairs.  Outputs are scaled by 1/256
+//      (exact) and stored as rows of (shift, ref, mirror).
+//   c. inverse FFTs.  Two real rows in that order are packed into one
+//      complex spectrum C = O + i M built from both Hermitian halves (the
+//      original and mirror rows of one ref when NMIRR=2, two refs when
+//      NMIRR=1 and KG=8, two shifts when NMIRR=1 and KG=1; an odd count
+//      pairs the last row with zeros) and inverted by the same 16 x 16 plan
+//      with conjugate twiddles: real and imaginary parts are the two angle
+//      rows.  Bins f and 256-f enter at 1/256 each (the x2 of a conjugate
+//      pair).
+//   d. the argmax.  Thread k1 of an FFT holds angles k1 + 16 k2 of both
+//      rows; the block reduces (value, e) by the rule above, and the 16
+//      threads that hold a new winning row write it to shared memory.
 //
-// Shared memory per block: twiddles 1 KB, warp partials, one ring group of
-// samples (RG x 256 floats, 12 KB), the ring spectra (R rounded up to RG,
-// x 256 floats: 36 KB at R=36, 108 KB at R=100) and the ccf spectra of
-// one ref group (NMIRR*KG*129 float2, 16.5 KB for the default variant):
-// 67 KB at the headline, so three blocks fit on an SM.  The image is read
-// through the read-only cache (__ldg), so any box size runs; only R bounds
-// the shared memory (R <= 192 fits the 227 KB a block may take).
+// Shared memory per block: the group's spectra (G*R*128 float2, 36.9 KB
+// per shift at R=36), the ccf rows (G*KG*NMIRR rows of 129 or 130 float2,
+// padded so the ccf's stores hit distinct banks), the transpose scratch of
+// 16 FFTs (34.8 KB), the winning row, the mask and, where plan() stages
+// it, the image.  plan() takes the most shifts per group that fit, with
+// the image staged unless, at K > 1, staging leaves one shift per group
+// against more without it: at 90 px, R=36, the image staged, G=3 and
+// 229456 B for the default variant at K=8 (one block per SM; the staged
+// image keeps the gathers off the ~28 KB of L1 the shared memory
+// leaves); at 160 px, R=48, K=4, G=2 and 168256 B with the image read
+// through the read-only cache (__ldg), at K=1 the image staged and G=1;
+// at 256 px, R=100, G=1 and 155840 B through the cache.  Any box size
+// runs.
 
 #include <cuda_runtime.h>
 
 #define L 256
 #define F 129
+#define NB 128           // stored bins per spectrum: 1..127, slot 0 (DC, Nyq)
 #define NTHREADS 256
 #define NWARPS (NTHREADS / 32)
-#define RG 12  // rings per register group of the forward DFT
+#define NFFT 16          // 256-point FFTs per round (16 threads each)
+#define TSTR 17          // row stride (float2) of the transpose scratch
+#define TSIZE (16 * TSTR)
+#define GMAX 4           // most shifts per group
 
 __device__ __forceinline__ bool beats(float v, int e, float bv, int be) {
   return v > bv || (v == bv && e < be);
 }
 
+// Pixel i of the image: from the block's copy in shared memory (SMEM) or
+// through the read-only cache.
+template <bool SMEM>
+__device__ __forceinline__ float pixel(const float* __restrict__ img, int i) {
+  return SMEM ? img[i] : __ldg(img + i);
+}
+
 // Clamp-to-edge bilinear read, the operation order of ops/interp.py, with
 // explicit round-to-nearest intrinsics so nvcc contracts nothing into FMAs.
+template <bool SMEM>
 __device__ __forceinline__ float bilinear(const float* __restrict__ img,
                                           int h, int w, float y, float x) {
   x = fminf(fmaxf(x, 0.f), (float)(w - 1));
@@ -104,199 +159,510 @@ __device__ __forceinline__ float bilinear(const float* __restrict__ img,
   const int ix1 = min(ix0 + 1, w - 1), iy1 = min(iy0 + 1, h - 1);
   const float fx = __fsub_rn(x, x0), fy = __fsub_rn(y, y0);
   const float gx = __fsub_rn(1.f, fx), gy = __fsub_rn(1.f, fy);
-  const float v00 = __ldg(img + iy0 * w + ix0);
-  const float v01 = __ldg(img + iy0 * w + ix1);
-  const float v10 = __ldg(img + iy1 * w + ix0);
-  const float v11 = __ldg(img + iy1 * w + ix1);
+  const float v00 = pixel<SMEM>(img, iy0 * w + ix0);
+  const float v01 = pixel<SMEM>(img, iy0 * w + ix1);
+  const float v10 = pixel<SMEM>(img, iy1 * w + ix0);
+  const float v11 = pixel<SMEM>(img, iy1 * w + ix1);
   const float top = __fadd_rn(__fmul_rn(v00, gx), __fmul_rn(v01, fx));
   const float bot = __fadd_rn(__fmul_rn(v10, gx), __fmul_rn(v11, fx));
   return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy));
 }
 
-static inline int ring_pad(int n_rings) { return (n_rings + RG - 1) / RG * RG; }
+// Ablation stages of the default instantiation; production runs STAGE_FULL.
+enum { STAGE_FULL = 0, STAGE_NO_CCF = 1, STAGE_SAMPLE_ONLY = 2,
+       STAGE_NO_YRED = 3 };
+
+// no_yred: the top row of the bilinear read only (x interpolation, no
+// second pair of gathers), the counterpart of the TPU's slice in place of
+// the y-tent contraction
+template <bool SMEM>
+__device__ __forceinline__ float bilinear_top(const float* __restrict__ img,
+                                              int h, int w, float y, float x) {
+  x = fminf(fmaxf(x, 0.f), (float)(w - 1));
+  y = fminf(fmaxf(y, 0.f), (float)(h - 1));
+  const float x0 = floorf(x);
+  const int ix0 = (int)x0, iy0 = (int)floorf(y);
+  const int ix1 = min(ix0 + 1, w - 1);
+  const float fx = __fsub_rn(x, x0), gx = __fsub_rn(1.f, fx);
+  return __fadd_rn(__fmul_rn(pixel<SMEM>(img, iy0 * w + ix0), gx),
+                   __fmul_rn(pixel<SMEM>(img, iy0 * w + ix1), fx));
+}
+
+// The polar offset of a sample: f32(cos_or_sin(angle) * radius), the f64
+// product rounded once, bitwise what config.polar_coords holds (numpy's
+// f64 product cast to f32).
+__device__ __forceinline__ float polar_offset(double cs, double radius) {
+  return __double2float_rn(__dmul_rn(cs, radius));
+}
+
+// The samples of one ring pair for thread j of its FFT: v[n1] = (ring a,
+// ring b) at angle 16 n1 + j, for the first pass of the forward FFT.  An
+// inactive thread (act) or a missing ring b (has_b) gives zeros.  The
+// (cos, sin) of an angle (4 KB for all, L1-resident) serves both rings.
+template <int STAGE, bool SMEM>
+__device__ __forceinline__ void sample_pair(
+    float2 (&v)[16], const float* __restrict__ img, int h, int w,
+    const double2* __restrict__ polar, double rad_a, double rad_b,
+    float bxa, float bya, float bxb, float byb, bool act, bool has_b, int j) {
+#pragma unroll
+  for (int n1 = 0; n1 < 16; ++n1) {
+    const double2 cs = __ldg(polar + 16 * n1 + j);
+    float va = 0.f, vb = 0.f;
+    if (act) {
+      const float x = __fadd_rn(bxa, polar_offset(cs.x, rad_a));
+      const float y = __fadd_rn(bya, polar_offset(cs.y, rad_a));
+      va = STAGE == STAGE_NO_YRED ? bilinear_top<SMEM>(img, h, w, y, x)
+                                  : bilinear<SMEM>(img, h, w, y, x);
+    }
+    if (has_b) {
+      const float x = __fadd_rn(bxb, polar_offset(cs.x, rad_b));
+      const float y = __fadd_rn(byb, polar_offset(cs.y, rad_b));
+      vb = STAGE == STAGE_NO_YRED ? bilinear_top<SMEM>(img, h, w, y, x)
+                                  : bilinear<SMEM>(img, h, w, y, x);
+    }
+    v[n1] = make_float2(va, vb);
+  }
+}
+
+// ---- complex arithmetic and the 16-point DFT in registers.  SIGN = -1 is
+// the forward transform (W = e^(-2 pi i / n)), +1 the inverse (unscaled).
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+// a * (SIGN i): a quarter turn, exact
+template <int SIGN>
+__device__ __forceinline__ float2 qturn(float2 a) {
+  return SIGN < 0 ? make_float2(a.y, -a.x) : make_float2(-a.y, a.x);
+}
+
+template <int SIGN>
+__device__ __forceinline__ void dft4(float2& a0, float2& a1, float2& a2,
+                                     float2& a3) {
+  const float2 t0 = cadd(a0, a2), t1 = csub(a0, a2);
+  const float2 t2 = cadd(a1, a3), t3 = qturn<SIGN>(csub(a1, a3));
+  a0 = cadd(t0, t2);
+  a2 = csub(t0, t2);
+  a1 = cadd(t1, t3);
+  a3 = csub(t1, t3);
+}
+
+// W16^e = (cos(2 pi e / 16), SIGN sin(2 pi e / 16)) for the exponents
+// n2 * k1 (n2, k1 in 1..3, e != 4) of the radix-4 x 4 plan
+template <int SIGN>
+__device__ __forceinline__ float2 w16(int e) {
+  const float c1 = 0.92387953251128674f, s1 = 0.38268343236508978f;
+  const float h = 0.70710678118654757f;
+  float c = 0.f, s = 0.f;
+  switch (e) {
+    case 1: c = c1; s = s1; break;
+    case 2: c = h; s = h; break;
+    case 3: c = s1; s = c1; break;
+    case 6: c = -h; s = h; break;
+    case 9: c = -c1; s = -s1; break;
+  }
+  return make_float2(c, SIGN * s);
+}
+
+// In-place 16-point DFT: v[k] <- sum_n v[n] W16^(n k).  n = n2 + 4 n1,
+// k = k1 + 4 k2: 4-point DFTs over n1, twiddles W16^(n2 k1), 4-point DFTs
+// over n2.
+template <int SIGN>
+__device__ __forceinline__ void dft16(float2 (&v)[16]) {
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2)   // T[n2][k1] lands in v[n2 + 4 k1]
+    dft4<SIGN>(v[n2], v[n2 + 4], v[n2 + 8], v[n2 + 12]);
+#pragma unroll
+  for (int n2 = 1; n2 < 4; ++n2)
+#pragma unroll
+    for (int k1 = 1; k1 < 4; ++k1)
+      v[n2 + 4 * k1] = (n2 * k1 == 4) ? qturn<SIGN>(v[n2 + 4 * k1])
+                                      : cmul(v[n2 + 4 * k1], w16<SIGN>(n2 * k1));
+  float2 o[16];
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    dft4<SIGN>(v[4 * k1], v[4 * k1 + 1], v[4 * k1 + 2], v[4 * k1 + 3]);
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2) o[k1 + 4 * k2] = v[4 * k1 + k2];
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) v[k] = o[k];
+}
+
+// The rest of a 256-point FFT on thread j of its 16, after the first
+// 16-point pass over its column: the twiddles W256^(SIGN j k1), the
+// column to the transpose scratch `sc` (this FFT's 16 x TSTR float2), a
+// block barrier, row j back and its 16-point DFT: on return
+// v[k2] = Z[j + 16 k2].  The caller synchronises before `sc` is written
+// again.
+template <int SIGN>
+__device__ __forceinline__ void fft256_second_half(float2 (&v)[16],
+                                                   const float2 (&tw)[16],
+                                                   float2* sc, int j) {
+#pragma unroll
+  for (int k1 = 1; k1 < 16; ++k1)
+    v[k1] = cmul(v[k1], SIGN < 0 ? tw[k1] : make_float2(tw[k1].x, -tw[k1].y));
+#pragma unroll
+  for (int k1 = 0; k1 < 16; ++k1) sc[k1 * TSTR + j] = v[k1];
+  __syncthreads();
+#pragma unroll
+  for (int n2 = 0; n2 < 16; ++n2) v[n2] = sc[j * TSTR + n2];
+  dft16<SIGN>(v);
+}
+
+// ccf row stride (float2): 129 or 130 puts the 8 refs of a half-warp's
+// stores on distinct banks
+__host__ __device__ constexpr int x_stride(int n_mirr) {
+  return n_mirr == 2 ? 129 : 130;
+}
+
+// b. The ccf of GC shifts' spectra (slot layout) with refs k0 .. k0+kn-1
+// into the rows X[(g * kn + kl) * NMIRR + m], scaled by 1/L; slot 0
+// carries (DC, Nyquist).  Thread t takes ref kl = t % KG and the bins
+// fs0 + FSTEP i, all at once, so that SLOTS ref reads per ring are in
+// flight; each serves the GC shifts.  ZERO (the no_ccf stage) writes
+// zero rows.
+template <int NMIRR, int KG, int GC, bool ZERO>
+__device__ __forceinline__ void ccf(const float2* __restrict__ spec,
+                                    const float2* __restrict__ ref_fw,
+                                    float2* __restrict__ X, int n_rings,
+                                    int k0, int kn, int t) {
+  constexpr int XS = x_stride(NMIRR);
+  constexpr int SLOTS = (KG * NB + NTHREADS - 1) / NTHREADS;
+  constexpr int FSTEP = NTHREADS / KG;
+  const int kl = t % KG, fs0 = t / KG;
+  if (kl >= kn || fs0 >= NB) return;   // KG=1: threads 128.. idle
+  float acc[SLOTS][GC][4];
+#pragma unroll
+  for (int i = 0; i < SLOTS; ++i)
+#pragma unroll
+    for (int g = 0; g < GC; ++g)
+      acc[i][g][0] = acc[i][g][1] = acc[i][g][2] = acc[i][g][3] = 0.f;
+  if (!ZERO) {
+    const float2* rp = ref_fw + (size_t)(k0 + kl) * n_rings * F + fs0;
+    const float* nyq = reinterpret_cast<const float*>(
+        ref_fw + (size_t)(k0 + kl) * n_rings * F + L / 2);
+#pragma unroll 2
+    for (int r = 0; r < n_rings; ++r) {
+      float2 rr[SLOTS];
+#pragma unroll
+      for (int i = 0; i < SLOTS; ++i)
+        rr[i] = __ldg(rp + (size_t)r * F + FSTEP * i);
+      if (fs0 == 0) rr[0].y = __ldg(nyq + 2 * (size_t)r * F);
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        const float2* sp = spec + (g * n_rings + r) * NB + fs0;
+#pragma unroll
+        for (int i = 0; i < SLOTS; ++i) {
+          const float2 sv = sp[FSTEP * i];
+          acc[i][g][0] = fmaf(sv.x, rr[i].x, acc[i][g][0]);
+          acc[i][g][1] = fmaf(sv.y, rr[i].y, acc[i][g][1]);
+          acc[i][g][2] = fmaf(sv.x, rr[i].y, acc[i][g][2]);
+          acc[i][g][3] = fmaf(sv.y, rr[i].x, acc[i][g][3]);
+        }
+      }
+    }
+  }
+  const float sc_l = 1.f / L;
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    const int row = (g * kn + kl) * NMIRR;
+#pragma unroll
+    for (int i = 0; i < SLOTS; ++i) {
+      const float a = acc[i][g][0], b = acc[i][g][1];
+      const float c = acc[i][g][2], d = acc[i][g][3];
+      const int fs = fs0 + FSTEP * i;
+      float2 xo, xm;
+      if (fs == 0) {   // DC and Nyquist: a and b, the same in both
+        xo = xm = make_float2(a * sc_l, b * sc_l);
+      } else {
+        xo = make_float2((a + b) * sc_l, (c - d) * sc_l);
+        xm = make_float2((a - b) * sc_l, -(c + d) * sc_l);
+      }
+      X[row * XS + fs] = xo;
+      if (NMIRR == 2) X[(row + 1) * XS + fs] = xm;
+    }
+  }
+}
+
+// ---- geometry of a launch
 
 static inline int ref_group(int n_refs) { return n_refs == 1 ? 1 : 8; }
 
-static inline size_t smem_bytes(int n_rings, int n_mirr, int kg) {
-  const size_t r_pad = (size_t)ring_pad(n_rings);
-  return sizeof(float) * (L + 2 * NWARPS)      // twiddles, warp partials
-         + sizeof(float) * RG * L              // one ring group of samples
-         + sizeof(float) * r_pad * L           // ring spectra
-         + sizeof(float2) * n_mirr * kg * F;   // ccf spectra of a ref group
+static inline size_t smem_bytes(int n_rings, int n_mirr, int kg, int g) {
+  return sizeof(float2) * ((size_t)g * n_rings * NB            // spectra
+                           + (size_t)g * kg * n_mirr * x_stride(n_mirr)
+                           + NFFT * TSIZE)                      // scratch
+         + sizeof(float) * (2 * L + 2 * NWARPS);  // row, mask, partials
 }
 
-template <int NMIRR, bool MASK, int KG>
+static inline int smem_limit() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 48 * 1024;
+  return bytes;
+}
+
+// The launch's plan: shifts per group (G) and whether the image is staged
+// in shared memory.  Staging takes the image off the L1 cache, a larger G
+// divides the ccf's ref reads; where both do not fit, the plan keeps the
+// staged image unless that leaves G=1 against a larger G without it in a
+// search of ref groups of 8 (KG=8), whose ccf pays for G=1.  Measured on
+// an H100 (tools/torch_search_ab.py), the staged plan against the
+// unstaged one: 90 px, R=36: K=8 68.0 ms (G=3) against 88.9 (G=3), K=1
+// 43.9 (G=4) against 63.5 (G=4); 160 px, R=48: K=4 35.6 (G=1) against
+// 30.5 (G=2), K=1 21.2 (G=1) against 25.4 (G=3).  A block too large even
+// at G=1 is refused by the wrapper.
+struct Plan {
+  int group;
+  bool image;
+  size_t smem;
+};
+
+// The most shifts per group (up to GMAX and S) that fit beside `extra`
+// bytes, or 0 if not even one does.
+static inline int max_group(int n_rings, int n_mirr, int kg, int n_shifts,
+                            size_t extra, size_t limit) {
+  int g = 0;
+  while (g < GMAX && g < n_shifts &&
+         smem_bytes(n_rings, n_mirr, kg, g + 1) + extra <= limit)
+    ++g;
+  return g;
+}
+
+static inline Plan plan(int n_rings, int n_mirr, int kg, int n_shifts,
+                        int h, int w) {
+  const size_t limit = (size_t)smem_limit();
+  const size_t image = sizeof(float) * (size_t)h * w;
+  const int g_staged = max_group(n_rings, n_mirr, kg, n_shifts, image, limit);
+  int g_ldg = max_group(n_rings, n_mirr, kg, n_shifts, 0, limit);
+  if (g_ldg < 1) g_ldg = 1;
+  if (g_staged >= 2 || (g_staged == 1 && (g_ldg == 1 || kg == 1)))
+    return {g_staged, true, smem_bytes(n_rings, n_mirr, kg, g_staged) + image};
+  return {g_ldg, false, smem_bytes(n_rings, n_mirr, kg, g_ldg)};
+}
+
+template <int NMIRR, bool MASK, int KG, int STAGE>
 __global__ void __launch_bounds__(NTHREADS)
 search_kernel(const float* __restrict__ images,   // (N, H, W)
               const float* __restrict__ acc_sx,   // (N,) accumulated shifts
               const float* __restrict__ acc_sy,   // (N,)
-              const float* __restrict__ coords,   // (R, L, 2) polar offsets
+              const double2* __restrict__ polar,  // (L,) (cos, sin) of angles
+              const double* __restrict__ radii,   // (R,) ring radii
               const float* __restrict__ shifts,   // (S, 2) grid shifts
               const float2* __restrict__ ref_fw,  // (K, R, F) ref spectra
-              const float* __restrict__ twiddle,  // (L,) cos(2 pi j / L)
+              const float2* __restrict__ twiddle, // (16, 16): [k1][j] W256^(j k1)
               const float* __restrict__ mask,     // (L,) angle mask if MASK
               int h, int w, int n_rings, int n_shifts, int n_refs,
+              int group,                          // shifts per group (G)
+              int image_in_smem,                  // the image is staged
               float* __restrict__ out_val,        // (N,)
               float* __restrict__ out_row,        // (N, L)
               int* __restrict__ out_aidx, int* __restrict__ out_sidx,
               int* __restrict__ out_ref, int* __restrict__ out_mirror) {
-  extern __shared__ __align__(16) float smem[];
-  const int r_pad = (n_rings + RG - 1) / RG * RG;
-  float* tw = smem;                                // L
-  float* red_v = tw + L;                           // NWARPS
-  int* red_e = (int*)(red_v + NWARPS);             // NWARPS
-  float* polar = (float*)(red_e + NWARPS);         // RG * L
-  float* spec = polar + RG * L;                    // r_pad * L
-  float2* X = (float2*)(spec + r_pad * L);         // NMIRR * KG * F
+  static_assert(GMAX == 4, "the ccf switch covers groups of 1 to 4 shifts");
+  constexpr int XS = x_stride(NMIRR);
+  extern __shared__ __align__(16) float2 smem[];
+  float2* spec = smem;                                  // G * R * NB
+  float2* X = spec + (size_t)group * n_rings * NB;      // G * KG * NMIRR * XS
+  float2* scr = X + group * KG * NMIRR * XS;            // NFFT * TSIZE
+  float* best_row = (float*)(scr + NFFT * TSIZE);       // L
+  float* mask_s = best_row + L;                         // L
+  float* red_v = mask_s + L;                            // NWARPS
+  int* red_e = (int*)(red_v + NWARPS);                  // NWARPS
+  float* img_s = (float*)(red_e + NWARPS);              // H * W if staged
 
   const int n = blockIdx.x;
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
-  tw[t] = twiddle[t];
+  const int q = t >> 4;   // this thread's FFT of a round
+  const int j = t & 15;   // its column (first pass) and row (second pass)
+  // the shuffle partner that holds Z[256 - f] for f = j + 16 k2
+  const int partner = (lane & 16) | ((16 - j) & 15);
+  float2* sc = scr + q * TSIZE;
+
+  float2 tw[16];   // W256^(j k1), forward
+#pragma unroll
+  for (int k1 = 0; k1 < 16; ++k1) tw[k1] = twiddle[k1 * 16 + j];
+  best_row[t] = 0.f;
+  mask_s[t] = MASK ? mask[t] : 0.f;
 
   const float* img = images + (size_t)n * h * w;
+  if (image_in_smem)
+    for (int i = t; i < h * w; i += NTHREADS) img_s[i] = __ldg(img + i);
   const float ax = acc_sx[n], ay = acc_sy[n];
   const float cx = (float)(w / 2), cy = (float)(h / 2);
 
-  // forward-DFT column of this thread: cos bin t, or -sin bin t-128
-  // (-sin(theta) = cos(theta + pi/2), a quarter turn = 64 table entries)
-  const int f_col = (t <= 128) ? t : t - 128;
-  const int off_col = (t <= 128) ? 0 : 64;
-  const float mask_t = MASK ? mask[t] : 0.f;
-
   float best_v = -3.0e38f;  // identical in every thread
   int best_e = 0x7fffffff;
-  float my_row = 0.f;       // this thread's angle of the winning row
+  float smax = -3.0e38f;    // ablation sink: the largest sample seen
   __syncthreads();
 
-  for (int s = 0; s < n_shifts; ++s) {
-    const float bx = __fadd_rn(cx, __fadd_rn(ax, shifts[2 * s]));
-    const float by = __fadd_rn(cy, __fadd_rn(ay, shifts[2 * s + 1]));
+  for (int s0 = 0; s0 < n_shifts; s0 += group) {
+    const int gc = min(group, n_shifts - s0);
+    const int n_ring_all = gc * n_rings;
+    const int n_pairs = (n_ring_all + 1) / 2;
 
-    for (int rg = 0; rg < r_pad; rg += RG) {
-      // 1. polar samples of rings rg .. rg+RG-1; padding rings are zero
-      for (int q = t; q < RG * L; q += NTHREADS) {
-        const int qg = rg * L + q;
-        float v = 0.f;
-        if (qg < n_rings * L) {
-          const float x = __fadd_rn(bx, coords[2 * qg]);
-          const float y = __fadd_rn(by, coords[2 * qg + 1]);
-          v = bilinear(img, h, w, y, x);
-        }
-        polar[q] = v;
+    // a. samples and forward FFTs, 16 ring pairs per round
+    for (int p0 = 0; p0 < n_pairs; p0 += NFFT) {
+      const int p = p0 + q;
+      const bool act = p < n_pairs;
+      const int ia = act ? 2 * p : 0;
+      const bool has_b = act && ia + 1 < n_ring_all;
+      const int ib = has_b ? ia + 1 : ia;
+      const int ga = ia / n_rings, ra = ia - ga * n_rings;
+      const int gb = ib / n_rings, rb = ib - gb * n_rings;
+      const float bxa = __fadd_rn(cx, __fadd_rn(ax, shifts[2 * (s0 + ga)]));
+      const float bya = __fadd_rn(cy, __fadd_rn(ay, shifts[2 * (s0 + ga) + 1]));
+      const float bxb = __fadd_rn(cx, __fadd_rn(ax, shifts[2 * (s0 + gb)]));
+      const float byb = __fadd_rn(cy, __fadd_rn(ay, shifts[2 * (s0 + gb) + 1]));
+      const double rad_a = __ldg(radii + ra), rad_b = __ldg(radii + rb);
+      float2 v[16];
+      if (image_in_smem)
+        sample_pair<STAGE, true>(v, img_s, h, w, polar, rad_a, rad_b, bxa,
+                                 bya, bxb, byb, act, has_b, j);
+      else
+        sample_pair<STAGE, false>(v, img, h, w, polar, rad_a, rad_b, bxa,
+                                  bya, bxb, byb, act, has_b, j);
+      if (STAGE == STAGE_NO_CCF || STAGE == STAGE_SAMPLE_ONLY) {
+#pragma unroll
+        for (int n1 = 0; n1 < 16; ++n1)
+          smax = fmaxf(smax, fmaxf(v[n1].x, v[n1].y));
+        continue;
       }
-      __syncthreads();
-
-      // 2. their DFT, column t
-      float acc[RG];
+      dft16<-1>(v);
+      fft256_second_half<-1>(v, tw, sc, j);
+      // split the two rings' spectra; thread j = 0 pairs with itself
 #pragma unroll
-      for (int i = 0; i < RG; ++i) acc[i] = 0.f;
-      int idx = off_col;
-      for (int j = 0; j < L; j += 4) {
-        const float w0 = tw[idx & (L - 1)]; idx += f_col;
-        const float w1 = tw[idx & (L - 1)]; idx += f_col;
-        const float w2 = tw[idx & (L - 1)]; idx += f_col;
-        const float w3 = tw[idx & (L - 1)]; idx += f_col;
-#pragma unroll
-        for (int i = 0; i < RG; ++i) {
-          const float4 p = *reinterpret_cast<const float4*>(polar + i * L + j);
-          acc[i] = fmaf(p.x, w0, acc[i]);
-          acc[i] = fmaf(p.y, w1, acc[i]);
-          acc[i] = fmaf(p.z, w2, acc[i]);
-          acc[i] = fmaf(p.w, w3, acc[i]);
+      for (int k2 = 0; k2 < 8; ++k2) {
+        float2 pz;
+        pz.x = __shfl_sync(0xffffffffu, v[15 - k2].x, partner);
+        pz.y = __shfl_sync(0xffffffffu, v[15 - k2].y, partner);
+        if (j == 0) pz = v[(16 - k2) & 15];
+        const float2 z = v[k2];
+        float2 xa = make_float2(0.5f * (z.x + pz.x), 0.5f * (z.y - pz.y));
+        float2 xb = make_float2(0.5f * (z.y + pz.y), 0.5f * (pz.x - z.x));
+        if (k2 == 0 && j == 0) {   // slot 0: (DC, Nyquist), both real
+          xa = make_float2(z.x, v[8].x);
+          xb = make_float2(z.y, v[8].y);
         }
+        if (act) spec[ia * NB + j + 16 * k2] = xa;
+        if (has_b) spec[ib * NB + j + 16 * k2] = xb;
       }
-#pragma unroll
-      for (int i = 0; i < RG; ++i) spec[(rg + i) * L + t] = acc[i];
-      __syncthreads();  // the next group's samples overwrite `polar`
+      __syncthreads();  // the next round's columns overwrite the scratch
     }
 
-    for (int k0 = 0; k0 < n_refs; k0 += KG) {
+    // (sample_only stops after the samples)
+    for (int k0 = 0; STAGE != STAGE_SAMPLE_ONLY && k0 < n_refs; k0 += KG) {
       const int kn = min(KG, n_refs - k0);
+      const int n_rows = gc * kn * NMIRR;   // rows (shift, ref, mirror)
 
-      // 3. ccf spectra of refs k0 .. k0+kn-1, pre-scaled for the inverse
-      //    (x2 for the bins that stand for a conjugate pair, /L);
-      //    the imaginary parts of bins 0 and 128 are dropped (C2R)
-      for (int it = t; it < kn * F; it += NTHREADS) {
-        const int kl = it / F, f = it - kl * F;
-        const bool has_im = (f > 0 && f < L / 2);
-        const float2* rp = ref_fw + (size_t)(k0 + kl) * n_rings * F + f;
-        float a = 0.f, b = 0.f, c = 0.f, d = 0.f;
-        for (int r = 0; r < n_rings; ++r) {
-          const float sr = spec[r * L + f];
-          const float si = has_im ? spec[r * L + L / 2 + f] : 0.f;
-          const float2 rr = __ldg(rp + (size_t)r * F);
-          a = fmaf(sr, rr.x, a);
-          b = fmaf(si, rr.y, b);
-          c = fmaf(sr, rr.y, c);
-          d = fmaf(si, rr.x, d);
-        }
-        const float scale = has_im ? (2.f / L) : (1.f / L);
-        const float im_o = has_im ? (c - d) * scale : 0.f;
-        const float im_m = has_im ? -(c + d) * scale : 0.f;
-        X[kl * F + f] = make_float2((a + b) * scale, im_o);          // orig
-        if (NMIRR == 2)
-          X[(KG + kl) * F + f] = make_float2((a - b) * scale, im_m);  // mirr
+      // b. ccf of the group's spectra with refs k0 .. k0+kn-1
+      switch (gc) {   // the shifts of a group as a compile-time count
+        case 1: ccf<NMIRR, KG, 1, STAGE == STAGE_NO_CCF>(
+                    spec, ref_fw, X, n_rings, k0, kn, t); break;
+        case 2: ccf<NMIRR, KG, 2, STAGE == STAGE_NO_CCF>(
+                    spec, ref_fw, X, n_rings, k0, kn, t); break;
+        case 3: ccf<NMIRR, KG, 3, STAGE == STAGE_NO_CCF>(
+                    spec, ref_fw, X, n_rings, k0, kn, t); break;
+        default: ccf<NMIRR, KG, GMAX, STAGE == STAGE_NO_CCF>(
+                    spec, ref_fw, X, n_rings, k0, kn, t);
       }
       __syncthreads();
 
-      // 4. inverse DFT: thread t = angle t, rows g = m*KG + kl
-      float racc[NMIRR * KG];
+      // c. inverse FFTs of row pairs, 16 per round, and d. the argmax
+      const int n_fft = (n_rows + 1) / 2;
+      for (int c0 = 0; c0 < n_fft; c0 += NFFT) {
+        const int ci = c0 + q;
+        const bool act = ci < n_fft;
+        const int r0 = act ? 2 * ci : 0;
+        const bool has1 = act && r0 + 1 < n_rows;
+        const float2* x0 = X + r0 * XS;
+        const float2* x1 = X + (has1 ? r0 + 1 : r0) * XS;
+        float2 v[16];
 #pragma unroll
-      for (int g = 0; g < NMIRR * KG; ++g) racc[g] = 0.f;
-      int idx = 0;
-      for (int f = 0; f < F; ++f) {
-        const float cw = tw[idx & (L - 1)];          // cos(2 pi f t / L)
-        const float sw = tw[(idx + 64) & (L - 1)];   // -sin(2 pi f t / L)
-        idx += t;
-#pragma unroll
-        for (int g = 0; g < NMIRR * KG; ++g) {
-          const float2 xv = X[g * F + f];
-          racc[g] = fmaf(xv.x, cw, racc[g]);
-          racc[g] = fmaf(xv.y, sw, racc[g]);
+        for (int n1 = 0; n1 < 16; ++n1) {   // C[f], f = 16 n1 + j
+          const int f = 16 * n1 + j;
+          const bool edge = j == 0 && (n1 == 0 || n1 == 8);  // DC, Nyquist
+          const int fi = edge ? 0 : (n1 < 8 ? f : L - f);
+          const float2 A = x0[fi];
+          float2 B = x1[fi];
+          if (!has1) B = make_float2(0.f, 0.f);
+          if (edge)
+            v[n1] = n1 == 0 ? make_float2(A.x, B.x) : make_float2(A.y, B.y);
+          else if (n1 < 8)    // O[f] + i M[f]
+            v[n1] = make_float2(A.x - B.y, A.y + B.x);
+          else                // conj(O[256-f]) + i conj(M[256-f])
+            v[n1] = make_float2(A.x + B.y, B.x - A.y);
         }
-      }
+        dft16<1>(v);
+        fft256_second_half<1>(v, tw, sc, j);
 
-      // 5. priority argmax over this thread's rows (masked values under
-      //    MASK), then the block
-      float tv = -3.0e38f;
-      int te = 0x7fffffff;
+        // rows r0 (real parts) and r0+1 (imaginary parts), angles j + 16 k2
+        float tv = -3.0e38f;
+        int te = 0x7fffffff;
+        if (act) {
 #pragma unroll
-      for (int g = 0; g < NMIRR * KG; ++g) {
-        const int m = g / KG, kl = g % KG;
-        if (kl < kn) {
-          const int e = ((m * n_shifts + s) * n_refs + k0 + kl) * L + t;
-          const float v = MASK ? racc[g] + mask_t : racc[g];
-          if (beats(v, e, tv, te)) { tv = v; te = e; }
+          for (int part = 0; part < 2; ++part) {
+            if (part == 1 && !has1) break;
+            const int row = r0 + part;
+            const int m = row % NMIRR, gk = row / NMIRR;
+            const int kr = gk % kn, g = gk / kn;
+            const int e0 = ((m * n_shifts + s0 + g) * n_refs + k0 + kr) * L;
+#pragma unroll
+            for (int k2 = 0; k2 < 16; ++k2) {
+              const int a = j + 16 * k2;
+              const float raw = part ? v[k2].y : v[k2].x;
+              const float val = MASK ? raw + mask_s[a] : raw;
+              if (beats(val, e0 + a, tv, te)) { tv = val; te = e0 + a; }
+            }
+          }
         }
-      }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, tv, off);
-        const int oe = __shfl_down_sync(0xffffffffu, te, off);
-        if (beats(ov, oe, tv, te)) { tv = ov; te = oe; }
-      }
-      if (lane == 0) { red_v[warp] = tv; red_e[warp] = te; }
-      __syncthreads();
-      float gv = red_v[0];
-      int ge = red_e[0];
+        for (int off = 16; off > 0; off >>= 1) {
+          const float ov = __shfl_down_sync(0xffffffffu, tv, off);
+          const int oe = __shfl_down_sync(0xffffffffu, te, off);
+          if (beats(ov, oe, tv, te)) { tv = ov; te = oe; }
+        }
+        if (lane == 0) { red_v[warp] = tv; red_e[warp] = te; }
+        __syncthreads();
+        float gv = red_v[0];
+        int ge = red_e[0];
 #pragma unroll
-      for (int i = 1; i < NWARPS; ++i)
-        if (beats(red_v[i], red_e[i], gv, ge)) { gv = red_v[i]; ge = red_e[i]; }
-      if (beats(gv, ge, best_v, best_e)) {
-        best_v = gv;
-        best_e = ge;
-        const int rest = ge / L;
-        const int gw = (rest / n_refs / n_shifts) * KG + (rest % n_refs - k0);
+        for (int i = 1; i < NWARPS; ++i)
+          if (beats(red_v[i], red_e[i], gv, ge)) { gv = red_v[i]; ge = red_e[i]; }
+        if (beats(gv, ge, best_v, best_e)) {
+          best_v = gv;
+          best_e = ge;
+          const int rest = ge / L;
+          const int kw = rest % n_refs, sw = (rest / n_refs) % n_shifts;
+          const int mw = rest / n_refs / n_shifts;
+          const int row = ((sw - s0) * kn + kw - k0) * NMIRR + mw;
+          if (act && (row >> 1) == ci) {   // this FFT holds the winning row
 #pragma unroll
-        for (int g = 0; g < NMIRR * KG; ++g)
-          if (g == gw) my_row = racc[g];   // unmasked
+            for (int k2 = 0; k2 < 16; ++k2)
+              best_row[j + 16 * k2] = (row & 1) ? v[k2].y : v[k2].x;  // unmasked
+          }
+        }
+        // the partials and the scratch are rewritten only after the next
+        // round's first barrier
       }
-      // the partials are rewritten only after the next group's ccf barrier
     }
   }
 
-  out_row[(size_t)n * L + t] = my_row;
+  __syncthreads();
+  // an ablated stage's outputs have the production shapes, and values
+  // that mean nothing (the sink keeps the samples from being optimised out)
+  out_row[(size_t)n * L + t] = STAGE == STAGE_FULL ? best_row[t]
+                                                   : fmaxf(best_row[t], smax);
   if (t == 0) {
     const int rest = best_e / L;
     out_val[n] = best_v;
@@ -307,23 +673,25 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
   }
 }
 
-template <int NMIRR, bool MASK, int KG>
+template <int NMIRR, bool MASK, int KG, int STAGE = STAGE_FULL>
 static cudaError_t launch(const float* images, const float* acc_sx,
-                          const float* acc_sy, const float* coords,
-                          const float* shifts, const float* ref_fw,
+                          const float* acc_sy, const double* polar,
+                          const double* radii, const float* shifts,
+                          const float* ref_fw,
                           const float* twiddle, const float* mask, int n,
                           int h, int w, int n_rings, int n_shifts, int n_refs,
                           float* out_val, float* out_row, int* out_aidx,
                           int* out_sidx, int* out_ref, int* out_mirror,
                           cudaStream_t stream) {
-  const size_t smem = smem_bytes(n_rings, NMIRR, KG);
+  const Plan pl = plan(n_rings, NMIRR, KG, n_shifts, h, w);
   cudaError_t err = cudaFuncSetAttribute(
-      search_kernel<NMIRR, MASK, KG>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      search_kernel<NMIRR, MASK, KG, STAGE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (err != cudaSuccess) return err;
-  search_kernel<NMIRR, MASK, KG><<<n, NTHREADS, smem, stream>>>(
-      images, acc_sx, acc_sy, coords, shifts, (const float2*)ref_fw, twiddle,
-      mask, h, w, n_rings, n_shifts, n_refs, out_val, out_row, out_aidx,
+  search_kernel<NMIRR, MASK, KG, STAGE><<<n, NTHREADS, pl.smem, stream>>>(
+      images, acc_sx, acc_sy, (const double2*)polar, radii, shifts,
+      (const float2*)ref_fw, (const float2*)twiddle, mask, h, w, n_rings,
+      n_shifts, n_refs, pl.group, (int)pl.image, out_val, out_row, out_aidx,
       out_sidx, out_ref, out_mirror);
   return cudaGetLastError();
 }
@@ -331,20 +699,20 @@ static cudaError_t launch(const float* images, const float* acc_sx,
 template <int NMIRR, bool MASK>
 static cudaError_t launch_kg(int n_refs, const float* images,
                              const float* acc_sx, const float* acc_sy,
-                             const float* coords, const float* shifts,
-                             const float* ref_fw, const float* twiddle,
-                             const float* mask, int n, int h, int w,
-                             int n_rings, int n_shifts, float* out_val,
-                             float* out_row, int* out_aidx, int* out_sidx,
-                             int* out_ref, int* out_mirror,
+                             const double* polar, const double* radii,
+                             const float* shifts, const float* ref_fw,
+                             const float* twiddle, const float* mask, int n,
+                             int h, int w, int n_rings, int n_shifts,
+                             float* out_val, float* out_row, int* out_aidx,
+                             int* out_sidx, int* out_ref, int* out_mirror,
                              cudaStream_t stream) {
   if (ref_group(n_refs) == 1)
-    return launch<NMIRR, MASK, 1>(images, acc_sx, acc_sy, coords, shifts,
-                                  ref_fw, twiddle, mask, n, h, w, n_rings,
-                                  n_shifts, n_refs, out_val, out_row,
+    return launch<NMIRR, MASK, 1>(images, acc_sx, acc_sy, polar, radii,
+                                  shifts, ref_fw, twiddle, mask, n, h, w,
+                                  n_rings, n_shifts, n_refs, out_val, out_row,
                                   out_aidx, out_sidx, out_ref, out_mirror,
                                   stream);
-  return launch<NMIRR, MASK, 8>(images, acc_sx, acc_sy, coords, shifts,
+  return launch<NMIRR, MASK, 8>(images, acc_sx, acc_sy, polar, radii, shifts,
                                 ref_fw, twiddle, mask, n, h, w, n_rings,
                                 n_shifts, n_refs, out_val, out_row, out_aidx,
                                 out_sidx, out_ref, out_mirror, stream);
@@ -353,20 +721,41 @@ static cudaError_t launch_kg(int n_refs, const float* images,
 extern "C" {
 
 // Launch on `stream`; `mirror` is 0 or 1, `mask` is null for an unmasked
-// search.  Returns the cudaError_t of the launch (0 = success).
+// search, `stage` 0 (STAGE_FULL) except in the ablation harness, which
+// takes the default instantiation only; `polar` and `radii` are the f64
+// tables of ops/fused_search.py::polar_tables, `twiddle` the (16, 16)
+// complex table of ops/fused_search.py::fft_twiddles.  Returns the
+// cudaError_t of the launch (0 = success).
 int cryo_search_launch(const float* images, const float* acc_sx,
-                       const float* acc_sy, const float* coords,
-                       const float* shifts, const float* ref_fw,
-                       const float* twiddle, const float* mask, int n, int h,
+                       const float* acc_sy, const double* polar,
+                       const double* radii, const float* shifts,
+                       const float* ref_fw, const float* twiddle,
+                       const float* mask, int n, int h,
                        int w, int n_rings, int n_shifts, int n_refs,
-                       int mirror, float* out_val, float* out_row,
+                       int mirror, int stage, float* out_val, float* out_row,
                        int* out_aidx, int* out_sidx, int* out_ref,
                        int* out_mirror, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (stage != STAGE_FULL) {
+    if (!mirror || mask || ref_group(n_refs) != 8)
+      return (int)cudaErrorInvalidValue;
+#define CRYO_STAGE(ST)                                                        \
+  launch<2, false, 8, ST>(images, acc_sx, acc_sy, polar, radii, shifts,      \
+                          ref_fw, twiddle, mask, n, h, w, n_rings, n_shifts, \
+                          n_refs, out_val, out_row, out_aidx, out_sidx,      \
+                          out_ref, out_mirror, st)
+    cudaError_t err = cudaErrorInvalidValue;
+    if (stage == STAGE_NO_CCF) err = CRYO_STAGE(STAGE_NO_CCF);
+    if (stage == STAGE_SAMPLE_ONLY) err = CRYO_STAGE(STAGE_SAMPLE_ONLY);
+    if (stage == STAGE_NO_YRED) err = CRYO_STAGE(STAGE_NO_YRED);
+#undef CRYO_STAGE
+    return (int)err;
+  }
 #define CRYO_LAUNCH(NM, MK)                                                  \
-  launch_kg<NM, MK>(n_refs, images, acc_sx, acc_sy, coords, shifts, ref_fw, \
-                    twiddle, mask, n, h, w, n_rings, n_shifts, out_val,     \
-                    out_row, out_aidx, out_sidx, out_ref, out_mirror, st)
+  launch_kg<NM, MK>(n_refs, images, acc_sx, acc_sy, polar, radii, shifts,   \
+                    ref_fw, twiddle, mask, n, h, w, n_rings, n_shifts,      \
+                    out_val, out_row, out_aidx, out_sidx, out_ref,          \
+                    out_mirror, st)
   cudaError_t err;
   if (mirror)
     err = mask ? CRYO_LAUNCH(2, true) : CRYO_LAUNCH(2, false);
@@ -376,9 +765,16 @@ int cryo_search_launch(const float* images, const float* acc_sx,
   return (int)err;
 }
 
-// Dynamic shared memory one block takes for this geometry.
-long long cryo_search_smem_bytes(int n_rings, int mirror, int n_refs) {
-  return (long long)smem_bytes(n_rings, mirror ? 2 : 1, ref_group(n_refs));
+// The plan of a launch at this geometry on the current device: returns
+// the dynamic shared memory of one block and sets the shifts per group
+// (G) and whether the image is staged in shared memory.
+long long cryo_search_plan(int n_rings, int mirror, int n_refs, int n_shifts,
+                           int h, int w, int* group, int* image_in_smem) {
+  const Plan pl = plan(n_rings, mirror ? 2 : 1, ref_group(n_refs), n_shifts,
+                       h, w);
+  *group = pl.group;
+  *image_in_smem = (int)pl.image;
+  return (long long)pl.smem;
 }
 
 const char* cryo_search_error_string(int err) {

@@ -24,7 +24,9 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-build_log: dict[str, dict] = {}   # name -> {"seconds", "cached", "ptxas"}
+# name -> {"seconds", "cached", "ptxas"}; a cached build's ptxas report
+# is the one kept beside its library
+build_log: dict[str, dict] = {}
 
 
 def _nvcc() -> str:
@@ -47,9 +49,10 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
     for p in paths:
         digest.update(p.read_bytes())
     so = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    report = so.with_suffix(".ptxas")
     t0 = time.perf_counter()
     cached = so.exists()
-    ptxas = ""
+    ptxas = report.read_text() if cached and report.exists() else ""
     if not cached:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -60,6 +63,7 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed building {name}:\n"
                                f"{proc.stdout}\n{proc.stderr}")
         ptxas = proc.stderr
+        report.write_text(ptxas)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     build_log[name] = {"seconds": time.perf_counter() - t0,

@@ -25,11 +25,21 @@ Any K runs in one launch, counted under its variant: the kernel's
 ref-group loop replaces the ``fold=True`` finalize and the ref-axis
 chunks (:356-424, :752-781, ``_merge_chunk`` :791).  Rings are
 ``ring_len=256`` uniform rings.
+
+``fused_search_stage`` launches the TPU kernel's ablation stages
+(``stage`` in {no_ccf, sample_only, no_yred}, :221-233, :329-348) for
+``tools/torch_search_ablate.py``, with counters of their own in
+``fused_search_stage.launches``; ``fused_search`` never reaches them.
+``kernel_plan`` reports a launch's shifts per group, whether the image
+is staged in shared memory, and the block's shared memory.  The
+``plan_*`` functions are a CPU model of the kernel's FFT plan for the
+tests; the search never calls them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -60,11 +70,179 @@ def variant(cfg: AlignConfig, masked: bool) -> str:
 
 @lru_cache(maxsize=None)
 def twiddle_table() -> np.ndarray:
-    """(256,) f32 ``cos(2 pi j / 256)`` with the quarter turns exact, so
-    the sin rows of bins 0 and 128 vanish exactly."""
+    """(256,) f32 ``cos(2 pi j / 256)`` with the quarter turns exact."""
     tab = np.cos(2.0 * np.pi * np.arange(RING_LEN) / RING_LEN)
     tab[np.abs(tab) < 1e-12] = 0.0
     return tab.astype(np.float32)
+
+
+def polar_tables(cfg: AlignConfig) -> tuple[np.ndarray, np.ndarray]:
+    """(L, 2) f64 ``(cos, sin)`` of the sample angles and (R,) f64 ring
+    radii, from which the kernel computes each polar offset as
+    ``f32(cos * radius)``: the expressions of ``cfg.polar_coords`` before
+    its cast to f32, so the offsets are bitwise the same."""
+    j = np.arange(cfg.ring_len, dtype=np.float64)[None, :]
+    span = 2.0 * math.pi if cfg.mode == "F" else math.pi
+    ang = j / float(cfg.ring_len) * span
+    return (np.ascontiguousarray(np.stack([np.cos(ang), np.sin(ang)],
+                                          axis=-1)[0]),
+            np.ascontiguousarray(cfg.radii, dtype=np.float64))
+
+
+@lru_cache(maxsize=None)
+def fft_twiddles() -> np.ndarray:
+    """(16, 16, 2) f32: entry [k1, j] is ``W256^(j k1)`` =
+    ``(cos, -sin)(2 pi j k1 / 256)``, the kernel's 256-point twiddles.
+    Laid out k1-major: thread j of an FFT loads column j, and a
+    half-warp reads 16 consecutive entries.  Taken from
+    ``twiddle_table`` (``-sin(x) = cos(x + pi/2)``), so the quarter turns
+    are exact."""
+    tab = twiddle_table()
+    e = np.outer(np.arange(16), np.arange(16))     # [k1, j] -> j k1
+    return np.ascontiguousarray(np.stack(
+        [tab[e % RING_LEN], tab[(e + RING_LEN // 4) % RING_LEN]], axis=-1))
+
+
+# ---- a CPU model of the kernel's FFT plan (csrc/search.cu, steps a-c).
+# It follows the kernel's index maps on the same tables: rings packed two
+# by two, the 16 x 16 plan (a 16-point DFT over each stride-16 column,
+# the twiddles, the transpose, a 16-point DFT over each row), the split
+# through the partner thread's registers, the (DC, Nyquist) slot, the
+# ccf's row order and the packing of two real rows into one complex
+# inverse.  Tests hold it against torch.fft; the search never calls it.
+
+_C1, _S1, _H = 0.92387953251128674, 0.38268343236508978, 0.70710678118654757
+
+
+def _w16(sign: int) -> torch.Tensor:
+    """(4, 4) complex64 ``W16^(n2 k1)`` [k1, n2], the kernel's constants,
+    with W16^4 an exact quarter turn."""
+    cs = {0: (1.0, 0.0), 1: (_C1, _S1), 2: (_H, _H), 3: (_S1, _C1),
+          4: (0.0, 1.0), 6: (-_H, _H), 9: (-_C1, -_S1)}
+    w = [[complex(cs[n2 * k1][0], sign * cs[n2 * k1][1]) for n2 in range(4)]
+         for k1 in range(4)]
+    return torch.tensor(np.array(w, np.complex64))
+
+
+def _dft16(x: torch.Tensor, sign: int) -> torch.Tensor:
+    """The kernel's 16-point DFT over the last axis (complex64): n =
+    n2 + 4 n1, k = k1 + 4 k2; 4-point DFTs over n1, twiddles
+    W16^(n2 k1), 4-point DFTs over n2."""
+    w4 = torch.tensor(np.array([[1, sign * 1j, -1, -sign * 1j][(a * b) % 4]
+                                for a in range(4) for b in range(4)],
+                               np.complex64).reshape(4, 4))
+    v = x.reshape(*x.shape[:-1], 4, 4)                       # [n1, n2]
+    t = torch.einsum("...ab,ak->...kb", v, w4) * _w16(sign)  # [k1, n2]
+    out = torch.einsum("...kb,bc->...ck", t, w4)             # [k2, k1]
+    return out.reshape(x.shape)
+
+
+def _fft256(z: torch.Tensor, sign: int) -> torch.Tensor:
+    """(P, 256) complex64 -> (P, 16, 16) [thread k1, register k2] =
+    Z[k1 + 16 k2]: thread j's column z[16 n1 + j], its 16-point DFT, the
+    twiddles (conjugate for the inverse), the transpose, and row k1's
+    16-point DFT."""
+    tw = torch.view_as_complex(torch.as_tensor(fft_twiddles()))   # [k1, j]
+    if sign > 0:
+        tw = tw.conj().resolve_conj()
+    cols = z.reshape(-1, 16, 16).transpose(1, 2)            # [j, n1]
+    y = _dft16(cols, sign) * tw.T                            # [j, k1]
+    return _dft16(y.transpose(1, 2).contiguous(), sign)      # [k1, k2]
+
+
+def plan_rfft(rings) -> torch.Tensor:
+    """(n, 256) f32 rings, in the kernel's (shift, ring) order -> (n, 129)
+    complex64 spectra as the kernel computes them: rings 2p and 2p+1 as
+    one complex sequence (an odd n pairs the last with zeros), split with
+    the value of the partner thread 16 - j at register 15 - k2 (thread 0:
+    its own register 16 - k2)."""
+    rings = torch.as_tensor(rings, dtype=torch.float32)
+    n = rings.shape[0]
+    if n % 2:
+        rings = torch.cat([rings, rings.new_zeros(1, RING_LEN)])
+    zz = _fft256(torch.complex(rings[0::2], rings[1::2]), -1)
+    j = torch.arange(16)[:, None]
+    k2 = torch.arange(9)[None, :]
+    pj = (16 - j) % 16 + 0 * k2
+    pk = torch.where(j == 0, (16 - k2) % 16, 15 - k2)
+    z, pz = zz[:, :, :9], zz[:, pj, pk]
+    xa = torch.complex(0.5 * (z.real + pz.real), 0.5 * (z.imag - pz.imag))
+    xb = torch.complex(0.5 * (z.imag + pz.imag), 0.5 * (pz.real - z.real))
+    f = (j + 16 * k2).reshape(-1)
+    keep = f <= RING_LEN // 2                 # bins 0..128 (f = 128: j = 0)
+    out = torch.zeros((2 * zz.shape[0], RING_LEN // 2 + 1),
+                      dtype=torch.complex64)
+    out[0::2, f[keep]] = xa.reshape(xa.shape[0], -1)[:, keep]
+    out[1::2, f[keep]] = xb.reshape(xb.shape[0], -1)[:, keep]
+    return out[:n]
+
+
+def pack_slots(spec) -> torch.Tensor:
+    """(..., 129) complex -> (..., 128): bins 1..127, and (DC, Nyquist)
+    real parts in slot 0, the kernel's spectrum layout."""
+    slots = spec[..., :RING_LEN // 2].clone()
+    slots[..., 0] = torch.complex(spec[..., 0].real,
+                                  spec[..., RING_LEN // 2].real)
+    return slots
+
+
+def plan_ccf(slots, ref_fw, n_mirr: int) -> torch.Tensor:
+    """The kernel's ccf rows of one shift group and ref group.
+
+    Args:
+      slots: (G, R, 128) complex64 ring spectra in the slot layout.
+      ref_fw: (kn, R, 129) complex64 weighted ref spectra.
+      n_mirr: 2 with the mirror channel, else 1.
+    Returns:
+      (G * kn * n_mirr, 128) complex64 rows in the kernel's order
+      (shift, ref, mirror), slot layout, scaled by 1/256.
+    """
+    rr = pack_slots(torch.as_tensor(ref_fw))
+    sv = slots
+    a = torch.einsum("grf,krf->gkf", sv.real, rr.real)
+    b = torch.einsum("grf,krf->gkf", sv.imag, rr.imag)
+    c = torch.einsum("grf,krf->gkf", sv.real, rr.imag)
+    d = torch.einsum("grf,krf->gkf", sv.imag, rr.real)
+    orig = torch.complex(a + b, c - d)
+    mirr = torch.complex(a - b, -(c + d))
+    edge = torch.complex(a[..., 0], b[..., 0])     # slot 0: (DC, Nyquist)
+    orig[..., 0] = edge
+    mirr[..., 0] = edge
+    rows = torch.stack([orig, mirr][:n_mirr], dim=2) / RING_LEN
+    return rows.reshape(-1, RING_LEN // 2)
+
+
+def plan_irfft(rows) -> torch.Tensor:
+    """(n, 128) complex64 rows in the slot layout -> (n, 256) f32 angle
+    rows, as the kernel inverts them: rows 2c and 2c+1 (an odd n pairs
+    the last with zeros) packed as C = O + i M from both Hermitian
+    halves, inverted by the 16 x 16 plan with conjugate twiddles; the
+    real part is row 2c, the imaginary part row 2c+1.  No scaling."""
+    rows = torch.as_tensor(rows, dtype=torch.complex64)
+    n = rows.shape[0]
+    if n % 2:
+        rows = torch.cat([rows, rows.new_zeros(1, RING_LEN // 2)])
+    A, B = rows[0::2], rows[1::2]
+    half = RING_LEN // 2
+    lo = torch.complex(A.real - B.imag, A.imag + B.real)          # f < 128
+    hi = torch.complex(A.real + B.imag, B.real - A.imag)          # 256 - f
+    c = torch.zeros((A.shape[0], RING_LEN), dtype=torch.complex64)
+    c[:, 1:half] = lo[:, 1:]
+    c[:, half + 1:] = hi[:, 1:].flip(-1)
+    c[:, 0] = torch.complex(A[:, 0].real, B[:, 0].real)
+    c[:, half] = torch.complex(A[:, 0].imag, B[:, 0].imag)
+    out = _fft256(c, 1).transpose(1, 2).reshape(-1, RING_LEN)     # c[a]
+    return torch.stack([out.real, out.imag], 1).reshape(-1, RING_LEN)[:n]
+
+
+def plan_search_rows(polar, ref_fw, n_mirr: int) -> torch.Tensor:
+    """(G, R, 256) samples of one shift group and (kn, R, 129) ref
+    spectra -> (G, kn, n_mirr, 256) angle rows through the kernel's plan
+    (plan_rfft, pack_slots, plan_ccf, plan_irfft)."""
+    g, r, _ = polar.shape
+    slots = pack_slots(plan_rfft(polar.reshape(g * r, RING_LEN)))
+    rows = plan_irfft(plan_ccf(slots.reshape(g, r, -1), ref_fw, n_mirr))
+    return rows.reshape(g, -1, n_mirr, RING_LEN)
 
 
 @lru_cache(maxsize=None)
@@ -73,13 +251,26 @@ def build() -> ctypes.CDLL:
     lib = load_library("search", ["search.cu"])
     ptr = ctypes.c_void_p
     lib.cryo_search_launch.argtypes = (
-        [ptr] * 8 + [ctypes.c_int] * 7 + [ptr] * 6 + [ptr])
+        [ptr] * 9 + [ctypes.c_int] * 8 + [ptr] * 6 + [ptr])
     lib.cryo_search_launch.restype = ctypes.c_int
-    lib.cryo_search_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.cryo_search_smem_bytes.restype = ctypes.c_longlong
+    lib.cryo_search_plan.argtypes = [ctypes.c_int] * 6 + [ptr] * 2
+    lib.cryo_search_plan.restype = ctypes.c_longlong
     lib.cryo_search_error_string.argtypes = [ctypes.c_int]
     lib.cryo_search_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_plan(n_rings: int, mirror: bool, n_refs: int, n_shifts: int,
+                h: int, w: int) -> dict:
+    """The kernel's launch plan on the current CUDA device: shifts per
+    group, whether the image is staged in shared memory, and the block's
+    shared memory in bytes."""
+    group, staged = ctypes.c_int(), ctypes.c_int()
+    smem = build().cryo_search_plan(n_rings, int(mirror), n_refs, n_shifts,
+                                    h, w, ctypes.byref(group),
+                                    ctypes.byref(staged))
+    return {"group": group.value, "image_in_smem": bool(staged.value),
+            "smem_bytes": smem}
 
 
 def _check(name, t, dtype, shape, device):
@@ -114,6 +305,50 @@ def fused_search(images, ref_fw, params: AlignParams, cfg: AlignConfig,
     if images.device.type == "cpu":
         return search_plain(images, ref_fw, params, cfg,
                             angle_mask=angle_mask)
+    if angle_mask is not None:
+        _check("angle_mask", angle_mask, torch.float32, (RING_LEN,),
+               images.device)
+        if not bool((angle_mask > _NEG_INF).any()):
+            raise ValueError("angle_mask allows no angle bin")
+    return _launch(images, ref_fw, params, cfg, angle_mask, 0,
+                   fused_search.launches,
+                   variant(cfg, angle_mask is not None))
+
+
+# the TPU kernel's ablation stages (fused_search.py:221-233, :329-348)
+# and their codes in csrc/search.cu; "full" is the production search
+STAGES = {"no_ccf": 1, "sample_only": 2, "no_yred": 3}
+
+
+def fused_search_stage(images, ref_fw, params: AlignParams,
+                       cfg: AlignConfig, stage: str) -> SearchResult:
+    """One ablated search kernel launch, for tools/torch_search_ablate.py.
+
+    ``stage`` is one of ``STAGES``: "no_ccf" skips the forward DFT and
+    the ccf (the inverse DFT and argmax run on zero spectra),
+    "sample_only" keeps the polar samples only, and "no_yred" samples
+    the top row of each bilinear cell only.  The default variant only
+    (mirrored, unmasked, K > 1), on a CUDA tensor.  The outputs have the
+    production shapes; their values mean nothing.  Counted in
+    ``fused_search_stage.launches``; ``fused_search`` never calls it.
+    """
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {sorted(STAGES)}, "
+                         f"not {stage!r}")
+    if images.device.type != "cuda":
+        raise ValueError("the ablation stages run on a CUDA tensor only")
+    if not cfg.mirror or ref_fw.shape[0] == 1:
+        raise ValueError("the ablation stages take the default variant "
+                         "only: mirrored, K > 1")
+    return _launch(images, ref_fw, params, cfg, None, STAGES[stage],
+                   fused_search_stage.launches, stage)
+
+
+def _launch(images, ref_fw, params: AlignParams, cfg: AlignConfig,
+            angle_mask, stage: int, counts: dict, key: str) -> SearchResult:
+    """Check the inputs and launch the kernel on a CUDA tensor; a launch
+    that succeeds adds one to ``counts[key]`` (an empty stack launches
+    nothing and counts nothing)."""
     if images.device.type != "cuda":
         raise ValueError(f"no search for device {images.device}")
     if cfg.ring_len != RING_LEN or cfg.ring_scheme != "cuda":
@@ -128,54 +363,53 @@ def fused_search(images, ref_fw, params: AlignParams, cfg: AlignConfig,
     _check("ref_fw", ref_fw, torch.complex64, (k, r, RING_LEN // 2 + 1), dev)
     _check("params.shift_x", params.shift_x, torch.float32, (n,), dev)
     _check("params.shift_y", params.shift_y, torch.float32, (n,), dev)
-    if angle_mask is not None:
-        _check("angle_mask", angle_mask, torch.float32, (RING_LEN,), dev)
-        if not bool((angle_mask > _NEG_INF).any()):
-            raise ValueError("angle_mask allows no angle bin")
     if 2 * s * k * RING_LEN >= 2 ** 31:
         raise ValueError("shift grid x refs too large for the kernel's "
                          "int32 priority index")
 
-    lib = build()
-    smem = lib.cryo_search_smem_bytes(r, int(cfg.mirror), k)
+    with torch.cuda.device(dev):
+        smem = kernel_plan(r, cfg.mirror, k, s, h, w)["smem_bytes"]
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(f"ring_num={r} needs {smem} B of shared memory per "
                          f"block, the device allows {limit}")
 
-    coords = torch.as_tensor(cfg.polar_coords, device=dev)
+    polar, radii = (torch.as_tensor(a, device=dev) for a in polar_tables(cfg))
     shifts = torch.as_tensor(cfg.shifts, device=dev)
-    twiddle = torch.as_tensor(twiddle_table(), device=dev)
+    twiddle = torch.as_tensor(fft_twiddles(), device=dev)
     ref_ri = torch.view_as_real(ref_fw)
     out_val = torch.empty(n, dtype=torch.float32, device=dev)
     out_row = torch.empty((n, RING_LEN), dtype=torch.float32, device=dev)
     out_i = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(4)]
     if n == 0:
         return SearchResult(out_val, out_row, *out_i)
+    lib = build()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.cryo_search_launch(
             images.data_ptr(), params.shift_x.data_ptr(),
-            params.shift_y.data_ptr(), coords.data_ptr(), shifts.data_ptr(),
-            ref_ri.data_ptr(), twiddle.data_ptr(),
+            params.shift_y.data_ptr(), polar.data_ptr(), radii.data_ptr(),
+            shifts.data_ptr(), ref_ri.data_ptr(), twiddle.data_ptr(),
             None if angle_mask is None else angle_mask.data_ptr(),
-            n, h, w, r, s, k, int(cfg.mirror),
+            n, h, w, r, s, k, int(cfg.mirror), stage,
             out_val.data_ptr(), out_row.data_ptr(),
             *[t.data_ptr() for t in out_i], stream)
     if rc != 0:
         raise RuntimeError("search kernel launch failed: "
                            + lib.cryo_search_error_string(rc).decode())
-    fused_search.launches[variant(cfg, angle_mask is not None)] += 1
+    counts[key] += 1
     aidx, sidx, ref, mirror = out_i
     return SearchResult(out_val, out_row, aidx, sidx, ref, mirror)
 
 
 def reset_launches():
-    """Set every launch counter to 0."""
-    for key in fused_search.launches:
-        fused_search.launches[key] = 0
+    """Set every launch counter to 0, the ablation stages' included."""
+    for counts in (fused_search.launches, fused_search_stage.launches):
+        for key in counts:
+            counts[key] = 0
 
 
 fused_search.launches = dict.fromkeys(
     ("search", "search_nomirror", "search_masked", "search_nomirror_masked"),
     0)
+fused_search_stage.launches = dict.fromkeys(STAGES, 0)

@@ -1,7 +1,8 @@
 """Synthetic particle stacks for tests, smoke runs and demos.
 
 ``class_templates``, ``asymmetric_templates`` and ``blob_stack`` are
-copies of ``cryo_ralib_tpu/utils/synthetic.py``'s (numpy).  ``scattered_stack`` is
+copies of ``cryo_ralib_tpu/utils/synthetic.py``'s (numpy);
+``unit_sigma_blobs`` normalises ``blob_stack`` templates.  ``scattered_stack`` is
 this package's own generator: numpy-seeded classes, angles, shifts,
 mirrors and noise, applied to the templates with the port's
 ``transform_batch`` on any device (the JAX package's version goes
@@ -77,6 +78,14 @@ def blob_stack(n: int, nx: int, blobs: int = 3, noise: float = 0.05,
         img += rng.normal(0, noise, (nx, nx))
         imgs[i] = img.astype(np.float32)
     return imgs
+
+
+def unit_sigma_blobs(k: int, nx: int, seed: int = 64) -> np.ndarray:
+    """k distinct templates for large-K runs: ``blob_stack`` with six
+    blobs and no noise, each normalised to zero mean and unit sigma."""
+    tmpl = blob_stack(k, nx, blobs=6, noise=0.0, seed=seed)
+    return ((tmpl - tmpl.mean((1, 2), keepdims=True))
+            / tmpl.std((1, 2), keepdims=True))
 
 
 def scattered_stack(templates: np.ndarray, n: int, max_shift: int = 2,

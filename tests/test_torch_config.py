@@ -71,6 +71,20 @@ def test_templates_equal_jax(name):
                                   getattr(jax_synthetic, name)(5, 48))
 
 
+def test_unit_sigma_blobs_are_distinct_unit_sigma_templates():
+    tmpl = port_synthetic.unit_sigma_blobs(12, 40)
+    assert tmpl.shape == (12, 40, 40) and tmpl.dtype == np.float32
+    np.testing.assert_allclose(tmpl.mean((1, 2)), 0.0, atol=1e-5)
+    np.testing.assert_allclose(tmpl.std((1, 2)), 1.0, rtol=1e-5)
+    # normalised jax_synthetic.blob_stack(..., blobs=6, noise=0.0) templates
+    raw = jax_synthetic.blob_stack(12, 40, blobs=6, noise=0.0, seed=64)
+    corr = (tmpl * (raw - raw.mean((1, 2), keepdims=True))).mean((1, 2))
+    np.testing.assert_allclose(corr, raw.std((1, 2)), rtol=1e-5)
+    flat = tmpl.reshape(12, -1)
+    gram = flat @ flat.T / flat.shape[1]
+    assert np.abs(gram[~np.eye(12, dtype=bool)]).max() < 0.99
+
+
 def test_scattered_stack_shapes_and_truth():
     tmpl = port_synthetic.asymmetric_templates(3, 32)
     imgs, cls, angs, shifts, mirrors = port_synthetic.scattered_stack(

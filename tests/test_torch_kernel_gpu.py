@@ -7,8 +7,8 @@ They import no JAX, so on the GPU machine they run with::
 
 Tolerances: winners (ref, shift, mirror, angle bin) identical on
 structured data; peak values and winning rows within 1e-4 of the largest
-peak (a twiddle-table DFT in the kernel against cuFFT in the plain
-version, both f32).  Under an angle mask the rows are compared on the
+peak (the kernel's 16 x 16 FFTs against cuFFT in the plain version,
+both f32).  Under an angle mask the rows are compared on the
 allowed bins only: the kernel's row is unmasked, the plain version's
 masked.
 """
@@ -147,6 +147,52 @@ def test_kernel_large_k_matches_plain(cuda_device):
     _check(got, fs.search_plain(imgs, rfw, params, cfg))
 
 
+# (img_dim, rings, xr, refs, mirror): shift grids of 49, 25, 9 and 1
+# shifts (a ragged last group of shifts where G does not divide S), 256 px
+# at ou=100 (one shift per group), 160 px at ou=48 (at K=4 the image read
+# through the cache for a larger G), an odd ring count, and K=1 with and
+# without the mirror channel (one ccf row per shift without it)
+SHIFT_GROUPS = [(90, 36, 3.0, 8, True), (90, 36, 2.0, 8, True),
+                (90, 36, 1.0, 8, True), (90, 36, 0.0, 8, True),
+                (256, 100, 1.0, 8, True), (160, 48, 2.0, 4, True),
+                (160, 48, 2.0, 1, False), (90, 35, 2.0, 8, True),
+                (90, 35, 2.0, 1, True), (90, 35, 2.0, 1, False),
+                (90, 36, 3.0, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", SHIFT_GROUPS, ids=str)
+def test_kernel_shift_groups_match_plain(cuda_device, geom):
+    """Winners, peaks and rows equal the plain version's whatever the
+    number of shifts per group G (chosen at launch from the shared
+    memory), however the last group falls, and whether the image is
+    staged in shared memory or read through the cache."""
+    nx, rings, xr, k, mirror = geom
+    cfg = AlignConfig(img_dim=nx, ring_num=rings, shift_step=1.0,
+                      shift_rng_x=xr, shift_rng_y=xr, mirror=mirror)
+    plan = fs.kernel_plan(rings, mirror, k, cfg.n_shifts, nx, nx)
+    assert 1 <= plan["group"] <= min(4, cfg.n_shifts)
+    # a 90 px image is staged in shared memory; a 160 px one at K=1 only
+    # (at K > 1 it is read through the cache for G > 1); a 256 px one does
+    # not fit
+    assert plan["image_in_smem"] == (nx == 90 or (nx == 160 and k == 1))
+    if rings == 100:
+        assert plan["group"] == 1
+    if nx == 160 and k > 1:
+        assert plan["group"] >= 2
+    tmpl = asymmetric_templates(k, nx)
+    n = 48
+    imgs = scattered_stack(tmpl, n, max_shift=1, noise=0.1, seed=6,
+                           device=cuda_device, mirror=mirror)[0].contiguous()
+    params = _params(n, cuda_device, seed=5)
+    rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
+                                                     device=cuda_device), cfg)
+    got = fs.fused_search(imgs, rfw, params, cfg)
+    _check(got, fs.search_plain(imgs, rfw, params, cfg))
+    if not mirror:
+        assert int(got.best_mirror.max()) == 0
+
+
 @pytest.mark.cuda
 def test_kernel_fractional_shift_step(cuda_device):
     cfg = AlignConfig(img_dim=64, ring_num=20, shift_step=0.5,
@@ -265,3 +311,57 @@ def test_kernel_matches_plain_random_geometry(cuda_device, seed):
         same &= getattr(got, f) == getattr(want, f)
     rel = (got.best_val - want.best_val).abs() / want.best_val.abs()
     assert bool((rel[~same] <= 1e-5).all()), (cfg, rel[~same])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", sorted(fs.STAGES))
+def test_kernel_ablation_stage_runs(cuda_device, stage):
+    """Each ablation stage launches, returns the production shapes and
+    moves its own counter only: no search counter, no other stage's."""
+    cfg = AlignConfig(img_dim=90, ring_num=36, shift_step=1.0,
+                      shift_rng_x=3.0, shift_rng_y=3.0)
+    tmpl = asymmetric_templates(8, 90)
+    imgs = scattered_stack(tmpl, 32, max_shift=1, noise=0.1, seed=3,
+                           device=cuda_device)[0].contiguous()
+    params = _params(32, cuda_device)
+    rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
+                                                     device=cuda_device), cfg)
+    searches = dict(fs.fused_search.launches)
+    stages = dict(fs.fused_search_stage.launches)
+    got = fs.fused_search_stage(imgs, rfw, params, cfg, stage)
+    torch.cuda.synchronize()
+    assert fs.fused_search.launches == searches
+    stages[stage] += 1
+    assert fs.fused_search_stage.launches == stages
+    assert got.best_val.shape == (32,) and got.best_row.shape == (32, 256)
+    for f in WINNERS:
+        assert getattr(got, f).shape == (32,)
+        assert getattr(got, f).dtype == torch.int32
+    with pytest.raises(ValueError, match="default variant"):
+        fs.fused_search_stage(imgs, rfw[:1].contiguous(), params, cfg, stage)
+
+
+@pytest.mark.cuda
+def test_kernel_empty_stack_counts_no_launch(cuda_device):
+    """An empty stack launches no kernel: the search and every ablation
+    stage return empty outputs and leave every launch counter as it
+    was."""
+    cfg = AlignConfig(img_dim=90, ring_num=36, shift_step=1.0,
+                      shift_rng_x=3.0, shift_rng_y=3.0)
+    tmpl = asymmetric_templates(8, 90)
+    rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
+                                                     device=cuda_device), cfg)
+    imgs = torch.zeros((0, 90, 90), device=cuda_device)
+    params = AlignParams.zeros(0, cuda_device)
+    mask = torch.as_tensor(delta_angle_mask(256, 15.0), device=cuda_device)
+    searches = dict(fs.fused_search.launches)
+    stages = dict(fs.fused_search_stage.launches)
+    outs = [fs.fused_search(imgs, rfw, params, cfg),
+            fs.fused_search(imgs, rfw, params, cfg, angle_mask=mask)]
+    outs += [fs.fused_search_stage(imgs, rfw, params, cfg, stage)
+             for stage in sorted(fs.STAGES)]
+    torch.cuda.synchronize()
+    assert fs.fused_search.launches == searches
+    assert fs.fused_search_stage.launches == stages
+    for got in outs:
+        assert got.best_val.shape == (0,) and got.best_row.shape == (0, 256)
