@@ -52,18 +52,44 @@ Phases (any failure raises and the script exits non-zero):
      without mirrors, nomirror=True, maxit=6 (exactly 6 no-mirror
      launches), run C as B with maxit=11 (1 no-mirror masked and 10
      no-mirror launches); nothing NaN, counts sum to N, and in run A the
-     last criterion is at least half the first.
+     last criterion is at least half the first;
+  7b. one headline align_step (N=16384, K=8) broken down by stage in
+     CUDA-event ms (prepare_ref_spectra, search, decode_params,
+     transform_batch, class_sum_oe), and the host part of a phase-6
+     mref_ali2d iteration (its seconds per iteration less align_step);
+  8. the device loops: make_mref_device_loop on phase 6's stack (K=8, 6
+     iterations, cutoff 0.25) and ref_free_alignment_2d on run A's stack
+     (K=1, 10 iterations), each once as a main path, then timed as
+     bench.py's _sustained_pps times the JAX loop (a built loop, three
+     calls, the median), every timed call under
+     torch.cuda.set_sync_debug_mode("error") (a host sync raises) and
+     launching the search kernel exactly once per iteration; counts sum
+     to N, nothing NaN, mref purity >= 0.9; s/iteration and particles/s
+     printed beside mref_ali2d's;
+  9. the command line on files: phase 6's stack and templates and run
+     A's stack written as .mrcs (io/mrc.py), then cli.mref (--ou=36
+     --xr=3 --ts=1 --maxit=6: 6 search launches) and cli.reffree
+     (--dst=15 --maxit=11: 1 masked and 10 default launches); every
+     output file the JAX CLI writes is there, and aqm005.hdf read back by
+     the port's own HDF5 reader (no h5py) has K images, ave_n summing to
+     N, members partitioning 0..N-1 and purity >= 0.9; cli.check exits 0
+     and --gpu_info prints the card.
 Every launch counter is set to 0 just before each main-path run (6, 6b,
-7) and read just after it.  The last lines are the stage ablation's JSON
+7, 8, 9) and read just after it.  The last lines are the slice's JSON
+line (loop rates, stage breakdown, CLI times), the stage ablation's JSON
 line, the card, the kernels' JSON record (with each instantiation's
 registers, spill bytes and shared memory per block) and the run's
 verdict.
 """
 
+import contextlib
+import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -335,6 +361,202 @@ def reffree_agree(a, b, label):
     check(share >= 0.99, f"{label}: only {share:.4f} agree")
 
 
+def events_ms(fn, reps: int = 3) -> dict:
+    """Mean CUDA-event ms of each stage of ``fn(mark)`` over ``reps``
+    calls after a warm-up; ``fn`` calls ``mark(name)`` after each stage."""
+    sums = {}
+    for rep in range(reps + 1):
+        marks = []
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+        mark("start")
+        fn(mark)
+        torch.cuda.synchronize()
+        if rep:
+            for (_, a), (name, b) in zip(marks, marks[1:]):
+                sums[name] = sums.get(name, 0.0) + a.elapsed_time(b)
+    return {name: v / reps for name, v in sums.items()}
+
+
+def stage_breakdown(imgs, tmpl, cfg, dev) -> dict:
+    """One align_step of the phase-6 shape (N particles, K=8, zero
+    params), its stages in CUDA-event ms, and the whole step."""
+    from cryo_ralib_tpu_torch.models.steps import align_step
+    from cryo_ralib_tpu_torch.ops import fused_search as fs
+    from cryo_ralib_tpu_torch.ops.classavg import class_sum_oe
+    from cryo_ralib_tpu_torch.ops.search import (decode_params,
+                                                 prepare_ref_spectra)
+    from cryo_ralib_tpu_torch.ops.transform import transform_batch
+    from cryo_ralib_tpu_torch.params import AlignParams
+
+    n, k = imgs.shape[0], tmpl.shape[0]
+    refs = torch.as_tensor(tmpl, device=dev)
+    params = AlignParams.zeros(n, dev)
+    gidx = torch.arange(n, device=dev)
+
+    def stages(mark):
+        rfw = prepare_ref_spectra(refs, cfg)
+        mark("prepare_ref_spectra")
+        res = fs.fused_search(imgs, rfw, params, cfg)
+        mark("search")
+        p = decode_params(res, params, cfg)
+        mark("decode_params")
+        t = transform_batch(imgs, p)
+        mark("transform_batch")
+        class_sum_oe(t, p.ref_id, k, global_index=gidx)
+        mark("class_sum_oe")
+
+    out = events_ms(stages)
+    out["align_step"] = events_ms(lambda mark: (
+        align_step(imgs, refs, params, gidx, None, cfg, n_classes=k),
+        mark("align_step")))["align_step"]
+    return out
+
+
+def time_loop(label, run, args, n_iter: int):
+    """Time a built device loop as bench.py's _sustained_pps times the
+    JAX one: three calls, the median.  Each call runs under
+    torch.cuda.set_sync_debug_mode("error"), so a host sync inside it
+    raises, and must launch the search kernel once per iteration."""
+    from cryo_ralib_tpu_torch.ops import fused_search as fs
+
+    times = []
+    for _ in range(3):
+        fs.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = run(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = fs.fused_search.launches["search"]
+        check(got == n_iter, f"{label}: {got} launches in a timed call, "
+              f"not {n_iter}")
+    return out, float(np.median(times))
+
+
+def loop_line(label, seconds, n_iter, mref_s_it, card) -> dict:
+    """Log and return a loop's s/iteration and particles/s, beside
+    mref_ali2d's (phase 6) where given."""
+    row = {"s_per_iteration": seconds / n_iter,
+           "particles_per_s": N_SLICE * n_iter / seconds,
+           "seconds": seconds, "iterations": n_iter}
+    beside = ""
+    if mref_s_it is not None:
+        row["mref_ali2d_s_per_iteration"] = mref_s_it
+        row["mref_ali2d_particles_per_s"] = N_SLICE / mref_s_it
+        beside = (f"; mref_ali2d (phase 6) {mref_s_it:.4f} s/iteration, "
+                  f"{N_SLICE / mref_s_it:.0f} particles/s")
+    log(f"{label} N={N_SLICE} 90px ou=36 xr=yr=3 ts=1, {n_iter} iterations: "
+        f"{row['s_per_iteration']:.4f} s/iteration, "
+        f"{row['particles_per_s']:.0f} particles/s (median of 3 calls, each "
+        f"under sync debug mode 'error'){beside}  [{card}]")
+    return row
+
+
+def loop_checks(label, params, out, k, truth):
+    """Counts sum to N, nothing NaN, purity >= 0.9 against ``truth``."""
+    counts = torch.bincount(params.ref_id.long(), minlength=k)
+    check(int(counts.sum()) == N_SLICE, f"{label}: counts {counts}")
+    check(bool(torch.isfinite(out).all())
+          and bool(torch.isfinite(params.angle).all()), f"{label}: NaN")
+    if truth is not None:
+        pur = purity(params.ref_id.cpu().numpy(), truth, k)
+        log(f"{label}: purity {pur:.4f}, counts {counts.tolist()}")
+        check(pur >= 0.9, f"{label}: purity {pur}")
+
+
+def quietly(fn):
+    """Run ``fn`` with its standard output kept; returns (result, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn()
+    return res, buf.getvalue()
+
+
+def cli_phase(tmp, imgs, tmpl, truth, stack_a, main_path, card) -> dict:
+    """Phase 9: both alignment CLIs on .mrcs files, their outputs read
+    back without h5py, cli.check and --gpu_info."""
+    from cryo_ralib_tpu_torch.cli import check as cli_check
+    from cryo_ralib_tpu_torch.cli import mref as cli_mref
+    from cryo_ralib_tpu_torch.cli import reffree as cli_reffree
+    from cryo_ralib_tpu_torch.io.eman_hdf import read_own_hdf
+    from cryo_ralib_tpu_torch.io.mrc import write_mrc
+
+    k = tmpl.shape[0]
+    stack, refs, stack1 = (os.path.join(tmp, name) for name in
+                           ("stack.mrcs", "refs.mrcs", "stack1.mrcs"))
+    write_mrc(stack, imgs.cpu().numpy())
+    write_mrc(refs, tmpl)
+    write_mrc(stack1, stack_a.cpu().numpy())
+    geo = ["--ou=36", "--xr=3", "--ts=1"]
+    out_m, out_r = os.path.join(tmp, "mref"), os.path.join(tmp, "reffree")
+    row = {}
+    (rc, _), row["mref_seconds"] = main_path(
+        "cli mref", lambda: quietly(lambda: cli_mref.main(
+            [stack, refs, out_m, *geo, f"--maxit={MAXIT}"])),
+        {"search": MAXIT})
+    check(rc == 0, f"cli mref exit {rc}")
+    (rc, _), row["reffree_seconds"] = main_path(
+        "cli reffree", lambda: quietly(lambda: cli_reffree.main(
+            [stack1, out_r, *geo, f"--dst={DST:g}", "--maxit=11"])),
+        {"search": 10, "search_masked": 1})
+    check(rc == 0, f"cli reffree exit {rc}")
+
+    names = set(os.listdir(out_m))
+    want = ({f"aqm{i:03d}.hdf" for i in range(MAXIT)}
+            | {"final2Dparams.txt", "checkpoint.npz", "checkpoint_rng.pkl",
+               "logfile.txt"})
+    check(want <= names, f"cli mref: missing {sorted(want - names)}")
+    check(any(n.startswith("drm") for n in names), "cli mref: no drm*.txt")
+    names = set(os.listdir(out_r))
+    want = ({"aqc.hdf", "aqf.hdf", "aqfinal.hdf", "initial2Dparams.txt",
+             "checkpoint.npz", "logfile.txt"}
+            | {f"resolution{i:03d}" for i in range(1, 12)})
+    check(want <= names, f"cli reffree: missing {sorted(want - names)}")
+
+    # the class averages, read back by the port's reader (no h5py)
+    avgs, headers = read_own_hdf(os.path.join(out_m, f"aqm{MAXIT - 1:03d}.hdf"))
+    check(avgs.shape == (k, imgs.shape[1], imgs.shape[2])
+          and bool(np.isfinite(avgs).all()), f"aqm: {avgs.shape}")
+    check(sum(h["ave_n"] for h in headers) == N_SLICE, "aqm: ave_n")
+    members = [np.asarray(h["members"], np.int64) for h in headers]
+    check(np.array_equal(np.sort(np.concatenate(members)),
+                         np.arange(N_SLICE)), "aqm: members do not "
+          "partition the stack")
+    hits = sum(np.bincount(truth[m], minlength=k).max() for m in members
+               if m.size)
+    row["mref_purity_from_members"] = hits / N_SLICE
+    check(row["mref_purity_from_members"] >= 0.9,
+          f"cli mref purity {row['mref_purity_from_members']}")
+    params = np.loadtxt(os.path.join(out_r, "initial2Dparams.txt"))
+    final, _ = read_own_hdf(os.path.join(out_r, "aqfinal.hdf"))
+    check(params.shape == (N_SLICE, 4) and np.isfinite(params).all()
+          and np.isfinite(final).all(), "cli reffree outputs")
+    log(f"cli mref: {row['mref_seconds']:.2f} s for {MAXIT} iterations "
+        f"(stack read and outputs included), purity from aqm "
+        f"members {row['mref_purity_from_members']:.4f}, ave_n "
+        f"{[h['ave_n'] for h in headers]}; cli reffree: "
+        f"{row['reffree_seconds']:.2f} s for 11 iterations  [{card}]")
+
+    rc, text = quietly(lambda: cli_check.main([]))
+    log("cli.check: " + " | ".join(line.strip() for line in
+                                   text.splitlines()))
+    check(rc == 0, f"cli.check exit {rc}")
+    rc, text = quietly(lambda: cli_mref.main([stack, refs, out_m,
+                                              "--gpu_info"]))
+    log("cli mref --gpu_info: " + text.strip())
+    check(rc == 0 and torch.cuda.get_device_name(0) in text,
+          "--gpu_info does not name the card")
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -349,6 +571,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from cryo_ralib_tpu_torch import kernels
+    from cryo_ralib_tpu_torch.models import (make_device_loop,
+                                             make_mref_device_loop,
+                                             ref_free_alignment_2d)
     from cryo_ralib_tpu_torch.models.mref import mref_ali2d
     from cryo_ralib_tpu_torch.models.reffree import ali2d_base
     from cryo_ralib_tpu_torch.ops import fused_search as fs
@@ -591,7 +816,7 @@ def main():
         f"{N_SLICE * MAXIT / seconds:.0f} particles/s, purity {pur:.4f}, "
         f"counts {res.class_counts.tolist()}  [{card}]")
     check(pur >= 0.9, f"class purity {pur}")
-    del imgs
+    mref_s_it = seconds / MAXIT
 
     # ---- 6b. mref at K=64
     imgs64, cls64 = scattered_stack(tmpl64, N_SLICE, max_shift=2, noise=1.0,
@@ -642,7 +867,59 @@ def main():
         if label == "reffree A":
             check(res.criteria[-1] >= 0.5 * res.criteria[0],
                   f"{label}: criterion fell to {res.criteria[-1]}")
+            stack_a, mir_a = stack, mir
         del stack
+
+    slice_json = {"card": card, "n": N_SLICE}
+    # ---- 7b. one headline align_step by stage, and the host part of
+    # a phase-6 mref_ali2d iteration
+    slice_json["align_step_ms"] = stage_breakdown(imgs, tmpl, cfg, dev)
+    step_ms = slice_json["align_step_ms"]["align_step"]
+    slice_json["mref_ali2d_s_per_iteration"] = mref_s_it
+    slice_json["mref_ali2d_host_ms"] = 1e3 * mref_s_it - step_ms
+    log(f"align_step N={N_SLICE} 90px K=8 by stage (CUDA events, mean of "
+        f"3): {json.dumps(slice_json['align_step_ms'])}; mref_ali2d "
+        f"iteration (phase 6) {1e3 * mref_s_it:.2f} ms, so its host part "
+        f"(reference update, transfers, outputs) "
+        f"{slice_json['mref_ali2d_host_ms']:.2f} ms  [{card}]")
+
+    # ---- 8. the device loops
+    zeros = AlignParams.zeros(N_SLICE, dev)
+    gidx = torch.arange(N_SLICE, device=dev)
+    valid = torch.ones(N_SLICE, device=dev)
+    refs0 = torch.as_tensor(tmpl, device=dev)
+    mref_loop = make_mref_device_loop(cfg, MAXIT, HEADLINE["k"],
+                                      np.full(MAXIT, 0.25), device=dev)
+    (p_loop, refs_loop), _ = main_path(
+        "mref loop", lambda: mref_loop(imgs, refs0, zeros, gidx, valid),
+        {"search": MAXIT})
+    loop_checks("mref loop", p_loop, refs_loop, HEADLINE["k"], cls)
+    _, med = time_loop("mref loop", mref_loop,
+                       (imgs, refs0, zeros, gidx, valid), MAXIT)
+    slice_json["mref_loop"] = loop_line(
+        "mref loop K=8", med, MAXIT, mref_s_it, card)
+
+    n_rf = 10
+    (p_rf, avg_rf), _ = main_path(
+        "reffree loop", lambda: ref_free_alignment_2d(
+            stack_a, n_iter=n_rf, ou=HEADLINE["ou"], xr=HEADLINE["xr"],
+            ts=1.0, cutoff=0.25, device=dev), {"search": n_rf})
+    loop_checks("reffree loop", AlignParams(*map(torch.as_tensor, p_rf)),
+                torch.as_tensor(avg_rf), 1, None)
+    flip = float((p_rf.mirror == mir_a).mean())
+    log(f"reffree loop: mirror flags matching the truth up to a global flip "
+        f"{max(flip, 1.0 - flip):.4f}")
+    rf_loop = make_device_loop(cfg, n_rf, np.full(n_rf, 0.25), device=dev)
+    _, med = time_loop("reffree loop", rf_loop,
+                       (stack_a, stack_a.mean(0), zeros, gidx, valid), n_rf)
+    slice_json["reffree_loop"] = loop_line(
+        "reffree loop K=1", med, n_rf, None, card)
+
+    # ---- 9. the command line on files
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        slice_json["cli"] = cli_phase(tmp, imgs, tmpl, cls, stack_a,
+                                      main_path, card)
+    del imgs, stack_a
 
     shapes = {   # entry -> (timing key, K, mirror channels, mask)
         "search": ("search", HEADLINE["k"], 2, 0),
@@ -676,6 +953,7 @@ def main():
     log(f"search default variant at K=1 (reffree unmasked iterations): "
         f"kernel {k1[0]:.2f} ms, plain {k1[1]:.2f} ms at N={N_SLICE}; "
         f"{k1[2]:.3f} / {k1[3]:.3f} ms at N={N_CHECK}  [{card}]")
+    print(json.dumps({"slice": slice_json}))
     print(json.dumps(ablation))
     log(card)
     print(json.dumps({"kernels": records}))

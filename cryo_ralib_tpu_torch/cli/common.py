@@ -1,0 +1,261 @@
+"""Shared CLI plumbing of the alignment front-ends (counterpart of
+``cryo_ralib_tpu/cli/common.py``).
+
+The same flags, spellings and per-CLI defaults as the JAX CLI (the
+reference's optparse surface), so a command line that runs there parses
+the same here.  One process runs on one GPU with the stack resident in
+device memory; there is no mesh.  What is not ported yet (``--CTF``,
+``--Fourvar``, ``--random_method``, ``--mode=H``, ``--ring_scheme=eman2``,
+the TPU engines ``--sampler=template/matmul``, more than one device and
+``bdb:`` stacks) exits with status 2 and a message naming the flag before
+any stack is read.  ``--sampler``: ``auto`` and ``fused`` run the CUDA
+search kernel on the GPU, ``gather`` its plain PyTorch version (the JAX
+``gather`` engine's f32 semantics).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import numpy as np
+
+# --sampler -> the port's search: kernel on a CUDA device, plain version
+SAMPLERS = {"auto": "auto", "fused": "kernel", "gather": "plain"}
+
+
+def _intish(s: str) -> int:
+    """The reference parses its integer-valued flags as optparse floats
+    (``--ou=36.0`` works there); accept the same spellings."""
+    return int(float(s))
+
+
+def _sched(s: str) -> float:
+    """Shift-range/step value, accepting the reference reffree's
+    space-separated schedule strings (``--xr="4 2 1 1"``), of which the
+    reference uses only the first entry (it pins ``N_step = 0``); so does
+    this, and says so."""
+    vals = [float(v) for v in s.replace(",", " ").split()]
+    if not vals:
+        raise argparse.ArgumentTypeError("empty shift range/step")
+    if len(vals) > 1:
+        print(f"NOTE: schedule {vals} accepted for compatibility; like "
+              "the reference (N_step pinned to 0), only the first entry "
+              f"({vals[0]}) is used", file=sys.stderr)
+    return vals[0]
+
+
+def add_common_flags(p: argparse.ArgumentParser, reffree: bool = False):
+    """The JAX CLI's flags, flag for flag, with each CLI's own defaults
+    (mref: xr=0, ts=1, center=1; reffree: xr=4, ts=2, center=-1)."""
+    p.add_argument("--ir", type=_intish, default=1,
+                   help="inner ring radius")
+    p.add_argument("--ou", type=_intish, default=-1, help="outer ring radius")
+    p.add_argument("--rs", type=_intish, default=1, help="ring step")
+    p.add_argument("--xr", type=_sched, default=4.0 if reffree else 0.0,
+                   help="x shift search range (a schedule string is "
+                        "accepted; its first entry is used)")
+    p.add_argument("--yr", type=_sched, default=-1.0,
+                   help="y shift search range (<0: use xr)")
+    p.add_argument("--ts", type=_sched, default=2.0 if reffree else 1.0,
+                   help="shift search step (a schedule string is accepted; "
+                        "its first entry is used)")
+    p.add_argument("--center", type=_intish, default=-1 if reffree else 1,
+                   help="centering method (mref default 1, reffree -1 = "
+                        "average centering)")
+    p.add_argument("--maxit", type=_intish, default=0,
+                   help="max iterations (0 = auto)")
+    p.add_argument("--CTF", action="store_true",
+                   help="CTF-aware alignment: not ported yet")
+    p.add_argument("--snr", type=float, default=1.0, help="SNR (CTF path)")
+    p.add_argument("--ctf_file", default="",
+                   help="per-particle CTF parameters (CTF path)")
+    p.add_argument("--apix", type=float, default=None,
+                   help="pixel size in A (CTF path)")
+    p.add_argument("--voltage", type=float, default=300.0,
+                   help="acceleration voltage in kV (CTF path)")
+    p.add_argument("--Cs", type=float, default=2.7,
+                   help="spherical aberration in mm (CTF path)")
+    p.add_argument("--ac", type=float, default=0.1,
+                   help="amplitude contrast ratio (CTF path)")
+    p.add_argument("--function", default="ref_ali2d",
+                   help="reference-preparation user function")
+    p.add_argument("--rand_seed", type=int, default=1000,
+                   help="seed for vanished-class reseeding")
+    p.add_argument("--MPI", action="store_true",
+                   help="accepted for compatibility; one process per GPU")
+    p.add_argument("--EQ", action="store_true",
+                   help="accepted for compatibility (EQ variant unused)")
+    p.add_argument("--gpu_devices", default="",
+                   help="compatibility alias for --devices: more than one "
+                        "device is not ported yet")
+    p.add_argument("--gpu_info", action="store_true",
+                   help="print the visible CUDA devices and exit")
+    p.add_argument("--devices", type=int, default=0,
+                   help="number of GPUs (0 = the one GPU; more than one is "
+                        "not ported yet)")
+    p.add_argument("--sampler", default="auto",
+                   choices=["auto", "fused", "template", "matmul", "gather"],
+                   help="search engine: auto and fused = the CUDA search "
+                        "kernel, gather = its plain PyTorch version; "
+                        "template and matmul are TPU engines")
+    p.add_argument("--ring_scheme", default="cuda",
+                   choices=["cuda", "eman2"],
+                   help="polar ring convention: cuda = uniform 256-sample "
+                        "rings (eman2 is not ported yet)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the checkpoint in outdir")
+    p.add_argument("--header_writeback", action="store_true",
+                   help="write final params into the input stack headers "
+                        "(xform.align2d / assign)")
+    if reffree:
+        p.add_argument("--nomirror", action="store_true",
+                       help="disable the mirrored-orientation search channel")
+        p.add_argument("--dst", type=float, default=0.0,
+                       help="discrete-angle delta: every 4th iteration "
+                            "(except the last 10) the rotation search is "
+                            "restricted to multiples of this angle")
+        p.add_argument("--Fourvar", action="store_true",
+                       help="2-D Fourier variance: not ported yet")
+        p.add_argument("--mode", default="F", choices=["F", "H"],
+                       help="full or half rings ('H' is not ported yet)")
+        p.add_argument("--random_method", default="", choices=["", "SHC", "SCF"],
+                       help="SHC or SCF: not ported yet")
+        p.add_argument("--randomize", action="store_true",
+                       help="accepted for compatibility (never read)")
+        p.add_argument("--orient", action="store_true",
+                       help="accepted for compatibility (never read)")
+    return p
+
+
+def validate_reffree_flags(args):
+    """Fail loudly on the undefined --dst + --random_method combination
+    (the reference CPU twin's delta applies to the standard search only),
+    as the JAX CLI does."""
+    if args.dst != 0.0 and args.random_method:
+        print("ERROR: unsupported flag(s) — the reference GPU path ignores "
+              "these silently; this rebuild rejects them instead:\n  "
+              "--dst with --random_method (the CPU twin's delta only "
+              "applies to the standard search)", file=sys.stderr)
+        raise SystemExit(2)
+
+
+def _device_count(s: str) -> int:
+    """Devices named by ``--gpu_devices``: a count, or a list of ids."""
+    entries = s.replace(",", " ").split()
+    if len(entries) == 1 and entries[0].isdigit():
+        return int(entries[0])
+    return len(entries)
+
+
+def reject_unported(args, paths):
+    """Exit 2, naming each flag, on what the port does not do yet; runs
+    before any stack is read."""
+    problems = []
+    if args.CTF:
+        problems.append("--CTF (CTF-aware alignment)")
+    if getattr(args, "Fourvar", False):
+        problems.append("--Fourvar (2-D Fourier variance)")
+    if getattr(args, "random_method", ""):
+        problems.append(f"--random_method={args.random_method}")
+    if getattr(args, "mode", "F") != "F":
+        problems.append(f"--mode={args.mode} (half rings)")
+    if args.ring_scheme != "cuda":
+        problems.append(f"--ring_scheme={args.ring_scheme}")
+    if args.sampler not in SAMPLERS:
+        problems.append(f"--sampler={args.sampler} (a TPU engine; use auto, "
+                        "fused or gather)")
+    if args.devices > 1:
+        problems.append(f"--devices={args.devices} (multi-GPU)")
+    if _device_count(args.gpu_devices) > 1:
+        problems.append(f"--gpu_devices={args.gpu_devices} (multi-GPU)")
+    problems += [f"{p} (bdb: stacks; convert with `e2proc2d.py {p} "
+                 "stack.hdf`)" for p in paths if p and p.startswith("bdb:")]
+    if problems:
+        print("ERROR: not ported yet to the PyTorch/CUDA package:\n  "
+              + "\n  ".join(problems), file=sys.stderr)
+        raise SystemExit(2)
+
+
+def cli_device(device):
+    """The torch device a CLI run uses; without CUDA (for a CUDA device)
+    an error naming CUDA and exit status 1, before any output exists."""
+    from ..models.engine import resolve_device
+
+    try:
+        return resolve_device(device)
+    except RuntimeError as err:
+        print(f"ERROR: {err}", file=sys.stderr)
+        raise SystemExit(1) from err
+
+
+def print_device_info():
+    """``--gpu_info``: the visible CUDA devices."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print(f"no CUDA device visible (torch {torch.__version__}, CUDA "
+              f"build {torch.version.cuda})")
+        return
+    for i in range(torch.cuda.device_count()):
+        prop = torch.cuda.get_device_properties(i)
+        print(f"device {i}: {prop.name} (cuda, sm_{prop.major}{prop.minor}, "
+              f"{prop.total_memory / 2**30:.1f} GiB)")
+
+
+def load_stack(path: str):
+    """Read a particle stack by extension: EMAN2-HDF (.hdf, through h5py
+    unless this package wrote it), MRC(S) (numpy)."""
+    from ..io.eman_hdf import read_hdf_stack
+    from ..io.mrc import read_mrc
+
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".hdf", ".h5", ".hdf5"):
+        images, headers = read_hdf_stack(path)
+        return np.asarray(images, np.float32), headers
+    if ext in (".mrc", ".mrcs"):
+        data = read_mrc(path)
+        if data.ndim == 2:
+            data = data[None]
+        return np.asarray(data, np.float32), [{} for _ in range(len(data))]
+    raise ValueError(f"unsupported stack format: {path}")
+
+
+def load_mask(path: str | None, nx: int):
+    """Optional maskfile positional: the first image of the file, which
+    must match the particle box size."""
+    if not path:
+        return None
+    imgs, _ = load_stack(path)
+    mask = np.asarray(imgs[0], np.float32)
+    if mask.shape != (nx, nx):
+        print(f"ERROR: maskfile {path} is {mask.shape}, stack box is "
+              f"({nx}, {nx})", file=sys.stderr)
+        raise SystemExit(2)
+    return mask
+
+
+def check_outdir(outdir: str):
+    """The reference hard-errors when the output directory exists."""
+    if os.path.exists(outdir):
+        print(f"ERROR: output directory {outdir} exists", file=sys.stderr)
+        raise SystemExit(1)
+    os.makedirs(outdir)
+
+
+def writeback_headers(stack_path: str, table: np.ndarray, assign=None):
+    """Final header write-back (``xform.align2d`` + ``assign``) into an
+    HDF stack."""
+    from ..io.eman_hdf import update_headers
+
+    updates = []
+    for i in range(table.shape[0]):
+        upd = {"xform.align2d": {
+            "alpha": float(table[i, 0]), "tx": float(table[i, 1]),
+            "ty": float(table[i, 2]), "mirror": int(table[i, 3]),
+            "scale": 1.0}}
+        if assign is not None:
+            upd["assign"] = int(assign[i])
+        updates.append(upd)
+    update_headers(stack_path, updates)

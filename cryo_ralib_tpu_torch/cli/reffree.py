@@ -1,0 +1,73 @@
+"""Reference-free 2D alignment CLI on one GPU (counterpart of
+``cryo_ralib_tpu/cli/reffree.py``): the same arguments (stack, outdir,
+optional maskfile), flags (``--dst``, ``--nomirror``, ``--center`` among
+them) and output files (``aqc.hdf``, ``aqf.hdf``, ``aqfinal.hdf``,
+``resolution%03d``, ``initial2Dparams.txt``, ``checkpoint.npz``,
+``logfile.txt``).
+
+Usage:
+    python -m cryo_ralib_tpu_torch.cli.reffree stack.hdf outdir --ou=36 \
+        --xr=2 --ts=1
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from .common import (SAMPLERS, add_common_flags, check_outdir, cli_device,
+                     load_mask, load_stack, print_device_info,
+                     reject_unported, validate_reffree_flags,
+                     writeback_headers)
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="cryo-ralib-torch-reffree",
+        description="reference-free 2D alignment on one NVIDIA GPU "
+                    "(PyTorch/CUDA port of cryo_ralib_tpu)")
+    p.add_argument("stack", help="particle stack (.hdf/.mrcs)")
+    p.add_argument("outdir", help="output directory (must not exist)")
+    p.add_argument("maskfile", nargs="?", default=None,
+                   help="optional mask image replacing the default "
+                        "model_circle(ou)")
+    return add_common_flags(p, reffree=True)
+
+
+def main(argv=None, device="cuda"):
+    """Run the CLI; ``device`` (not a flag) is where the alignment runs,
+    the GPU unless a caller such as a test passes ``device="cpu"``."""
+    args = build_parser().parse_args(argv)
+    if args.gpu_info:
+        print_device_info()
+        return 0
+    validate_reffree_flags(args)
+    reject_unported(args, (args.stack, args.maskfile))
+    device = cli_device(device)
+    if args.resume:
+        os.makedirs(args.outdir, exist_ok=True)
+    else:
+        check_outdir(args.outdir)
+
+    from ..models.reffree import ali2d_base
+    from ..utils.log import RunLogger
+
+    log = RunLogger(args.outdir)
+    log.print_begin_msg("ali2d_base")
+    images, _headers = load_stack(args.stack)
+    mask = load_mask(args.maskfile, images.shape[-1])
+    res = ali2d_base(
+        images, outdir=args.outdir, maskfile=mask,
+        ir=args.ir, ou=args.ou, rs=args.rs,
+        xr=args.xr, yr=args.yr, ts=args.ts,
+        dst=args.dst, center=args.center, maxit=args.maxit,
+        user_func_name=args.function, nomirror=args.nomirror, log=log,
+        resume=args.resume, device=device, sampler=SAMPLERS[args.sampler])
+    if args.header_writeback:
+        writeback_headers(args.stack, res.params)
+    log.print_end_msg("ali2d_base")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

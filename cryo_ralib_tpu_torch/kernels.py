@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 build_log: dict[str, dict] = {}
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -56,7 +56,7 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
     if not cached:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                                *map(str, paths)],
                               capture_output=True, text=True)
         if proc.returncode != 0:

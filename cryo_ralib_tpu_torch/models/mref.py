@@ -27,7 +27,7 @@ from ..config import AlignConfig
 from ..params import params_table
 from ..ops.fsc import fsc, write_fsc
 from ..ops.masks import model_circle, normalize_mask
-from ..io.eman_hdf import write_image
+from ..io.eman_hdf import write_hdf_stack
 from ..io.star import write_text_row
 from ..utils.log import RunLogger
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -173,12 +173,14 @@ def mref_ali2d(
                 torch.as_tensor(np.asarray(filtered, np.float32)),
                 mask_host, no_sigma=True).numpy()
         if outdir:
-            refim = os.path.join(outdir, "aqm%03d.hdf" % it)
-            for j in range(numref):
-                write_image(refim, new_refs[j], j, header={
-                    "ave_n": int(counts[j]),
-                    "members": sorted(float(m) for m in members[j]),
-                })
+            # one write of the K images: the JAX driver's K write_image
+            # calls give the same file
+            write_hdf_stack(os.path.join(outdir, "aqm%03d.hdf" % it),
+                            new_refs, [{
+                                "ave_n": int(counts[j]),
+                                "members": sorted(float(m)
+                                                  for m in members[j]),
+                            } for j in range(numref)])
         refi = new_refs
 
         if outdir:

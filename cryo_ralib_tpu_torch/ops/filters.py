@@ -1,12 +1,16 @@
 """Fourier-space filters and shifts (PyTorch).
 
 Counterparts of ``cryo_ralib_tpu/ops/filters.py``: ``filt_tanl``, the
-FSC-driven filter of the ``ref_ali2d`` user function, and ``fshift``,
-the sub-pixel Fourier shift of average centering, on
+FSC-driven filter of the ``ref_ali2d`` user function, ``filt_tanl_dyn``,
+the device loops' filter with its cutoff and falloff on the device, and
+``fshift``, the sub-pixel Fourier shift of average centering, on
 ``torch.fft.rfft2`` / ``irfft2``.
 """
 
 from __future__ import annotations
+
+import math
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -17,6 +21,13 @@ def _freq_grid(h: int, w: int) -> np.ndarray:
     fy = np.fft.fftfreq(h).astype(np.float32)
     fx = np.fft.rfftfreq(w).astype(np.float32)
     return np.sqrt(fy[:, None] ** 2 + fx[None, :] ** 2)
+
+
+@lru_cache(maxsize=32)
+def device_freq_grid(h: int, w: int, device: torch.device) -> torch.Tensor:
+    """``_freq_grid`` on ``device``, copied there once per (h, w, device)
+    so that a filter on the device copies nothing from the host."""
+    return torch.as_tensor(_freq_grid(h, w), device=device)
 
 
 def tanl_response(freq: np.ndarray, cutoff: float,
@@ -37,6 +48,26 @@ def filt_tanl(img, cutoff: float, falloff: float):
     h, w = img.shape[-2:]
     resp = torch.as_tensor(tanl_response(_freq_grid(h, w), cutoff, falloff),
                            device=img.device)
+    f = torch.fft.rfft2(img)
+    return torch.fft.irfft2(f * resp, s=(h, w)).to(img.dtype)
+
+
+def filt_tanl_dyn(img, cutoff, falloff):
+    """``filt_tanl`` with the cutoff and falloff as 0-d float32 tensors on
+    the device of ``img`` (the device loops' per-iteration schedule, the
+    CUDA standalone's ``ref_free_alignment_2D_filter_references``): the
+    response is computed there, all-pass where either is <= 0, and
+    nothing is read back to the host."""
+    h, w = img.shape[-2:]
+    freq = device_freq_grid(h, w, img.device)
+    cutoff = torch.as_tensor(cutoff, dtype=torch.float32, device=img.device)
+    falloff = torch.as_tensor(falloff, dtype=torch.float32,
+                              device=img.device)
+    c = math.pi / (2.0 * falloff * cutoff)
+    resp = 0.5 * (torch.tanh(c * (freq + cutoff))
+                  - torch.tanh(c * (freq - cutoff)))
+    resp = torch.where((cutoff > 0.0) & (falloff > 0.0), resp,
+                       torch.ones_like(resp))
     f = torch.fft.rfft2(img)
     return torch.fft.irfft2(f * resp, s=(h, w)).to(img.dtype)
 

@@ -48,7 +48,7 @@ import torch
 from ..config import AlignConfig
 from ..kernels import load_library
 from ..params import AlignParams
-from .search import SearchResult, rotational_shift_search
+from .search import SearchResult, rotational_shift_search, search_tables
 
 RING_LEN = 256   # the kernel's angle count (its block has one thread each)
 _NEG_INF = -3.0e38
@@ -245,6 +245,15 @@ def plan_search_rows(polar, ref_fw, n_mirr: int) -> torch.Tensor:
     return rows.reshape(g, -1, n_mirr, RING_LEN)
 
 
+@lru_cache(maxsize=32)
+def kernel_tables(cfg: AlignConfig, device: torch.device) -> tuple:
+    """(polar (L, 2) f64, radii (R,) f64, twiddles (16, 16, 2) f32) on
+    ``device``, copied there once per (cfg, device), so a launch copies
+    nothing from the host."""
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (*polar_tables(cfg), fft_twiddles()))
+
+
 @lru_cache(maxsize=None)
 def build() -> ctypes.CDLL:
     """Compile (or load the cached build of) the search kernel."""
@@ -374,9 +383,8 @@ def _launch(images, ref_fw, params: AlignParams, cfg: AlignConfig,
         raise ValueError(f"ring_num={r} needs {smem} B of shared memory per "
                          f"block, the device allows {limit}")
 
-    polar, radii = (torch.as_tensor(a, device=dev) for a in polar_tables(cfg))
-    shifts = torch.as_tensor(cfg.shifts, device=dev)
-    twiddle = torch.as_tensor(fft_twiddles(), device=dev)
+    polar, radii, twiddle = kernel_tables(cfg, dev)
+    shifts = search_tables(cfg, dev).shifts
     ref_ri = torch.view_as_real(ref_fw)
     out_val = torch.empty(n, dtype=torch.float32, device=dev)
     out_row = torch.empty((n, RING_LEN), dtype=torch.float32, device=dev)

@@ -15,6 +15,7 @@ one unchunked argmax over the whole table, whatever ``shift_chunk`` is.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -61,12 +62,29 @@ class SearchResult(NamedTuple):
     best_mirror: torch.Tensor  # (N,) int32 0/1
 
 
+class SearchTables(NamedTuple):
+    """The ``AlignConfig`` tables the search reads, as device tensors."""
+
+    polar_coords: torch.Tensor   # (R, L, 2) f32
+    ring_weights: torch.Tensor   # (R,) f32
+    shifts: torch.Tensor         # (S, 2) f32
+
+
+@lru_cache(maxsize=32)
+def search_tables(cfg: AlignConfig, device: torch.device) -> SearchTables:
+    """``cfg``'s tables on ``device``, copied there once per (cfg,
+    device): a copy from pageable host memory makes the host wait for the
+    stream, so a search that copied them would be a sync point."""
+    return SearchTables(
+        *[torch.as_tensor(a, device=device)
+          for a in (cfg.polar_coords, cfg.ring_weights, cfg.shifts)])
+
+
 def prepare_ref_spectra(refs, cfg: AlignConfig):
     """References (K, H, W) -> weighted ring spectra (K, R, F) complex64."""
-    coords = torch.as_tensor(cfg.polar_coords, device=refs.device)
-    ref_f = ring_spectra(polar_resample(refs, coords))
-    weights = torch.as_tensor(cfg.ring_weights, device=refs.device)
-    return weight_ring_spectra(ref_f, weights)
+    tables = search_tables(cfg, refs.device)
+    ref_f = ring_spectra(polar_resample(refs, tables.polar_coords))
+    return weight_ring_spectra(ref_f, tables.ring_weights)
 
 
 def priority_index(mirror, sidx, ref, aidx, n_shifts: int, n_refs: int,
@@ -96,9 +114,10 @@ def rotational_shift_search(images, ref_fw, params: AlignParams,
     dev = images.device
     ring_len = cfg.ring_len
     n_refs = ref_fw.shape[0]
-    shifts = torch.as_tensor(cfg.shifts, device=dev)  # (S, 2)
+    tables = search_tables(cfg, dev)
+    shifts = tables.shifts  # (S, 2)
     s_total = shifts.shape[0]
-    coords = torch.as_tensor(cfg.polar_coords, device=dev)
+    coords = tables.polar_coords
     chunk = max(1, min(shift_chunk, s_total))
     if angle_mask is not None:
         angle_mask = torch.as_tensor(angle_mask, dtype=torch.float32,
@@ -191,7 +210,7 @@ def decode_params(result: SearchResult, params: AlignParams,
     angle_m = torch.where(angle_m >= 360.0, angle_m - 360.0, angle_m)
     angle = torch.where(result.best_mirror == 1, angle_m, angle)
 
-    shift_grid = torch.as_tensor(cfg.shifts, device=row.device)
+    shift_grid = search_tables(cfg, row.device).shifts
     ds = shift_grid[result.best_sidx.long()]  # (N, 2)
     limit = cfg.shift_limit
     new_sx = (params.shift_x + ds[:, 0]).clamp(-limit, limit)
