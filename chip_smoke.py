@@ -73,9 +73,34 @@ Phases (any failure raises and the script exits non-zero):
      output file the JAX CLI writes is there, and aqm005.hdf read back by
      the port's own HDF5 reader (no h5py) has K images, ave_n summing to
      N, members partitioning 0..N-1 and purity >= 0.9; cli.check exits 0
-     and --gpu_info prints the card.
+     and --gpu_info prints the card;
+  3d. (after 3c) kernel vs plain on half rings (mode H) at N=512: K=8 and
+     K=1, with and without the --dst=15 mask of the 180-degree span, and
+     K=1 at one shift (SCF's rotation stage), the rules of phase 3; and
+     the SNR sweep of 3c with CTF (particles seen through per-particle
+     CTFs, premultiplied as --CTF does); phase 5 also compares and times
+     the kernel on half rings at N=16384 (K=8, K=1, K=1 at one shift);
+  10. the alignment modes at full width (16384 particles, 90 px, ou=36,
+     xr=yr=3, ts=1), each between a reset and a read of the counters:
+     a. ali2d_base(mode="H"), maxit=6: exactly 6 default launches; kernel
+        and plain paths agree on >= 99% of 512 particles;
+     b. ali2d_base(random_method="SHC"), 4 iterations: no kernel launch
+        (the SHC pick has no kernel, as the TPU package has none; the
+        engine that ran is printed), the count of particles that kept
+        their orientation never above N and falling, nothing NaN;
+     c. ali2d_base(random_method="SCF"), 3 iterations: one K=1, one-shift
+        launch per iteration; scf_align through the kernel on 512 known
+        transforms of the template recovers every mirror flag;
+     d. mref_ali2d(ring_scheme="eman2"), K=8, 3 iterations: no kernel
+        launch (the kernel takes uniform 256-sample rings), purity >= 0.9;
+     e. mref_ali2d(CTF=True) on a stack seen through per-particle CTFs,
+        K=8, 6 iterations: exactly 6 launches, purity >= 0.9; and cli.mref
+        --CTF --ctf_file=<a STAR file written here>: 6 launches;
+     f. ali2d_base(Fourvar=True), 3 iterations: 3 launches; varf.hdf read
+        back by the port's reader holds one finite, non-negative image per
+        iteration, radial_variances one (H//2+1,) profile each.
 Every launch counter is set to 0 just before each main-path run (6, 6b,
-7, 8, 9) and read just after it.  The last lines are the slice's JSON
+7, 8, 9, 10) and read just after it.  The last lines are the slice's JSON
 line (loop rates, stage breakdown, CLI times), the stage ablation's JSON
 line, the card, the kernels' JSON record (with each instantiation's
 registers, spill bytes and shared memory per block) and the run's
@@ -150,12 +175,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def geometry(geom, mirror=True):
+def geometry(geom, mirror=True, mode="F"):
     from cryo_ralib_tpu_torch.config import AlignConfig
 
     return AlignConfig(img_dim=geom["nx"], ring_num=geom["ou"],
                        shift_step=1.0, shift_rng_x=geom["xr"],
-                       shift_rng_y=geom["xr"], mirror=mirror)
+                       shift_rng_y=geom["xr"], mirror=mirror, mode=mode)
 
 
 def ptxas_table(report: str) -> dict:
@@ -209,7 +234,7 @@ def acc_params(n, seed, dev):
         dev)
 
 
-def make_case(geom, n, kind, seed, dev, mirror=True, refs=None):
+def make_case(geom, n, kind, seed, dev, mirror=True, refs=None, mode="F"):
     from cryo_ralib_tpu_torch.ops.search import prepare_ref_spectra
     from cryo_ralib_tpu_torch.utils.synthetic import (asymmetric_templates,
                                                       scattered_stack)
@@ -224,7 +249,7 @@ def make_case(geom, n, kind, seed, dev, mirror=True, refs=None):
         rng = np.random.default_rng(seed)
         imgs = torch.as_tensor(
             rng.standard_normal((n, nx, nx), dtype=np.float32), device=dev)
-    cfg = geometry(geom, mirror)
+    cfg = geometry(geom, mirror, mode)
     rfw = prepare_ref_spectra(torch.as_tensor(refs, device=dev), cfg)
     return cfg, imgs.contiguous(), rfw, acc_params(n, seed + 1, dev)
 
@@ -557,6 +582,257 @@ def cli_phase(tmp, imgs, tmpl, truth, stack_a, main_path, card) -> dict:
     return row
 
 
+CTF_SCALARS = dict(apix=2.0, voltage=300.0, cs=2.7, w=0.1)
+ALL_VARIANTS = ("search", "search_nomirror", "search_masked",
+                "search_nomirror_masked")
+NO_LAUNCH = dict.fromkeys(ALL_VARIANTS, 0)
+
+
+def ctf_params(n, seed):
+    """Per-particle defocus (1.0-2.5 um, 2% astigmatism at a random
+    angle) with the scalars of a 300 kV microscope at 2 A/px."""
+    rng = np.random.default_rng(seed)
+    dfu = rng.uniform(10000.0, 25000.0, n)
+    return dict(dfu=dfu, dfv=dfu * rng.uniform(0.98, 1.02, n),
+                dfang=rng.uniform(0.0, 180.0, n), **CTF_SCALARS)
+
+
+def ctf_stack(tmpl, n, noise, seed, dev, max_shift=2):
+    """A stack seen through per-particle CTFs: noise-free transformed
+    templates multiplied by each particle's CTF in Fourier space, then
+    white noise of sigma ``noise``.  Returns (images, class ids, mirrors,
+    ctf_params)."""
+    from cryo_ralib_tpu_torch.ops.ctf_ops import CtfContext
+    from cryo_ralib_tpu_torch.utils.synthetic import scattered_stack
+
+    clean, cls, _, _, mir = scattered_stack(tmpl, n, max_shift=max_shift,
+                                            noise=0.0, seed=seed, device=dev)
+    params = ctf_params(n, seed + 1)
+    imgs = CtfContext(tmpl.shape[-1], params, device=dev).premultiply(clean)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    imgs += noise * torch.randn(imgs.shape, generator=gen, device=dev)
+    return imgs.contiguous(), cls, mir, params
+
+
+def write_star(path, params):
+    """A RELION STAR file of the per-particle CTF rows of ``params``."""
+    from cryo_ralib_tpu_torch.io.star import Starfile, Table
+
+    n = len(params["dfu"])
+    # DetectorPixelSize (um) and Magnification giving params["apix"]
+    cols = {
+        "_rlnDefocusU": params["dfu"], "_rlnDefocusV": params["dfv"],
+        "_rlnDefocusAngle": params["dfang"],
+        "_rlnVoltage": np.full(n, params["voltage"]),
+        "_rlnSphericalAberration": np.full(n, params["cs"]),
+        "_rlnAmplitudeContrast": np.full(n, params["w"]),
+        "_rlnDetectorPixelSize": np.full(n, 5.0),
+        "_rlnMagnification": np.full(n, 5.0 * 10000.0 / params["apix"]),
+    }
+    headers = list(cols)
+    Starfile(headers, Table(headers, {h: np.asarray(v, np.float64)
+                                      for h, v in cols.items()})).write(path)
+
+
+class ListLogger:
+    """A run logger that keeps its lines (for the SHC counts)."""
+
+    def __init__(self):
+        self.lines = []
+
+    def add(self, msg):
+        self.lines.append(str(msg))
+
+
+def mode_line(label, what, seconds, n_iter, card, extra="") -> dict:
+    row = {"s_per_iteration": seconds / n_iter,
+           "particles_per_s": N_SLICE * n_iter / seconds,
+           "seconds": seconds, "iterations": n_iter}
+    log(f"{label}: {what} N={N_SLICE} 90px ou=36 xr=yr=3 ts=1, {n_iter} "
+        f"iterations: {seconds:.2f} s, {row['s_per_iteration']:.4f} "
+        f"s/iteration, {row['particles_per_s']:.0f} particles/s{extra}  "
+        f"[{card}]")
+    return row
+
+
+def modes_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, mir_a,
+                tmpl1) -> dict:
+    """Phase 10: the alignment modes at full width, through ali2d_base,
+    mref_ali2d and cli.mref."""
+    from cryo_ralib_tpu_torch.cli import mref as cli_mref
+    from cryo_ralib_tpu_torch.config import AlignConfig
+    from cryo_ralib_tpu_torch.io.eman_hdf import read_own_hdf
+    from cryo_ralib_tpu_torch.io.mrc import write_mrc
+    from cryo_ralib_tpu_torch.models.mref import mref_ali2d
+    from cryo_ralib_tpu_torch.models.reffree import ali2d_base
+    from cryo_ralib_tpu_torch.models.steps import resolve_sampler
+    from cryo_ralib_tpu_torch.ops.scf import scf_align
+    from cryo_ralib_tpu_torch.utils.log import RunLogger
+    from cryo_ralib_tpu_torch.utils.synthetic import scattered_stack
+
+    out = {}
+    k = tmpl.shape[0]
+    n = stack_a.shape[0]
+    rf_kw = dict(ou=HEADLINE["ou"], xr=HEADLINE["xr"], yr=HEADLINE["xr"],
+                 ts=1.0, center=-1, device=dev)
+    quiet = dict(log=RunLogger(None, quiet=True))
+
+    def finite(res, label):
+        check(bool(np.isfinite(res.params).all()
+                   and np.isfinite(res.average).all()
+                   and np.isfinite(res.criteria).all()), f"{label}: NaN")
+        check(int(res.class_counts.sum()) == n, f"{label}: counts")
+
+    def mirror_share(res, mir):
+        flip = float((res.params[:, 3] == mir).mean())
+        return max(flip, 1.0 - flip)
+
+    # ---- 10a. half rings through the kernel
+    small = scattered_stack(tmpl1, N_CHECK, max_shift=2, noise=1.0, seed=4,
+                            device=dev)[0]
+    runs = {sampler: ali2d_base(small, maxit=MAXIT, mode="H",
+                                sampler=sampler, **rf_kw, **quiet)
+            for sampler in ("kernel", "plain")}
+    reffree_agree(runs["kernel"], runs["plain"],
+                  f"ali2d_base mode=H N={N_CHECK} maxit={MAXIT}")
+    res, seconds = main_path("reffree mode H", lambda: ali2d_base(
+        stack_a, maxit=MAXIT, mode="H", **rf_kw, **quiet),
+        {**NO_LAUNCH, "search": MAXIT})
+    finite(res, "reffree mode H")
+    check(res.iterations == MAXIT, "reffree mode H: iterations")
+    out["reffree_mode_h"] = mode_line(
+        "10a reffree mode H", "ali2d_base(mode='H')", seconds, MAXIT, card,
+        f"; mirror flags matching the truth up to a global flip "
+        f"{mirror_share(res, mir_a):.4f}")
+
+    # ---- 10b. SHC: the PyTorch search on the card, by the engine rule
+    n_shc = 4
+    engine = resolve_sampler("auto", dev, geometry(HEADLINE), "SHC")
+    lines = ListLogger()
+    res, seconds = main_path("reffree SHC", lambda: ali2d_base(
+        stack_a, maxit=n_shc, random_method="SHC", log=lines, **rf_kw),
+        NO_LAUNCH)
+    finite(res, "reffree SHC")
+    nope = [int(m.split()[1]) for m in lines.lines if m.startswith("SHC:")]
+    log(f"10b reffree SHC: engine {engine!r} (the PyTorch search: the SHC "
+        f"pick has no kernel), particles that kept their orientation per "
+        f"iteration {nope}")
+    check(engine == "plain", f"SHC engine {engine}")
+    check(len(nope) == n_shc and all(0 <= v <= n for v in nope)
+          and nope[0] == 0, f"SHC nope counts {nope}")
+    out["reffree_shc"] = mode_line(
+        "10b reffree SHC", "ali2d_base(random_method='SHC')", seconds, n_shc,
+        card, f"; no kernel launch; nope {nope}")
+    out["reffree_shc"]["nope"] = nope
+
+    # ---- 10c. SCF: a K=1, one-shift kernel launch per iteration
+    n_scf = 3
+    cfg_h = geometry(HEADLINE, mode="H")
+    known, _, _, _, mir_k = scattered_stack(tmpl1, N_CHECK, max_shift=2,
+                                            noise=0.0, seed=5, device=dev)
+    ref1 = torch.as_tensor(tmpl1[0], device=dev)
+    got, _ = scf_align(known.contiguous(), ref1, cfg_h, sampler="kernel")
+    want, _ = scf_align(known.contiguous(), ref1, cfg_h, sampler="plain")
+    right = float((got.mirror.cpu().numpy() == mir_k).mean())
+    same = float((got.mirror == want.mirror).float().mean())
+    log(f"10c scf_align on {N_CHECK} known transforms of the template: "
+        f"mirror flags right {right:.4f}; kernel and plain flags equal "
+        f"{same:.4f}")
+    check(right >= 0.99, f"scf_align recovers {right} of the mirror flags")
+    check(same >= 0.99, f"scf_align kernel vs plain {same}")
+    res, seconds = main_path("reffree SCF", lambda: ali2d_base(
+        stack_a, maxit=n_scf, random_method="SCF", **rf_kw, **quiet),
+        {**NO_LAUNCH, "search": n_scf})
+    finite(res, "reffree SCF")
+    out["reffree_scf"] = mode_line(
+        "10c reffree SCF", "ali2d_base(random_method='SCF')", seconds, n_scf,
+        card, f"; mirror flags matching the truth up to a global flip "
+        f"{mirror_share(res, mir_a):.4f}")
+
+    # ---- 10d. the eman2 rings: the PyTorch search, by the engine rule
+    n_em = 3
+    cfg_e = AlignConfig(img_dim=HEADLINE["nx"], ring_num=HEADLINE["ou"],
+                        ring_scheme="eman2", shift_rng_x=HEADLINE["xr"],
+                        shift_rng_y=HEADLINE["xr"])
+    engine = resolve_sampler("auto", dev, cfg_e)
+    check(engine == "plain", f"eman2 engine {engine}")
+    res, seconds = main_path("mref eman2", lambda: mref_ali2d(
+        imgs, tmpl, ou=HEADLINE["ou"], xr=HEADLINE["xr"], yr=HEADLINE["xr"],
+        ts=1, maxit=n_em, ring_scheme="eman2", device=dev, **quiet),
+        NO_LAUNCH)
+    check(bool(np.isfinite(res.params).all()
+               and np.isfinite(res.references).all()), "mref eman2: NaN")
+    check(int(res.class_counts.sum()) == n, "mref eman2: counts")
+    pur = purity(res.assignments, cls, k)
+    out["mref_eman2"] = mode_line(
+        "10d mref eman2", f"mref_ali2d(ring_scheme='eman2') K={k}, maxrin "
+        f"{cfg_e.ring_len}, engine {engine!r} (no kernel launch)", seconds,
+        n_em, card, f"; purity {pur:.4f}")
+    out["mref_eman2"]["purity"] = pur
+    check(pur >= 0.9, f"mref eman2 purity {pur}")
+
+    # ---- 10e. CTF: premultiplied particles through the kernel
+    stack_c, cls_c, _, ctfp = ctf_stack(tmpl, n, 1.0, 13, dev)
+    res, seconds = main_path("mref CTF", lambda: mref_ali2d(
+        stack_c, tmpl, ou=HEADLINE["ou"], xr=HEADLINE["xr"],
+        yr=HEADLINE["xr"], ts=1, maxit=MAXIT, CTF=True, ctf_params=ctfp,
+        snr=1.0, device=dev, **quiet), {**NO_LAUNCH, "search": MAXIT})
+    check(bool(np.isfinite(res.params).all()
+               and np.isfinite(res.references).all()), "mref CTF: NaN")
+    check(int(res.class_counts.sum()) == n, "mref CTF: counts")
+    pur = purity(res.assignments, cls_c, k)
+    out["mref_ctf"] = mode_line(
+        "10e mref CTF", f"mref_ali2d(CTF=True) K={k}", seconds, MAXIT, card,
+        f"; purity {pur:.4f}, counts {res.class_counts.tolist()}")
+    out["mref_ctf"]["purity"] = pur
+    check(pur >= 0.9, f"mref CTF purity {pur}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ctf_") as tmp:
+        stack, refs, star = (os.path.join(tmp, name) for name in
+                             ("stack.mrcs", "refs.mrcs", "particles.star"))
+        write_mrc(stack, stack_c.cpu().numpy())
+        write_mrc(refs, tmpl)
+        write_star(star, ctfp)
+        out_c = os.path.join(tmp, "mref_ctf")
+        (rc, _), cli_s = main_path(
+            "cli mref CTF", lambda: quietly(lambda: cli_mref.main(
+                [stack, refs, out_c, "--ou=36", "--xr=3", "--ts=1",
+                 f"--maxit={MAXIT}", "--CTF", f"--ctf_file={star}"])),
+            {**NO_LAUNCH, "search": MAXIT})
+        check(rc == 0, f"cli mref --CTF exit {rc}")
+        _, headers = read_own_hdf(os.path.join(out_c,
+                                               f"aqm{MAXIT - 1:03d}.hdf"))
+        members = [np.asarray(h["members"], np.int64) for h in headers]
+        hits = sum(np.bincount(cls_c[m], minlength=k).max() for m in members
+                   if m.size)
+        out["cli_mref_ctf"] = {"seconds": cli_s, "purity": hits / n}
+        log(f"10e cli mref --CTF --ctf_file=particles.star: {cli_s:.2f} s for "
+            f"{MAXIT} iterations (stack and STAR read, outputs included), "
+            f"purity from aqm members {hits / n:.4f}  [{card}]")
+        check(hits / n >= 0.9, f"cli mref --CTF purity {hits / n}")
+    del stack_c
+
+    # ---- 10f. Fourvar
+    n_fv = 3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fv_") as tmp:
+        res, seconds = main_path("reffree Fourvar", lambda: ali2d_base(
+            stack_a, outdir=tmp, maxit=n_fv, Fourvar=True, **rf_kw, **quiet),
+            {**NO_LAUNCH, "search": n_fv})
+        varf, _ = read_own_hdf(os.path.join(tmp, "varf.hdf"))
+    finite(res, "reffree Fourvar")
+    nx = stack_a.shape[-1]
+    check(varf.shape == (n_fv, nx, nx) and bool(np.isfinite(varf).all())
+          and bool((varf >= 0).all()), f"varf.hdf {varf.shape}")
+    check(len(res.radial_variances) == n_fv
+          and all(r.shape == (nx // 2 + 1,) and np.isfinite(r).all()
+                  for r in res.radial_variances), "radial_variances")
+    out["reffree_fourvar"] = mode_line(
+        "10f reffree Fourvar", "ali2d_base(Fourvar=True), outputs written",
+        seconds, n_fv, card,
+        f"; varf.hdf {varf.shape}, criteria "
+        f"{[float('%.4g' % c) for c in res.criteria]}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -577,6 +853,7 @@ def main():
     from cryo_ralib_tpu_torch.models.mref import mref_ali2d
     from cryo_ralib_tpu_torch.models.reffree import ali2d_base
     from cryo_ralib_tpu_torch.ops import fused_search as fs
+    from cryo_ralib_tpu_torch.ops.ctf_ops import CtfContext
     from cryo_ralib_tpu_torch.ops.search import (delta_angle_mask,
                                                  prepare_ref_spectra)
     from cryo_ralib_tpu_torch.params import AlignParams
@@ -649,7 +926,7 @@ def main():
         *make_case(geom64, N_CHECK, "structured", seed=30, dev=dev),
         "flat", f"90px ou=36 K={K_LARGE} asymmetric_templates"))
 
-    # ---- 3c. the SNR sweep, no CTF (--CTF is not ported)
+    # ---- 3c. the SNR sweep, no CTF
     tmpl = asymmetric_templates(HEADLINE["k"], HEADLINE["nx"])
     cfg = geometry(HEADLINE)
     rfw = prepare_ref_spectra(torch.as_tensor(tmpl, device=dev), cfg)
@@ -664,7 +941,40 @@ def main():
         truth = ((got.best_ref.cpu().numpy() == cls)
                  & (got.best_mirror.cpu().numpy() == mir))
         log(f"  {label}: {truth.mean():.4f} of winners match the known "
-            f"class and mirror (no CTF: --CTF is not ported)")
+            f"class and mirror")
+    del imgs
+
+    # ---- 3d. half rings (mode H), and the SNR sweep with CTF
+    mask_h = torch.as_tensor(delta_angle_mask(L, DST, "H"), device=dev)
+    for k_h in (HEADLINE["k"], 1):
+        for masked in (False, True):
+            for kind in ("structured", "noise"):
+                case = make_case(dict(HEADLINE, k=k_h), N_CHECK, kind,
+                                 seed=50, dev=dev, mode="H")
+                name = fs.variant(case[0], masked)
+                err = compare(*case, kind,
+                              f"mode H {name} 90px ou=36 K={k_h} {kind}",
+                              mask=mask_h if masked else None)
+                if kind == "structured":
+                    (errs if name == "search" and k_h > 1
+                     else var_errs[name]).append(err)
+    # SCF's rotation stage: K=1, one shift, half rings
+    case = make_case(dict(HEADLINE, k=1, xr=0.0), N_CHECK, "structured",
+                     seed=51, dev=dev, mode="H")
+    var_errs["search"].append(compare(
+        *case, "structured", "mode H search 90px ou=36 K=1 one shift"))
+    for snr in SNRS:
+        imgs, cls, mir, ctfp = ctf_stack(tmpl, N_CHECK,
+                                         float(np.sqrt(1.0 / snr)), 40, dev)
+        imgs = CtfContext(HEADLINE["nx"], ctfp,
+                          device=dev).premultiply(imgs).contiguous()
+        label = f"SNR {snr:g} with CTF (premultiplied) 90px K=8"
+        compare(cfg, imgs, rfw, zero, "noise", label)
+        got = fs.fused_search(imgs, rfw, zero, cfg)
+        truth = ((got.best_ref.cpu().numpy() == cls)
+                 & (got.best_mirror.cpu().numpy() == mir))
+        log(f"  {label}: {truth.mean():.4f} of winners match the known "
+            f"class and mirror")
     del imgs
 
     # ---- 4. mref_ali2d: kernel path vs plain path on a small stack
@@ -755,6 +1065,21 @@ def main():
     var_errs["search_k64"].append(compare(
         cfg, imgs64, rfw64, params, "noise", f"90px K={K_LARGE} N={N_SLICE}"))
     time_search("search_k64", cfg, imgs64, rfw64)
+
+    # half rings: the same instantiations on other tables; and the K=1,
+    # one-shift launch of SCF's rotation stage
+    cfg_h = geometry(HEADLINE, mode="H")
+    errs.append(compare(cfg_h, imgs, prepare_ref_spectra(
+        torch.as_tensor(tmpl, device=dev), cfg_h), params, "noise",
+        f"mode H 90px K=8 N={N_SLICE}"))
+    time_search("search_mode_h", cfg_h, imgs, prepare_ref_spectra(
+        torch.as_tensor(tmpl, device=dev), cfg_h))
+    rfw1_h = prepare_ref_spectra(torch.as_tensor(tmpl1, device=dev), cfg_h)
+    time_search("search_mode_h_k1", cfg_h, imgs1, rfw1_h)
+    cfg_s1 = geometry(dict(HEADLINE, xr=0.0), mode="H")
+    time_search("search_mode_h_k1_one_shift", cfg_s1, imgs1,
+                prepare_ref_spectra(torch.as_tensor(tmpl1, device=dev),
+                                    cfg_s1))
 
     def stage_times(imgs, rfw):
         row = {"full": cuda_ms(lambda: fs.fused_search(imgs, rfw, params,
@@ -919,6 +1244,10 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         slice_json["cli"] = cli_phase(tmp, imgs, tmpl, cls, stack_a,
                                       main_path, card)
+
+    # ---- 10. the alignment modes
+    slice_json["modes"] = modes_phase(dev, card, main_path, imgs, tmpl, cls,
+                                      stack_a, mir_a, tmpl1)
     del imgs, stack_a
 
     shapes = {   # entry -> (timing key, K, mirror channels, mask)
@@ -953,6 +1282,11 @@ def main():
     log(f"search default variant at K=1 (reffree unmasked iterations): "
         f"kernel {k1[0]:.2f} ms, plain {k1[1]:.2f} ms at N={N_SLICE}; "
         f"{k1[2]:.3f} / {k1[3]:.3f} ms at N={N_CHECK}  [{card}]")
+    slice_json["mode_h_kernel_ms"] = {
+        name: dict(zip(("ms", "plain_ms", "ms_n512", "plain_ms_n512"),
+                       times[name]))
+        for name in ("search_mode_h", "search_mode_h_k1",
+                     "search_mode_h_k1_one_shift")}
     print(json.dumps({"slice": slice_json}))
     print(json.dumps(ablation))
     log(card)

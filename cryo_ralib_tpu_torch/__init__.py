@@ -8,8 +8,9 @@ plain PyTorch twin that runs on the CPU.
 
 This package imports ``torch`` and ``numpy`` only — never ``jax`` and
 never ``cryo_ralib_tpu``; the numpy-only modules it shares with the JAX
-package (``config``, ``rings``, ``ops/fsc``) are copies, held against
-their originals by the tests.
+package (``config``, ``rings``, ``ops/fsc``, ``io/star``, the host
+helpers of ``ops/fourvar``) are copies, held against their originals by
+the tests.
 """
 
 from .config import AlignConfig  # noqa: F401

@@ -4,13 +4,14 @@
 The same flags, spellings and per-CLI defaults as the JAX CLI (the
 reference's optparse surface), so a command line that runs there parses
 the same here.  One process runs on one GPU with the stack resident in
-device memory; there is no mesh.  What is not ported yet (``--CTF``,
-``--Fourvar``, ``--random_method``, ``--mode=H``, ``--ring_scheme=eman2``,
-the TPU engines ``--sampler=template/matmul``, more than one device and
-``bdb:`` stacks) exits with status 2 and a message naming the flag before
-any stack is read.  ``--sampler``: ``auto`` and ``fused`` run the CUDA
-search kernel on the GPU, ``gather`` its plain PyTorch version (the JAX
-``gather`` engine's f32 semantics).
+device memory; there is no mesh.  What is not ported yet (the TPU
+engines ``--sampler=template/matmul``, more than one device and ``bdb:``
+stacks) exits with status 2 and a message naming the flag before any
+stack is read.  ``--sampler``: ``auto`` and ``fused`` run the CUDA search
+kernel on the GPU, ``gather`` its plain PyTorch version (the JAX
+``gather`` engine's f32 semantics); ``--random_method=SHC`` and
+``--ring_scheme=eman2`` have no kernel and run the PyTorch search under
+``auto`` (``fused`` is refused there).
 """
 
 from __future__ import annotations
@@ -67,12 +68,17 @@ def add_common_flags(p: argparse.ArgumentParser, reffree: bool = False):
     p.add_argument("--maxit", type=_intish, default=0,
                    help="max iterations (0 = auto)")
     p.add_argument("--CTF", action="store_true",
-                   help="CTF-aware alignment: not ported yet")
+                   help="CTF-aware alignment: premultiply particles by "
+                        "their CTF, Wiener-restore class averages "
+                        "(requires --ctf_file)")
     p.add_argument("--snr", type=float, default=1.0, help="SNR (CTF path)")
     p.add_argument("--ctf_file", default="",
-                   help="per-particle CTF parameters (CTF path)")
+                   help="per-particle CTF parameters: a RELION .star file "
+                        "or a text table of 'dfu [dfv [dfang]]' rows "
+                        "(Angstrom / degrees)")
     p.add_argument("--apix", type=float, default=None,
-                   help="pixel size in A (CTF path)")
+                   help="pixel size in A (CTF path; overrides the STAR "
+                        "file's DetectorPixelSize/Magnification)")
     p.add_argument("--voltage", type=float, default=300.0,
                    help="acceleration voltage in kV (CTF path)")
     p.add_argument("--Cs", type=float, default=2.7,
@@ -103,7 +109,8 @@ def add_common_flags(p: argparse.ArgumentParser, reffree: bool = False):
     p.add_argument("--ring_scheme", default="cuda",
                    choices=["cuda", "eman2"],
                    help="polar ring convention: cuda = uniform 256-sample "
-                        "rings (eman2 is not ported yet)")
+                        "rings (the CUDA kernel's), eman2 = variable-length "
+                        "Numrinit rings + ringwe weights (PyTorch search)")
     p.add_argument("--resume", action="store_true",
                    help="continue from the checkpoint in outdir")
     p.add_argument("--header_writeback", action="store_true",
@@ -117,11 +124,18 @@ def add_common_flags(p: argparse.ArgumentParser, reffree: bool = False):
                             "(except the last 10) the rotation search is "
                             "restricted to multiples of this angle")
         p.add_argument("--Fourvar", action="store_true",
-                       help="2-D Fourier variance: not ported yet")
+                       help="compute the 2-D Fourier variance of the "
+                            "aligned stack each iteration, divide the "
+                            "average by it and write varf.hdf")
         p.add_argument("--mode", default="F", choices=["F", "H"],
-                       help="full or half rings ('H' is not ported yet)")
+                       help="full or half rings: 'H' searches rotations in "
+                            "[0, 180) only")
         p.add_argument("--random_method", default="", choices=["", "SHC", "SCF"],
-                       help="SHC or SCF: not ported yet")
+                       help="SHC = stochastic hill climbing (first "
+                            "candidate beating the particle's previousmax); "
+                            "SCF = self-correlation alignment (rotation "
+                            "from the shift-invariant scf, then a 2-D ccf "
+                            "translation; forces half rings)")
         p.add_argument("--randomize", action="store_true",
                        help="accepted for compatibility (never read)")
         p.add_argument("--orient", action="store_true",
@@ -153,16 +167,6 @@ def reject_unported(args, paths):
     """Exit 2, naming each flag, on what the port does not do yet; runs
     before any stack is read."""
     problems = []
-    if args.CTF:
-        problems.append("--CTF (CTF-aware alignment)")
-    if getattr(args, "Fourvar", False):
-        problems.append("--Fourvar (2-D Fourier variance)")
-    if getattr(args, "random_method", ""):
-        problems.append(f"--random_method={args.random_method}")
-    if getattr(args, "mode", "F") != "F":
-        problems.append(f"--mode={args.mode} (half rings)")
-    if args.ring_scheme != "cuda":
-        problems.append(f"--ring_scheme={args.ring_scheme}")
     if args.sampler not in SAMPLERS:
         problems.append(f"--sampler={args.sampler} (a TPU engine; use auto, "
                         "fused or gather)")
@@ -176,6 +180,56 @@ def reject_unported(args, paths):
         print("ERROR: not ported yet to the PyTorch/CUDA package:\n  "
               + "\n  ".join(problems), file=sys.stderr)
         raise SystemExit(2)
+
+
+def load_ctf_params(args, n: int) -> dict | None:
+    """The ``ctf_params`` dict of ``mref_ali2d`` / ``ali2d_base`` from
+    --CTF/--ctf_file, as the JAX CLI builds it: None when --CTF is off; exit 2 on --CTF without a
+    file, on a STAR file without a usable ``_rlnDefocusU`` column, and on
+    a particle-count mismatch."""
+    if not args.CTF:
+        return None
+    if not args.ctf_file:
+        print("ERROR: --CTF requires --ctf_file (per-particle defocus)",
+              file=sys.stderr)
+        raise SystemExit(2)
+    path = args.ctf_file
+    if path.lower().endswith(".star"):
+        from ..io.star import Starfile, parse_ctf_star
+
+        star = Starfile.load(path)
+        # angpix=None lets parse_ctf_star derive apix from the file's
+        # DetectorPixelSize/Magnification; --apix overrides
+        rows = parse_ctf_star(star.df, d=0, angpix=args.apix)
+        # parse_ctf_star zero-fills absent columns; a missing DefocusU
+        # would run an all-zero CTF model
+        if "_rlnDefocusU" not in star.df or not np.any(rows[:, 2]):
+            print(f"ERROR: {path} has no usable _rlnDefocusU column — "
+                  "cannot build a CTF model", file=sys.stderr)
+            raise SystemExit(2)
+        apix = float(rows[0, 1])
+        dfu, dfang = rows[:, 2], rows[:, 4]
+        # dfv=0 would mean extreme astigmatism: an absent DefocusV
+        # defaults to dfu
+        dfv = rows[:, 3] if "_rlnDefocusV" in star.df else dfu
+        voltage = float(rows[0, 5]) or args.voltage
+        cs = float(rows[0, 6]) or args.Cs
+        w = float(rows[0, 7]) or args.ac
+        phase_shift = rows[:, 8]   # per particle (phase plates)
+    else:
+        # ndmin=2 keeps a single-column file as (N, 1), not a row vector
+        rows = np.loadtxt(path, dtype=np.float64, ndmin=2)
+        apix = args.apix if args.apix is not None else 1.0
+        dfu = rows[:, 0]
+        dfv = rows[:, 1] if rows.shape[1] > 1 else dfu
+        dfang = rows[:, 2] if rows.shape[1] > 2 else np.zeros_like(dfu)
+        voltage, cs, w, phase_shift = args.voltage, args.Cs, args.ac, 0.0
+    if dfu.shape[0] != n:
+        print(f"ERROR: {dfu.shape[0]} CTF rows for {n} particles",
+              file=sys.stderr)
+        raise SystemExit(2)
+    return dict(dfu=dfu, dfv=dfv, dfang=dfang, apix=apix,
+                voltage=voltage, cs=cs, w=w, phase_shift=phase_shift)
 
 
 def cli_device(device):

@@ -15,7 +15,7 @@ import argparse
 import os
 
 from .common import (SAMPLERS, add_common_flags, check_outdir, cli_device,
-                     load_mask, load_stack, print_device_info,
+                     load_ctf_params, load_mask, load_stack, print_device_info,
                      reject_unported, writeback_headers)
 
 
@@ -55,13 +55,16 @@ def main(argv=None, device="cuda"):
     images, _headers = load_stack(args.stack)
     refs, _ = load_stack(args.refs)
     mask = load_mask(args.maskfile, images.shape[-1])
+    ctf_params = load_ctf_params(args, images.shape[0])
     res = mref_ali2d(
         images, refs, outdir=args.outdir, maskfile=mask,
         ir=args.ir, ou=args.ou, rs=args.rs,
         xr=args.xr, yr=args.yr, ts=args.ts,
         center=args.center, maxit=args.maxit,
+        CTF=ctf_params is not None, snr=args.snr, ctf_params=ctf_params,
         user_func_name=args.function, rand_seed=args.rand_seed, log=log,
-        resume=args.resume, device=device, sampler=SAMPLERS[args.sampler])
+        resume=args.resume, ring_scheme=args.ring_scheme, device=device,
+        sampler=SAMPLERS[args.sampler])
     if args.header_writeback:
         writeback_headers(args.stack, res.params, res.assignments)
     log.print_end_msg("mref_ali2d")

@@ -1,9 +1,11 @@
 """Reference-free 2D alignment CLI on one GPU (counterpart of
 ``cryo_ralib_tpu/cli/reffree.py``): the same arguments (stack, outdir,
-optional maskfile), flags (``--dst``, ``--nomirror``, ``--center`` among
-them) and output files (``aqc.hdf``, ``aqf.hdf``, ``aqfinal.hdf``,
-``resolution%03d``, ``initial2Dparams.txt``, ``checkpoint.npz``,
-``logfile.txt``).
+optional maskfile), flags (``--dst``, ``--nomirror``, ``--center``,
+``--mode``, ``--random_method``, ``--CTF``, ``--Fourvar``,
+``--ring_scheme`` among them) and output files (``aqc.hdf``, ``aqf.hdf``,
+``aqfinal.hdf``, ``resolution%03d``, ``initial2Dparams.txt``,
+``checkpoint.npz``, ``logfile.txt``, and ``varf.hdf`` under
+``--Fourvar``).
 
 Usage:
     python -m cryo_ralib_tpu_torch.cli.reffree stack.hdf outdir --ou=36 \
@@ -16,7 +18,7 @@ import argparse
 import os
 
 from .common import (SAMPLERS, add_common_flags, check_outdir, cli_device,
-                     load_mask, load_stack, print_device_info,
+                     load_ctf_params, load_mask, load_stack, print_device_info,
                      reject_unported, validate_reffree_flags,
                      writeback_headers)
 
@@ -56,13 +58,18 @@ def main(argv=None, device="cuda"):
     log.print_begin_msg("ali2d_base")
     images, _headers = load_stack(args.stack)
     mask = load_mask(args.maskfile, images.shape[-1])
+    ctf_params = load_ctf_params(args, images.shape[0])
     res = ali2d_base(
         images, outdir=args.outdir, maskfile=mask,
         ir=args.ir, ou=args.ou, rs=args.rs,
         xr=args.xr, yr=args.yr, ts=args.ts,
         dst=args.dst, center=args.center, maxit=args.maxit,
-        user_func_name=args.function, nomirror=args.nomirror, log=log,
-        resume=args.resume, device=device, sampler=SAMPLERS[args.sampler])
+        CTF=ctf_params is not None, ctf_params=ctf_params,
+        Fourvar=args.Fourvar, snr=args.snr,
+        user_func_name=args.function, random_method=args.random_method,
+        nomirror=args.nomirror, mode=args.mode, log=log,
+        resume=args.resume, ring_scheme=args.ring_scheme, device=device,
+        sampler=SAMPLERS[args.sampler])
     if args.header_writeback:
         writeback_headers(args.stack, res.params)
     log.print_end_msg("ali2d_base")

@@ -14,9 +14,11 @@ waits for the host.  The tables an iteration reads are copied to the
 device when the loop is built.
 
 The search is the hand-written CUDA kernel on a CUDA device
-(``sampler="auto"`` or ``"kernel"``) and its plain PyTorch version with
-``"plain"`` or on the CPU; the class sums are the bilinear
-``transform_batch`` + ``class_sum_oe``, the JAX loops' ``gather`` branch.
+(``sampler="auto"`` or ``"kernel"``; mode "H" included) and its plain
+PyTorch version with ``"plain"`` or on the CPU; a ``cfg`` with
+``ring_scheme="eman2"`` runs the eman2 PyTorch search on either device;
+the class sums are the bilinear ``transform_batch`` + ``class_sum_oe``,
+the JAX loops' ``gather`` branch.
 In the multireference loop a class with fewer than 4 members keeps its
 previous reference, where ``mref_ali2d`` reseeds it from a random
 particle: the host RNG has no place in the loop.
@@ -29,6 +31,7 @@ import torch
 
 from ..config import AlignConfig
 from ..params import AlignParams
+from ..ops.eman_search import eman_tables
 from ..ops.filters import device_freq_grid, filt_tanl_dyn
 from ..ops.fused_search import kernel_tables
 from ..ops.search import search_tables
@@ -52,10 +55,12 @@ def _build(cfg: AlignConfig, n_iter: int, cutoffs, falloffs, device,
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    sampler = resolve_sampler(sampler, device)
+    sampler = resolve_sampler(sampler, device, cfg)
     search_tables(cfg, device)
     device_freq_grid(cfg.img_dim, cfg.img_dim, device)
-    if sampler == "kernel" and device.type == "cuda":
+    if cfg.ring_scheme == "eman2":
+        eman_tables(cfg, device)
+    elif sampler == "kernel" and device.type == "cuda":
         kernel_tables(cfg, device)
     return (device, sampler, _schedule(cutoffs, n_iter, 0.0, device),
             _schedule(falloffs, n_iter, 0.1, device))

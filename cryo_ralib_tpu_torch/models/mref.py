@@ -4,12 +4,14 @@ Counterpart of ``cryo_ralib_tpu/models/mref.py::mref_ali2d_tpu``: K
 references, every particle searched against all of them (mirror + shift
 grid), class assignment by the ccf argmax, even/odd class sums,
 vanished-class reseeding from ``random.Random(rand_seed)``, per-class FSC
-averaged over classes, the ``ref_ali2d`` filter (and centering with
+averaged over classes, optional CTF premultiplication with
+Wiener-restored references, the ``ref_ali2d`` filter (and centering with
 ``center=1``), the outputs ``aqm%03d.hdf``, ``drm%03d%04d.txt`` and
 ``final2Dparams.txt``, and a ``checkpoint.npz`` after every iteration
 that ``resume=True`` continues from.
 
-The stack is uploaded to ``device`` once and normalised there; the
+The stack is uploaded to ``device`` once, premultiplied by its CTFs
+there under ``CTF``, and normalised there; the
 engine keeps that tensor.  The reference update (K small images) runs on
 the host.
 """
@@ -25,6 +27,7 @@ import torch
 
 from ..config import AlignConfig
 from ..params import params_table
+from ..ops.ctf_ops import CtfContext
 from ..ops.fsc import fsc, write_fsc
 from ..ops.masks import model_circle, normalize_mask
 from ..io.eman_hdf import write_hdf_stack
@@ -58,10 +61,14 @@ def mref_ali2d(
     ts: float = 1.0,
     center: int = -1,
     maxit: int = 0,
+    CTF: bool = False,
+    snr: float = 1.0,
+    ctf_params: dict | None = None,
     user_func_name: str = "ref_ali2d",
     rand_seed: int = 1000,
     log: RunLogger | None = None,
     resume: bool = False,
+    ring_scheme: str = "cuda",
     device="cuda",
     sampler: str = "auto",
 ) -> MrefResult:
@@ -72,7 +79,13 @@ def mref_ali2d(
     means ``nx//2 - 2``; ``maxit=0`` means 10 iterations; ``center`` is
     -1 or 0 (none) or 1 (center each reference).  ``sampler`` picks the
     search: "auto" (the CUDA kernel on a CUDA device, the plain version
-    on the CPU), "kernel" or "plain".
+    on the CPU), "kernel" or "plain".  ``ring_scheme="eman2"`` searches
+    the variable-length Numrinit rings with ``ringwe`` weights, through
+    the PyTorch search on either device (``sampler="kernel"`` raises
+    ``ValueError`` there).  ``CTF=True`` premultiplies the particles by
+    their CTFs (``ctf_params``: ``dfu`` per particle at least, see
+    ``ops.ctf_ops.CtfContext``) and Wiener-restores the references with
+    ``snr``.
     """
     device = resolve_device(device)
     if outdir:
@@ -100,7 +113,7 @@ def mref_ali2d(
         raise ValueError(f"invalid ring plan: ir={ir} rs={rs} ou={last_ring}")
     n_rings = len(range(ir, last_ring + 1, rs))
     cfg = AlignConfig(img_dim=nx, ring_num=n_rings, ring_len=256,
-                      first_ring=ir, ring_step=rs,
+                      first_ring=ir, ring_step=rs, ring_scheme=ring_scheme,
                       shift_step=float(ts), shift_rng_x=float(xr),
                       shift_rng_y=float(yr))
 
@@ -108,6 +121,14 @@ def mref_ali2d(
     mask_host = torch.as_tensor(np.asarray(mask, np.float32))
     # particles: no_sigma=False (N(0,1) under the mask); refs: mean only
     data = torch.as_tensor(images, dtype=torch.float32, device=device)
+    ctf_ctx = None
+    if CTF:
+        if ctf_params is None:
+            raise ValueError("CTF=True requires ctf_params (at least "
+                             "per-particle 'dfu' defocus in A)")
+        ctf_ctx = CtfContext(nx, ctf_params, snr=snr, device=device)
+        data = ctf_ctx.premultiply(data)
+        log.add("CTF premultiplication on, snr=%g" % snr)
     data = normalize_mask(data, mask_host.to(device), no_sigma=False)
     refi = normalize_mask(torch.as_tensor(np.asarray(refs, np.float32)),
                           mask_host, no_sigma=True).numpy()
@@ -142,6 +163,10 @@ def mref_ali2d(
         frsc = None
         new_refs = np.empty_like(refi)
         vanished = []
+        if ctf_ctx is not None:
+            # Wiener-restored combined averages replace the sums over the
+            # counts; the FSC below still takes the raw even/odd halves
+            wiener = ctf_ctx.restore(sums[:, 0] + sums[:, 1], assign)
         for j in range(numref):
             if counts[j] < 4:
                 # vanished class: reseed with a random particle
@@ -154,7 +179,8 @@ def mref_ali2d(
                 if outdir:
                     write_fsc(os.path.join(outdir, "drm%03d%04d.txt"
                                            % (it, j)), *cur)
-                new_refs[j] = (sums[j, 0] + sums[j, 1]) / float(counts[j])
+                new_refs[j] = (wiener[j] if ctf_ctx is not None else
+                               (sums[j, 0] + sums[j, 1]) / float(counts[j]))
                 if ave_fsc is None:
                     ave_fsc = np.array(cur[1], np.float64)
                     c_fsc = 1

@@ -3,16 +3,20 @@
 Counterpart of ``cryo_ralib_tpu/models/reffree.py::ali2d_base_tpu``:
 every particle is aligned to the running global average with the full
 rotation / shift / mirror search (``--nomirror`` drops the mirror
-channel), with FSC-driven tangent filtering, average centering, the
-``a1`` dot criterion with auto-stop at ``maxit=0``, the ``--dst``
+channel; ``mode="H"`` searches half rings; ``random_method`` "SHC" or
+"SCF" replaces the search; ``ring_scheme="eman2"`` the rings), with
+optional CTF premultiplication and Wiener-restored averages, the
+``--Fourvar`` Fourier variance (``varf.hdf``), FSC-driven tangent
+filtering, average centering, the ``a1`` dot criterion with auto-stop at ``maxit=0``, the ``--dst``
 discrete-angle schedule, per-iteration QC (pixel error, mirror
 consistency), a ``checkpoint.npz`` per iteration that ``resume=True``
 continues from (either package's file), and the outputs ``aqc.hdf``,
 ``aqf.hdf``, ``aqfinal.hdf``, ``resolution%03d``, ``initial2Dparams.txt``
 and ``logfile.txt``.
 
-The stack is uploaded to ``device`` once and its masked mean taken off
-there; the engine keeps that tensor.  The average conditioning (one
+The stack is uploaded to ``device`` once, premultiplied by its CTFs
+there under ``CTF``, and its masked mean taken off there; the engine
+keeps that tensor.  The average conditioning (one
 H x W image per iteration) runs on the host.
 """
 
@@ -26,7 +30,9 @@ import torch
 
 from ..config import AlignConfig
 from ..params import params_table, pixel_error_2D
+from ..ops.ctf_ops import CtfContext
 from ..ops.filters import fshift
+from ..ops.fourvar import divide_by_variance, fourier_variance, variance_map
 from ..ops.fsc import fsc_mask, write_fsc
 from ..ops.masks import infomask, model_circle
 from ..io.eman_hdf import write_image
@@ -44,6 +50,7 @@ class RefFreeResult:
     criteria: list = field(default_factory=list)
     pixel_errors: list = field(default_factory=list)
     mirror_consistency: list = field(default_factory=list)
+    radial_variances: list = field(default_factory=list)  # Fourvar, per it.
     iterations: int = 0
     class_counts: np.ndarray = field(   # (1,) members of the last pass
         default_factory=lambda: np.zeros(1, np.int64))
@@ -64,6 +71,8 @@ def ali2d_base(
     maxit: int = 0,
     CTF: bool = False,
     Fourvar: bool = False,
+    snr: float = 1.0,
+    ctf_params: dict | None = None,
     user_func_name: str = "ref_ali2d",
     random_method: str = "",
     nomirror: bool = False,
@@ -84,17 +93,20 @@ def ali2d_base(
     particle shift from the average, 0 leaves it, 1 centers it on its
     center of gravity; ``dst`` makes every 4th iteration (except the
     last 10) search multiples of ``dst`` degrees only, with no angle
-    refinement.  ``sampler`` as in ``mref_ali2d``.  Not ported yet, and
-    raising ``NotImplementedError``: ``CTF``, ``Fourvar``,
-    ``random_method`` (SHC, SCF), ``mode="H"`` and
-    ``ring_scheme="eman2"``.
+    refinement.  ``mode="H"`` searches half rings (rotations in
+    [0, 180)); ``random_method="SHC"`` is stochastic hill climbing (a
+    particle takes the first candidate above its ``previousmax``),
+    ``"SCF"`` self-correlation alignment (forces half rings);
+    ``ring_scheme="eman2"`` the variable-length Numrinit rings (standard
+    search only).  ``CTF=True`` premultiplies the particles by their CTFs
+    (``ctf_params``: ``dfu`` per particle at least, see
+    ``ops.ctf_ops.CtfContext``) and Wiener-restores the average with
+    ``snr``.  ``Fourvar`` computes the 2-D Fourier variance of the aligned
+    stack each iteration, divides the average's spectrum by it and
+    writes ``varf.hdf``.  ``sampler`` as in ``mref_ali2d``; SHC and eman2
+    run the PyTorch search on either device (``sampler="kernel"`` raises
+    ``ValueError`` there).
     """
-    for flag, unported in (("CTF", CTF), ("Fourvar", Fourvar),
-                           ("random_method", random_method),
-                           ("mode='H'", mode != "F"),
-                           ("ring_scheme='eman2'", ring_scheme != "cuda")):
-        if unported:
-            raise NotImplementedError(f"{flag} is not ported yet")
     device = resolve_device(device)
     if outdir:
         os.makedirs(outdir, exist_ok=True)
@@ -107,6 +119,8 @@ def ali2d_base(
     n, ny, nx = images.shape
     if nx != ny:
         raise ValueError("images must be square")
+    if random_method == "SCF":
+        mode = "H"   # SCF forces half rings
     last_ring = int(ou) if int(ou) != -1 else nx // 2 - 2
     if yr is None or yr < 0:
         yr = xr
@@ -119,20 +133,35 @@ def ali2d_base(
         raise ValueError(f"--center={int(center)} is not supported "
                          "(reference-documented values: -1, 0, 1)")
     n_rings = len(range(ir, last_ring + 1, rs))
+    if ring_scheme == "eman2" and random_method:
+        raise ValueError("ring_scheme='eman2' supports the standard "
+                         "search only (no SHC/SCF)")
     cfg = AlignConfig(img_dim=nx, ring_num=n_rings, ring_len=256,
-                      first_ring=ir, ring_step=rs,
+                      first_ring=ir, ring_step=rs, ring_scheme=ring_scheme,
                       shift_step=float(ts), shift_rng_x=float(xr),
-                      shift_rng_y=float(yr), mirror=not nomirror)
+                      shift_rng_y=float(yr), mode=mode, mirror=not nomirror)
 
     mask = maskfile if maskfile is not None else model_circle(last_ring, nx)
     mask = np.asarray(mask, np.float32)
-    # subtract each particle's mean under the mask, on the device
+    mask_dev = torch.as_tensor(mask, device=device)
     data = torch.as_tensor(images, dtype=torch.float32, device=device)
-    mean, _sigma = infomask(data, torch.as_tensor(mask, device=device))
+
+    ctf_ctx = None
+    if CTF:
+        if ctf_params is None:
+            raise ValueError("CTF=True requires ctf_params (at least "
+                             "per-particle 'dfu' defocus in A)")
+        ctf_ctx = CtfContext(nx, ctf_params, snr=snr, device=device)
+        data = ctf_ctx.premultiply(data)
+        log.add("CTF premultiplication on, snr=%g" % snr)
+
+    # subtract each particle's mean under the mask, on the device
+    mean, _sigma = infomask(data, mask_dev)
     data = data - mean[:, None, None]
 
     engine = AlignmentEngine(data, cfg, n_classes=1, device=device,
-                             sampler=sampler, update_ref=False, delta=dst)
+                             sampler=sampler, update_ref=False, delta=dst,
+                             random_method=random_method)
     if dst:
         log.add("Discrete angle used         : %d" % int(dst))
 
@@ -153,6 +182,8 @@ def ali2d_base(
             start_it += 1
             engine.set_params(ck_params)
             tavg = tavg_ck[0]
+            if random_method == "SHC" and "previousmax" in extra:
+                engine.set_previousmax(np.asarray(extra["previousmax"]))
             sums = np.asarray(extra["sums"])
             a0 = float(extra["a0"])
             sx_sum = float(extra["sx_sum"])
@@ -175,7 +206,10 @@ def ali2d_base(
             sums = torch.stack([data[0::2].sum(0),
                                 data[1::2].sum(0)])[None].cpu().numpy()
         ave1, ave2 = sums[0, 0], sums[0, 1]
-        tavg = ((ave1 + ave2) / n).astype(np.float32)
+        if ctf_ctx is not None:
+            tavg = ctf_ctx.restore((ave1 + ave2)[None])[0]
+        else:
+            tavg = ((ave1 + ave2) / n).astype(np.float32)
 
         log.add("Iteration #%4d" % total_iter)
         log.add("X range = %5.2f   Y range = %5.2f   Step = %5.2f"
@@ -185,6 +219,17 @@ def ali2d_base(
             write_image(os.path.join(outdir, "aqc.hdf"), tavg, total_iter - 1)
             write_fsc(os.path.join(outdir, "resolution%03d" % total_iter),
                       *frsc)
+
+        # ---- Fourier variance of the aligned stack, with the params that
+        # built these sums; the average is divided by it BEFORE the
+        # criterion
+        if Fourvar:
+            vav, rvar = fourier_variance(data, engine.params, mask=mask_dev)
+            tavg = divide_by_variance(tavg, vav)
+            result.radial_variances.append(rvar)
+            if outdir:
+                write_image(os.path.join(outdir, "varf.hdf"),
+                            variance_map(vav), total_iter - 1)
 
         # ---- stopping criterion on the unfiltered average
         a1 = float(np.sum(tavg * tavg * mask))
@@ -224,6 +269,9 @@ def ali2d_base(
         result.class_counts = out.counts
         sx_sum = out.sx_sum
         sy_sum = out.sy_sum
+        if random_method == "SHC":
+            log.add("SHC: %d / %d particles kept their previous orientation"
+                    % (out.nope, n))
 
         # ---- QC: pixel error / mirror consistency against the old params
         new_tab = params_table(engine.params)
@@ -238,9 +286,12 @@ def ali2d_base(
         log.add("Mirror consistency %6.2f%%, mean pixel error %.4f"
                 % (100.0 * n_cons / n, result.pixel_errors[-1]))
         if outdir:
+            extra = {"sums": sums, "a0": a0,
+                     "sx_sum": sx_sum, "sy_sum": sy_sum}
+            if random_method == "SHC":
+                extra["previousmax"] = engine.previousmax_np()
             save_checkpoint(outdir, it, engine.params_np(), tavg[None],
-                            extra={"sums": sums, "a0": a0,
-                                   "sx_sum": sx_sum, "sy_sum": sy_sum})
+                            extra=extra)
 
     if outdir:
         write_image(os.path.join(outdir, "aqfinal.hdf"), tavg, 0)

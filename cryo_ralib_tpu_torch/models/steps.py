@@ -1,11 +1,18 @@
 """One alignment iteration (PyTorch).
 
-Counterpart of ``cryo_ralib_tpu/models/steps.py::align_step`` on the
-standard path: search every particle against every reference (kernel or
-plain), decode the winners, transform and sum the classes even/odd.  An
-``angle_mask`` (``--dst``) restricts the angle argmax and turns off the
-parabolic refinement.  SHC, SCF, the eman2 ring scheme and mode H are
-not ported yet and raise.
+Counterpart of ``cryo_ralib_tpu/models/steps.py``: ``align_step`` (search
+every particle against every reference, decode the winners, transform
+and sum the classes even/odd; an ``angle_mask`` (``--dst``) restricts
+the angle argmax and turns off the parabolic refinement),
+``align_step_shc`` (stochastic hill climbing) and ``align_step_scf``
+(self-correlation alignment).
+
+Which search runs (``resolve_sampler``): the hand-written CUDA kernel
+takes the standard search on uniform 256-sample rings, full or half
+(mode "F" or "H"); the SHC pick and the eman2 ring scheme have no
+kernel, as the JAX package has no Pallas kernel for them, and run the
+PyTorch search on either device.  Asking for the kernel there raises
+``ValueError``; nothing falls back from the kernel to the plain search.
 """
 
 from __future__ import annotations
@@ -17,8 +24,12 @@ import torch
 from ..config import AlignConfig
 from ..params import AlignParams, gpu_params_to_align2d
 from ..ops.classavg import class_sum_oe
+from ..ops.eman_search import (prepare_ref_spectra_eman,
+                               rotational_shift_search_eman)
 from ..ops.fused_search import fused_search, search_plain
-from ..ops.search import decode_params, prepare_ref_spectra
+from ..ops.scf import scf_align
+from ..ops.search import (decode_params, prepare_ref_spectra,
+                          rotational_shift_search_shc)
 from ..ops.transform import transform_batch
 
 
@@ -42,13 +53,33 @@ def _header_shift_sums(params: AlignParams, valid):
     return (sx * sgn).sum(), sy.sum()
 
 
-def resolve_sampler(sampler: str, device) -> str:
-    """"auto" -> "kernel" for CUDA tensors, "plain" for CPU tensors."""
-    if sampler == "auto":
-        return "kernel" if torch.device(device).type == "cuda" else "plain"
-    if sampler not in ("kernel", "plain"):
+def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
+                    random_method: str = "") -> str:
+    """The search a step runs: "kernel" (the CUDA kernel) or "plain" (the
+    PyTorch search).
+
+    "auto" is the kernel for CUDA tensors and plain for CPU tensors,
+    except where there is no kernel: the SHC pick
+    (``random_method="SHC"``) and the eman2 ring scheme
+    (``cfg.ring_scheme == "eman2"``) run plain on either device.
+    "kernel" asked for there raises ``ValueError``.
+    """
+    if sampler not in ("auto", "kernel", "plain"):
         raise ValueError(f"sampler must be 'auto', 'kernel' or 'plain', "
                          f"not {sampler!r}")
+    no_kernel = None
+    if random_method == "SHC":
+        no_kernel = "random_method='SHC' (the kernel has no SHC pick)"
+    elif cfg is not None and cfg.ring_scheme == "eman2":
+        no_kernel = ("ring_scheme='eman2' (the kernel takes uniform "
+                     "256-sample rings)")
+    if no_kernel is not None:
+        if sampler == "kernel":
+            raise ValueError(f"sampler='kernel' does not support {no_kernel}"
+                             " — use sampler='auto' or 'plain'")
+        return "plain"
+    if sampler == "auto":
+        return "kernel" if torch.device(device).type == "cuda" else "plain"
     return sampler
 
 
@@ -71,25 +102,87 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
         the CPU.
       angle_mask: optional (L,) float32 additive angle mask on the
         device of ``images`` (``delta_angle_mask``).
+
+    ``cfg.ring_scheme == "eman2"`` runs the variable-length Numrinit
+    rings of ``ops/eman_search.py`` (the PyTorch search on either
+    device); ``cfg.mode == "H"`` searches half rings, through the kernel
+    on a CUDA tensor like mode "F".
     """
-    if cfg.ring_scheme != "cuda":
-        raise NotImplementedError("ring_scheme='eman2' is not ported yet")
-    if cfg.mode != "F":
-        raise NotImplementedError("mode 'H' (half rings) is not ported yet")
-    sampler = resolve_sampler(sampler, images.device)
-    ref_fw = prepare_ref_spectra(refs, cfg)
-    if sampler == "kernel":
-        result = fused_search(images, ref_fw, params, cfg,
-                              angle_mask=angle_mask)
+    sampler = resolve_sampler(sampler, images.device, cfg)
+    if cfg.ring_scheme == "eman2":
+        result = rotational_shift_search_eman(
+            images, prepare_ref_spectra_eman(refs, cfg), params, cfg,
+            angle_mask=angle_mask)
     else:
-        result = search_plain(images, ref_fw, params, cfg,
-                              angle_mask=angle_mask)
+        ref_fw = prepare_ref_spectra(refs, cfg)
+        search = fused_search if sampler == "kernel" else search_plain
+        result = search(images, ref_fw, params, cfg, angle_mask=angle_mask)
     new_params = decode_params(result, params, cfg, update_ref=update_ref,
                                refine=angle_mask is None)
+    return _finish_step(images, new_params, result.best_val, global_index,
+                        valid, n_classes)
+
+
+def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
+                 n_classes: int) -> StepOutput:
+    """Transform by the new params, sum the classes even/odd, and the
+    centering sums: the end of every kind of step."""
     transformed = transform_batch(images, new_params)
     sums, counts = class_sum_oe(transformed, new_params.ref_id, n_classes,
                                 global_index=global_index, valid=valid)
     sx_sum, sy_sum = _header_shift_sums(new_params, valid)
-    peak = (torch.where(valid > 0, result.best_val, 0.0)
-            if valid is not None else result.best_val)
+    if valid is not None:
+        peak = torch.where(valid > 0, peak, 0.0)
     return StepOutput(new_params, sums, counts, peak, sx_sum, sy_sum)
+
+
+class ShcStepOutput(NamedTuple):
+    step: StepOutput
+    previousmax: torch.Tensor  # (N,) each particle's best ccf so far
+    nope: torch.Tensor         # () int count of particles that kept theirs
+
+
+def align_step_shc(images, refs, params: AlignParams, global_index, valid,
+                   previousmax, cfg: AlignConfig, *, n_classes: int,
+                   sampler: str = "auto") -> ShcStepOutput:
+    """One SHC (stochastic hill climbing) iteration,
+    ``random_method="SHC"``: each particle takes the first candidate
+    above its ``previousmax`` rather than the global argmax; a particle
+    with none keeps its params and its ``previousmax`` and counts in
+    ``nope``.  The search is the PyTorch one on either device
+    (``resolve_sampler``); ``sampler="kernel"`` raises ``ValueError``.
+    """
+    if cfg.ring_scheme != "cuda":
+        raise ValueError("random_method='SHC' runs the standard ring "
+                         "scheme only (ring_scheme='cuda')")
+    resolve_sampler(sampler, images.device, cfg, random_method="SHC")
+    ref_fw = prepare_ref_spectra(refs, cfg)
+    result, found = rotational_shift_search_shc(images, ref_fw, params, cfg,
+                                                previousmax)
+    decoded = decode_params(result, params, cfg, update_ref=True)
+    new_params = AlignParams(*[torch.where(found, new, old)
+                               for new, old in zip(decoded, params)])
+    new_prevmax = torch.where(found, result.best_val, previousmax)
+    step = _finish_step(images, new_params, new_prevmax, global_index, valid,
+                        n_classes)
+    missed = ~found if valid is None else (~found) & (valid > 0)
+    return ShcStepOutput(step, new_prevmax, missed.sum())
+
+
+def align_step_scf(images, refs, params: AlignParams, global_index, valid,
+                   cfg: AlignConfig, *, n_classes: int,
+                   sampler: str = "auto") -> StepOutput:
+    """One SCF (self-correlation) iteration, ``random_method="SCF"``:
+    rotation from the shift-invariant scf ring spectra, translation from
+    one cross-correlation map per 180-degree candidate
+    (``ops/scf.py::scf_align``).  SCF aligns absolutely: ``params`` is not
+    composed in.  The rotation stage is a standard K=1 search at zero
+    shift, so on a CUDA tensor it launches the kernel.
+    """
+    if cfg.ring_scheme != "cuda":
+        raise ValueError("random_method='SCF' runs the standard ring "
+                         "scheme only (ring_scheme='cuda')")
+    new_params, peak = scf_align(
+        images, refs[0], cfg, sampler=resolve_sampler(sampler, images.device))
+    return _finish_step(images, new_params, peak, global_index, valid,
+                        n_classes)

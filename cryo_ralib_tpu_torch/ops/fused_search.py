@@ -24,7 +24,10 @@ at :129 with static flags), each with its own launch counter in
 Any K runs in one launch, counted under its variant: the kernel's
 ref-group loop replaces the ``fold=True`` finalize and the ref-axis
 chunks (:356-424, :752-781, ``_merge_chunk`` :791).  Rings are
-``ring_len=256`` uniform rings.
+``ring_len=256`` uniform rings, full (mode "F") or half (mode "H"): the
+kernel reads its sample angles from ``polar_tables``, which span pi at
+mode H, where the TPU kernel gates itself off for its half-plane window
+(:676-679).
 
 ``fused_search_stage`` launches the TPU kernel's ablation stages
 (``stage`` in {no_ccf, sample_only, no_yred}, :221-233, :329-348) for

@@ -1,0 +1,129 @@
+"""SCF (self-correlation) alignment, ``random_method="SCF"`` (PyTorch).
+
+Counterpart of ``cryo_ralib_tpu/ops/scf.py``.  Rotation is found on the
+*self-correlation function* of each image, which does not move with a
+translation, so it decouples from the shift search; the translation then
+comes from one 2-D cross-correlation per rotation candidate.  The JAX
+package does its transforms as matmul DFTs (a TPU workaround); here they
+are ``torch.fft.rfft2`` / ``irfft2``.
+
+* scf: ``irfft2(|rfft2(img)|)``, rolled so that the (always largest) DC
+  peak sits at the centre.
+* rotation: the standard search at a zero-shift config (S=1, K=1, half
+  rings) on the scf images, so the decode conventions (mode-H bin step,
+  mirror + 180) are the main search's.  On a CUDA tensor this is one
+  launch of the hand-written kernel, on the CPU the plain search.
+* translation: the scf is centrosymmetric, which leaves a 180-degree
+  ambiguity, so each particle scores two candidate angles.  The
+  *reference* is inverse-transformed once per candidate and the whole
+  shift window comes out of one cross-correlation map:
+
+      score(s) = sum_z invref(z) * img(z + s),
+      invref   = transform(ref, angle if mirror else -angle, mirror).
+
+  Shifts are integers; the first maximum in the order
+  [candidate][sy][sx] wins.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import AlignConfig
+from ..params import AlignParams
+from .fused_search import fused_search, search_plain
+from .search import SearchResult, decode_params, prepare_ref_spectra
+from .transform import transform_batch
+
+
+def scf_batch(images):
+    """Centred self-correlation of a real image batch (N, H, W): the
+    inverse transform of the Fourier amplitude, rolled by half the box."""
+    h, w = images.shape[-2:]
+    s = torch.fft.irfft2(torch.fft.rfft2(images).abs(), s=(h, w))
+    return torch.roll(s, (h // 2, w // 2), dims=(-2, -1))
+
+
+def _zero_shift_cfg(cfg: AlignConfig) -> AlignConfig:
+    return dataclasses.replace(cfg, shift_rng_x=0.0, shift_rng_y=0.0)
+
+
+def scf_align(images, ref, cfg: AlignConfig, sampler: str = "plain"):
+    """SCF alignment of a batch against one reference.
+
+    Args:
+      images: (N, H, W) particles.  ref: (H, W) current average.
+      cfg: AlignConfig with mode="H" (``ali2d_base`` forces it); its
+        shift ranges give the integer translation window.
+      sampler: the rotation stage's search, "kernel" (CUDA tensors) or
+        "plain".
+    Returns:
+      (AlignParams, peak (N,)): ref_id 0, shifts clamped to
+      ``cfg.shift_limit`` like the standard decode.
+    """
+    if cfg.mode != "H":
+        raise ValueError("SCF requires mode='H' half rings")
+    n, h, w = images.shape
+    dev = images.device
+    cfg0 = _zero_shift_cfg(cfg)
+    zeros = AlignParams.zeros(n, dev)
+
+    # ---- stage 1: rotation (+ mirror) from the scf ring spectra
+    sci = scf_batch(images).contiguous()
+    ref_fw = prepare_ref_spectra(scf_batch(ref[None]), cfg0)
+    search = fused_search if sampler == "kernel" else search_plain
+    res = search(sci, ref_fw, zeros, cfg0)
+    dec = decode_params(res, zeros, cfg0, update_ref=False)
+    ang = dec.angle % 360.0
+    mirror = dec.mirror
+
+    # ---- stage 2: translation, one ccf map per 180-degree candidate
+    img_f = torch.fft.rfft2(images)
+    xr = int(round(cfg.shift_rng_x))
+    yr = int(round(cfg.shift_rng_y))
+    wy, wx = 2 * yr + 1, 2 * xr + 1
+    ref_b = ref[None].expand(n, h, w)
+    zeros_f = torch.zeros(n, dtype=torch.float32, device=dev)
+
+    cands, wins = [], []
+    for k in range(2):
+        cand = (ang + 180.0 * k) % 360.0
+        inv = AlignParams(torch.where(mirror == 1, cand, -cand), zeros_f,
+                          zeros_f, mirror, zeros.ref_id)
+        invref = transform_batch(ref_b, inv)
+        # score(s) = sum_z invref(z) img(z + s) = irfft2(conj(IR) * I)(s)
+        cc = torch.fft.irfft2(torch.fft.rfft2(invref).conj() * img_f,
+                              s=(h, w))
+        # entry s lives at (s mod h): one roll puts the window
+        # [-yr..yr] x [-xr..xr] at the top-left corner
+        wins.append(torch.roll(cc, (yr, xr), dims=(-2, -1))[:, :wy, :wx])
+        cands.append(cand)
+
+    flat = torch.stack(wins, dim=1).reshape(n, -1)     # [cand][sy][sx]
+    peak, idx = torch.max(flat, dim=1)                 # first maximum
+    xi = idx % wx
+    rest = idx // wx
+    yi = rest % wy
+    ci = rest // wy
+
+    limit = cfg.shift_limit
+    params = AlignParams(
+        angle=torch.where(ci == 1, cands[1], cands[0]).float(),
+        shift_x=(xi - xr).float().clamp(-limit, limit),
+        shift_y=(yi - yr).float().clamp(-limit, limit),
+        mirror=mirror, ref_id=zeros.ref_id)
+    return params, peak
+
+
+def scf_search_result(params: AlignParams, peak, ring_len: int):
+    """SCF output as a SearchResult-shaped record (diagnostics)."""
+    n = params.angle.shape[0]
+    dev = params.angle.device
+    zeros_i = torch.zeros(n, dtype=torch.int32, device=dev)
+    return SearchResult(
+        best_val=peak,
+        best_row=torch.zeros((n, ring_len), dtype=torch.float32, device=dev),
+        best_aidx=zeros_i, best_sidx=zeros_i, best_ref=params.ref_id,
+        best_mirror=params.mirror)

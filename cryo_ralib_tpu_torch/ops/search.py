@@ -2,7 +2,8 @@
 
 Counterpart of ``cryo_ralib_tpu/ops/search.py``: reference spectra, the
 plain search (``rotational_shift_search``, the f32 twin of the
-hand-written kernel in ``ops/fused_search.py``), the ``--dst``
+hand-written kernel in ``ops/fused_search.py``), its stochastic
+hill-climbing variant (``rotational_shift_search_shc``), the ``--dst``
 discrete-angle mask and ``decode_params``.
 
 The search keeps a running per-particle best over chunks of the shift
@@ -123,14 +124,7 @@ def rotational_shift_search(images, ref_fw, params: AlignParams,
         angle_mask = torch.as_tensor(angle_mask, dtype=torch.float32,
                                      device=dev)
 
-    def zeros_i():
-        return torch.zeros(n, dtype=torch.int32, device=dev)
-
-    best = SearchResult(
-        best_val=torch.full((n,), _NEG_INF, dtype=torch.float32, device=dev),
-        best_row=torch.zeros((n, ring_len), dtype=torch.float32, device=dev),
-        best_aidx=zeros_i(), best_sidx=zeros_i(), best_ref=zeros_i(),
-        best_mirror=zeros_i())
+    best = empty_result(n, ring_len, dev)
     for s0 in range(0, s_total, chunk):
         grid = shifts[s0:s0 + chunk]
         sx = params.shift_x[:, None] + grid[None, :, 0]
@@ -144,11 +138,27 @@ def rotational_shift_search(images, ref_fw, params: AlignParams,
     return best
 
 
-def _update_best(best: SearchResult, rows, s0: int, s_total: int,
+def empty_result(n: int, ring_len: int, device) -> SearchResult:
+    """The running best before any chunk: value -3e38, everything else 0."""
+    def zeros_i():
+        return torch.zeros(n, dtype=torch.int32, device=device)
+
+    return SearchResult(
+        best_val=torch.full((n,), _NEG_INF, dtype=torch.float32,
+                            device=device),
+        best_row=torch.zeros((n, ring_len), dtype=torch.float32,
+                             device=device),
+        best_aidx=zeros_i(), best_sidx=zeros_i(), best_ref=zeros_i(),
+        best_mirror=zeros_i())
+
+
+def _update_best(best: SearchResult, rows, s0, s_total: int,
                  n_refs: int) -> SearchResult:
-    """Fold one chunk of ccf rows (N, M, C, K, L), holding the shifts
-    ``s0 .. s0+C-1``, into the running best by (value, then lower
-    priority index)."""
+    """Fold one chunk of ccf rows (N, M, C, K, L) into the running best
+    by (value, then lower priority index).  ``s0`` is the chunk's first
+    global shift index when its shifts are ``s0 .. s0+C-1``, or a (C,)
+    integer tensor of global shift indices when they are not contiguous
+    (the eman2 search walks the grid by dy)."""
     n, n_mirr, chunk, k, ring_len = rows.shape
     flat = rows.reshape(n, -1)
     val, idx = torch.max(flat, dim=1)   # first maximum on ties
@@ -156,7 +166,10 @@ def _update_best(best: SearchResult, rows, s0: int, s_total: int,
     rest = idx // ring_len
     ridx = (rest % k).int()
     rest = rest // k
-    sidx = (rest % chunk + s0).int()
+    if torch.is_tensor(s0):
+        sidx = s0[rest % chunk].int()
+    else:
+        sidx = (rest % chunk + s0).int()
     midx = (rest // chunk).int()
     row = torch.gather(rows.reshape(n, -1, ring_len), 1,
                        (idx // ring_len)[:, None, None].expand(n, 1, ring_len)
@@ -174,6 +187,104 @@ def _update_best(best: SearchResult, rows, s0: int, s_total: int,
         best_ref=torch.where(better, ridx, best.best_ref),
         best_mirror=torch.where(better, midx, best.best_mirror),
     )
+
+
+_SHC_BIG = 2**31 - 1
+PREVIOUSMAX_INIT = 1.0e-23   # every particle's first ``previousmax``
+
+# Polar samples one pass of a PyTorch search may hold at once.  The
+# bilinear gather keeps ~100 bytes of coordinates, int64 indices and
+# corner values alive per sample, so 160 M samples is ~16 GB: one shift
+# of 16384 particles at 36 rings x 256 angles.
+PLAIN_SAMPLE_BUDGET = 160 * 2**20
+
+
+def plain_shift_chunk(n: int, cfg: AlignConfig) -> int:
+    """The most shifts (up to 8) whose polar samples for ``n`` particles
+    stay inside ``PLAIN_SAMPLE_BUDGET``, at least 1."""
+    per_shift = max(1, n * cfg.ring_num * cfg.ring_len)
+    return max(1, min(8, cfg.n_shifts, PLAIN_SAMPLE_BUDGET // per_shift))
+
+
+def _shc_fold(carry, rows, global_sidx, s_total: int, previousmax):
+    """Fold one chunk of ccf rows into the running SHC pick.
+
+    ``rows``: (N, M, C, K, L); ``global_sidx``: (C,) global shift-grid
+    indices of the chunk's candidates.  The SHC rule keeps the candidate
+    of MINIMUM global priority ``(m * S + sidx) * K + k`` whose peak over
+    angles is strictly above ``previousmax``, so the fold is a running
+    min and the chunks may come in any order.  ``carry`` is
+    ``(SearchResult, best_prio (N,) int64)``.
+    """
+    best, best_prio = carry
+    n, n_mirr, chunk, k_dim, ring_len = rows.shape
+    dev = rows.device
+    rmax = rows.amax(dim=-1)                                   # (N, M, C, K)
+    m_i = torch.arange(n_mirr, device=dev)[:, None, None]
+    c_g = global_sidx.long()[None, :, None]
+    k_i = torch.arange(k_dim, device=dev)[None, None, :]
+    prio = (m_i * s_total + c_g) * k_dim + k_i                 # (M, C, K)
+
+    passing = rmax > previousmax[:, None, None, None]
+    flatp = torch.where(passing, prio[None], _SHC_BIG).reshape(n, -1)
+    minp, idx = torch.min(flatp, dim=1)
+    val = torch.gather(rmax.reshape(n, -1), 1, idx[:, None])[:, 0]
+    row = torch.gather(rows.reshape(n, -1, ring_len), 1,
+                       idx[:, None, None].expand(n, 1, ring_len))[:, 0]
+    aidx = torch.argmax(row, dim=-1).int()
+
+    # the priority is global, so it decodes without the chunk
+    ridx = (minp % k_dim).int()
+    rest = minp // k_dim
+    sidx = (rest % s_total).int()
+    midx = (rest // s_total).int()
+
+    better = minp < best_prio
+    new_best = SearchResult(
+        best_val=torch.where(better, val, best.best_val),
+        best_row=torch.where(better[:, None], row, best.best_row),
+        best_aidx=torch.where(better, aidx, best.best_aidx),
+        best_sidx=torch.where(better, sidx, best.best_sidx),
+        best_ref=torch.where(better, ridx, best.best_ref),
+        best_mirror=torch.where(better, midx, best.best_mirror))
+    return new_best, torch.minimum(minp, best_prio)
+
+
+def rotational_shift_search_shc(images, ref_fw, params: AlignParams,
+                                cfg: AlignConfig, previousmax,
+                                shift_chunk: int | None = None):
+    """Stochastic-hill-climbing (SHC) variant of the search
+    (``random_method="SHC"``).
+
+    Instead of the global argmax, each particle takes the FIRST candidate
+    in the priority order (mirror, shift, ref) whose angle-row peak is
+    strictly above its ``previousmax`` (N,), with that row's angle
+    argmax.  The order is fixed, not random, so runs reproduce.
+    ``shift_chunk`` is a memory knob only (None: ``plain_shift_chunk``).
+
+    Returns ``(SearchResult, found)``; ``found`` is an (N,) bool mask.  A
+    particle with no such candidate has zero-filled result fields, and
+    the caller keeps its params and its ``previousmax``.
+    """
+    n = images.shape[0]
+    dev = images.device
+    tables = search_tables(cfg, dev)
+    s_total = tables.shifts.shape[0]
+    chunk = (plain_shift_chunk(n, cfg) if shift_chunk is None
+             else max(1, min(shift_chunk, s_total)))
+    carry = (empty_result(n, cfg.ring_len, dev),
+             torch.full((n,), _SHC_BIG, dtype=torch.int64, device=dev))
+    for s0 in range(0, s_total, chunk):
+        grid = tables.shifts[s0:s0 + chunk]
+        sx = params.shift_x[:, None] + grid[None, :, 0]
+        sy = params.shift_y[:, None] + grid[None, :, 1]
+        polar = polar_resample(images, tables.polar_coords, sx, sy)
+        orig_f, mirr_f = ccf_spectra(ring_spectra(polar), ref_fw)
+        rows = ccf_rows(orig_f, mirr_f if cfg.mirror else None, cfg.ring_len)
+        gs = torch.arange(s0, s0 + grid.shape[0], device=dev)
+        carry = _shc_fold(carry, rows, gs, s_total, previousmax)
+    result, best_prio = carry
+    return result, best_prio < _SHC_BIG
 
 
 def decode_params(result: SearchResult, params: AlignParams,

@@ -6,7 +6,12 @@ The port's CLI runs with ``main(argv, device="cpu")`` and
 ``--sampler=gather`` (its plain search); the JAX CLI with
 ``--sampler=gather --devices=1``.  Tolerances: ``.hdf`` images within
 1e-4 of their largest value with equal headers, text tables within 1e-3
-(as tests/test_torch_mref.py); the logs' content is not compared.
+(as tests/test_torch_mref.py); the logs' content is not compared.  Under
+``--CTF`` the images agree within 1e-3 of their largest value (the two
+packages' f32 CTFs differ by 6e-5, tests/test_torch_ctf.py, and the
+Wiener division carries that into the averages).  ``--Fourvar`` is held
+from a one-iteration start against the JAX CLI with its variance op at
+``engine="exact"`` (tests/test_torch_fourvar.py says why).
 """
 
 import json
@@ -16,7 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-pytest.importorskip("h5py")
+h5py = pytest.importorskip("h5py")
 
 from cryo_ralib_tpu.cli import mref as jax_mref
 from cryo_ralib_tpu.cli import reffree as jax_reffree
@@ -64,18 +69,28 @@ def _positionals(stacks, cli, fmt, outdir):
     return [stacks["stack", fmt]] + refs + [outdir]
 
 
-def _assert_outputs_match(d_port, d_jax):
+def _assert_outputs_match(d_port, d_jax, rel=1e-4, text_atol=1e-3):
     names = set(os.listdir(d_jax))
     assert set(os.listdir(d_port)) == names
     for name in sorted(names - {"logfile.txt"}):
         a, b = os.path.join(d_port, name), os.path.join(d_jax, name)
-        if name.endswith(".hdf"):
+        if name == "varf.hdf":
+            # a resumed run's file has no image 0: compare by key
+            with h5py.File(a, "r") as fa, h5py.File(b, "r") as fb:
+                ga, gb = fa["MDF/images"], fb["MDF/images"]
+                assert sorted(ga) == sorted(gb)
+                for key in gb:
+                    want = gb[key]["image"][()]
+                    np.testing.assert_allclose(
+                        ga[key]["image"][()], want, rtol=0,
+                        atol=rel * np.abs(want).max(), err_msg=name)
+        elif name.endswith(".hdf"):
             got, got_h = jax_read_hdf(a)          # through h5py
             own, own_h = read_own_hdf(a)          # without it
             want, want_h = jax_read_hdf(b)
             assert np.array_equal(own, got) and own_h == got_h, name
             np.testing.assert_allclose(got, want, rtol=0,
-                                       atol=1e-4 * np.abs(want).max(),
+                                       atol=rel * np.abs(want).max(),
                                        err_msg=name)
             assert got_h == want_h, name
         elif name == "checkpoint.npz":
@@ -84,7 +99,7 @@ def _assert_outputs_match(d_port, d_jax):
             for key in ("iteration", "mirror", "ref_id"):
                 np.testing.assert_array_equal(za[key], zb[key])
             np.testing.assert_allclose(za["refs"], zb["refs"], rtol=0,
-                                       atol=1e-4 * np.abs(zb["refs"]).max())
+                                       atol=rel * np.abs(zb["refs"]).max())
         elif name.endswith(".pkl"):
             with open(a, "rb") as fa, open(b, "rb") as fb:
                 assert fa.read() == fb.read(), name
@@ -94,7 +109,7 @@ def _assert_outputs_match(d_port, d_jax):
                 # the zero shell's FSC of a mean-subtracted reffree average
                 # is the sign of two rounding residues (ROADMAP Queue 3)
                 ta[0, 1] = tb[0, 1]
-            np.testing.assert_allclose(ta, tb, atol=1e-3, err_msg=name)
+            np.testing.assert_allclose(ta, tb, atol=text_atol, err_msg=name)
 
 
 ARGV_SPELLINGS = [
@@ -141,6 +156,117 @@ def test_cli_matches_jax(tmp_path, stacks, cli, fmt, extra):
                 + ["--sampler=gather"])
         assert _run(cli, which, argv) == 0
     _assert_outputs_match(dirs["port"], dirs["jax"])
+
+
+STAR_HEAD = ("data_\n\nloop_\n_rlnDefocusU #1\n_rlnDefocusV #2\n"
+             "_rlnDefocusAngle #3\n_rlnVoltage #4\n"
+             "_rlnSphericalAberration #5\n_rlnAmplitudeContrast #6\n"
+             "_rlnDetectorPixelSize #7\n_rlnMagnification #8\n")
+
+
+@pytest.fixture(scope="module")
+def ctf_files(tmp_path_factory):
+    """Per-particle defocus as a RELION STAR file and as a text table."""
+    d = tmp_path_factory.mktemp("ctf")
+    rng = np.random.default_rng(0)
+    dfu = rng.uniform(8000.0, 25000.0, N)
+    dfv = dfu + rng.uniform(-400.0, 400.0, N)
+    ang = rng.uniform(0.0, 180.0, N)
+    star, txt = d / "particles.star", d / "defocus.txt"
+    star.write_text(STAR_HEAD + "".join(
+        f"{u:.3f} {v:.3f} {a:.3f} 200.0 2.0 0.07 5.0 29411.76\n"
+        for u, v, a in zip(dfu, dfv, ang)))
+    np.savetxt(txt, np.stack([dfu, dfv, ang], axis=1))
+    return {"star": str(star), "txt": str(txt)}
+
+
+# the flags this port took last, each against the JAX CLI's files (the
+# eight cases that left ``UNPORTED`` below, case for case, and more)
+NEW_FLAGS = [
+    ("mref", "mrcs", ["--maxit=2", "--CTF", "--ctf_file=star", "--snr=2"]),
+    ("mref", "hdf", ["--maxit=2", "--CTF", "--ctf_file=txt", "--apix=1.7",
+                     "--voltage=200", "--Cs=2.0", "--ac=0.07"]),
+    ("mref", "hdf", ["--maxit=2", "--ring_scheme=eman2"]),
+    ("mref", "mrcs", ["--maxit=2", "--ring_scheme=eman2", "--center=0"]),
+    ("reffree", "hdf", ["--maxit=3", "--CTF", "--ctf_file=star"]),
+    ("reffree", "mrcs", ["--maxit=3", "--random_method=SHC"]),
+    ("reffree", "hdf", ["--maxit=3", "--random_method=SCF"]),
+    ("reffree", "mrcs", ["--maxit=3", "--mode=H"]),
+    ("reffree", "hdf", ["--maxit=3", "--ring_scheme=eman2"]),
+    ("reffree", "mrcs", ["--maxit=11", "--mode=H", "--dst=45",
+                         "--nomirror"]),
+]
+
+
+@pytest.mark.parametrize("cli,fmt,extra", NEW_FLAGS, ids=[
+    f"{c}{''.join(a[1:3])}" for c, _f, a in NEW_FLAGS])
+def test_cli_new_flags_match_jax(tmp_path, stacks, ctf_files, cli, fmt,
+                                 extra):
+    extra = [f"--ctf_file={ctf_files[a.split('=')[1]]}"
+             if a.startswith("--ctf_file=") else a for a in extra]
+    dirs = {w: str(tmp_path / w) for w in ("port", "jax")}
+    for which, d in dirs.items():
+        argv = (_positionals(stacks, cli, fmt, d) + COMMON + extra
+                + ["--sampler=gather"])
+        assert _run(cli, which, argv) == 0
+    _assert_outputs_match(dirs["port"], dirs["jax"],
+                          rel=1e-3 if "--CTF" in extra else 1e-4)
+
+
+def test_cli_fourvar_matches_jax(tmp_path, stacks, monkeypatch):
+    """``--Fourvar`` resumed after one plain iteration, so that the
+    variance is taken at real params; the JAX CLI with its variance op at
+    ``engine="exact"`` (the port's one engine).  Images within 1e-3 of
+    their largest value (measured 1.003e-4 on ``aqfinal.hdf``): the
+    division by the variance amplifies rounding where it is small; the
+    params found against that average within 0.05 degree and px
+    (measured 0.013 degree)."""
+    import cryo_ralib_tpu.ops.fourvar as jfourvar
+
+    shear = jfourvar.fourier_variance
+    monkeypatch.setattr(
+        jfourvar, "fourier_variance",
+        lambda data, params, mask=None: shear(data, params, mask=mask,
+                                              engine="exact"))
+    dirs = {w: str(tmp_path / w) for w in ("port", "jax")}
+    for which, d in dirs.items():
+        argv = (_positionals(stacks, "reffree", "hdf", d) + COMMON
+                + ["--sampler=gather"])
+        assert _run("reffree", which, argv + ["--maxit=1"]) == 0
+        assert _run("reffree", which, argv + ["--maxit=2", "--resume",
+                                              "--Fourvar"]) == 0
+    assert "varf.hdf" in os.listdir(dirs["port"])
+    _assert_outputs_match(dirs["port"], dirs["jax"], rel=1e-3,
+                          text_atol=0.05)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--random_method=SHC", "--sampler=fused"], "sampler='kernel'"),
+    (["--ring_scheme=eman2", "--sampler=fused"], "sampler='kernel'"),
+    (["--ring_scheme=eman2", "--random_method=SHC"], "eman2"),
+])
+def test_cli_refused_combinations_raise(tmp_path, stacks, argv, match):
+    """What the JAX package refuses with a ``ValueError`` (the kernel
+    forced where there is none, eman2 with a random method) raises one
+    here too."""
+    with pytest.raises(ValueError, match=match):
+        _run("reffree", "port", _positionals(stacks, "reffree", "mrcs",
+                                             str(tmp_path / "o")) + COMMON
+             + argv)
+
+
+def test_cli_ctf_without_usable_file_exits_2(tmp_path, stacks, capsys):
+    star = tmp_path / "noctf.star"
+    star.write_text("data_\n\nloop_\n_rlnImageName #1\n"
+                    + "".join(f"{i + 1}@a.mrcs\n" for i in range(N)))
+    for extra, text in ((["--CTF"], "--ctf_file"),
+                        (["--CTF", f"--ctf_file={star}"], "_rlnDefocusU")):
+        with pytest.raises(SystemExit) as exc:
+            _run("mref", "port", _positionals(
+                stacks, "mref", "mrcs", str(tmp_path / text.strip("-_")))
+                + COMMON + extra)
+        assert exc.value.code == 2
+        assert text in capsys.readouterr().err
 
 
 def test_cli_maskfile_positional(tmp_path, stacks):
@@ -239,19 +365,11 @@ def test_cli_existing_outdir_exits(tmp_path, stacks, cli):
 
 
 UNPORTED = [
-    ("mref", ["--CTF"], "--CTF"),
-    ("mref", ["--ring_scheme=eman2"], "--ring_scheme"),
     ("mref", ["--sampler=template"], "--sampler"),
     ("mref", ["--sampler=matmul"], "--sampler"),
     ("mref", ["--devices=2"], "--devices"),
     ("mref", ["--gpu_devices=0,1"], "--gpu_devices"),
     ("mref", ["bdb:refs"], "bdb:"),
-    ("reffree", ["--CTF"], "--CTF"),
-    ("reffree", ["--Fourvar"], "--Fourvar"),
-    ("reffree", ["--random_method=SHC"], "--random_method"),
-    ("reffree", ["--random_method=SCF"], "--random_method"),
-    ("reffree", ["--mode=H"], "--mode"),
-    ("reffree", ["--ring_scheme=eman2"], "--ring_scheme"),
     ("reffree", ["--gpu_devices=4"], "--gpu_devices"),
     ("reffree", ["bdb:stack"], "bdb:"),
 ]

@@ -121,6 +121,40 @@ def test_port_imports_neither_jax_nor_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_import_boundary_covers_every_module_and_chip_smoke():
+    """The walk above reaches every module of the package (the modes'
+    modules among them), and no source file of the package, nor
+    ``chip_smoke.py``, names ``jax`` or ``cryo_ralib_tpu`` in an import,
+    a lazy one inside a function included."""
+    import ast
+    import pathlib
+    import pkgutil
+
+    import cryo_ralib_tpu_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")}
+    assert {"cryo_ralib_tpu_torch.ops.scf",
+            "cryo_ralib_tpu_torch.ops.eman_search",
+            "cryo_ralib_tpu_torch.ops.ctf_ops",
+            "cryo_ralib_tpu_torch.ops.fourvar",
+            "cryo_ralib_tpu_torch.io.star"} <= names
+    root = pathlib.Path(pkg.__file__).parent
+    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    assert len(files) > len(names)
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            bad = [m for m in mods
+                   if m.split(".")[0] in ("jax", "jaxlib", "cryo_ralib_tpu")]
+            assert not bad, (path.name, bad)
+
+
 def test_hdf_writers_read_back_by_jax_reader(tmp_path):
     pytest.importorskip("h5py")
     from cryo_ralib_tpu.io.eman_hdf import read_hdf_stack

@@ -7,7 +7,9 @@ Tolerances: ref_id, mirror and the accumulated shifts exactly equal;
 angles within 1e-3 degree (BASELINE.json's parity bar); the average and
 the references within 1e-4 of their largest value (torch.fft against
 JAX's matmul DFTs, both f32, over up to three iterations);
-``filt_tanl_dyn`` within 1e-5 of the image's largest value.
+``filt_tanl_dyn`` within 1e-5 of the image's largest value.  The loops
+call ``align_step``, so they take half rings and the eman2 rings through
+``cfg`` as the JAX loops do; one case each.
 """
 
 import numpy as np
@@ -158,6 +160,52 @@ def test_ref_free_alignment_2d_matches_jax():
     _assert_params_match(AlignParams(*map(torch.as_tensor, got_p)), want_p)
     _assert_images_match(torch.as_tensor(got_avg), want_avg)
     assert got_avg.shape == (NX, NX) and got_p.angle.shape == (N,)
+
+
+@pytest.mark.parametrize("geom", [dict(mode="H"),
+                                  dict(ring_scheme="eman2")],
+                         ids=["mode_h", "eman2"])
+def test_device_loop_modes_match_jax(geom):
+    """Half rings and the eman2 ring scheme through the loop's ``cfg``."""
+    n_iter = 2
+    _base, imgs = _stack(1, seed=61)
+    cut = np.full(n_iter, 0.25, np.float32)
+    avg0 = imgs.mean(0)
+    kw = dict(GEOM, **geom)
+    want_p, want_avg = jax_loop.make_device_loop(
+        JaxConfig(**kw), n_iter, cut, sampler="gather")(
+        jnp.asarray(imgs), avg0, JaxParams.zeros(N),
+        jnp.arange(N, dtype=jnp.int32), jnp.ones(N, jnp.float32))
+    got_p, got_avg = make_device_loop(
+        AlignConfig(**kw), n_iter, cut, device="cpu")(
+        torch.as_tensor(imgs), torch.as_tensor(avg0), AlignParams.zeros(N),
+        torch.arange(N), torch.ones(N))
+    _assert_params_match(got_p, want_p)
+    _assert_images_match(got_avg, want_avg)
+
+
+def test_ref_free_loop_mirror_flags_match_jax_at_128_particles():
+    """A mirrored stack of 128 noisy particles, 8 iterations: the port's
+    loop and the JAX loop (``sampler="gather"``) give the same mirror
+    flag for every particle and params within 1e-3.  At 12 particles a
+    fault in the loop's mirror handling could hide; at this size it
+    cannot.  How many flags match the truth is the loop's own business
+    (a fixed cutoff, no centering) and the same in both packages."""
+    from cryo_ralib_tpu_torch.utils.synthetic import scattered_stack as mk
+
+    tmpl = asymmetric_templates(1, 32)
+    imgs, _, _, _, truth = mk(tmpl, 128, max_shift=2, noise=1.0, seed=12,
+                              mirror=True)
+    imgs = np.asarray(imgs, np.float32)
+    assert 32 < truth.sum() < 96
+    kw = dict(n_iter=8, ou=12, xr=2, ts=1, cutoff=0.25)
+    want_p, want_avg = jax_loop.ref_free_alignment_2d(imgs, sampler="gather",
+                                                      **kw)
+    got_p, got_avg = ref_free_alignment_2d(imgs, device="cpu", **kw)
+    np.testing.assert_array_equal(got_p.mirror, np.asarray(want_p.mirror))
+    assert 0 < got_p.mirror.sum() < 128
+    _assert_params_match(AlignParams(*map(torch.as_tensor, got_p)), want_p)
+    _assert_images_match(torch.as_tensor(got_avg), want_avg)
 
 
 def test_loops_default_to_cuda(monkeypatch):

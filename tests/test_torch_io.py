@@ -262,3 +262,93 @@ def test_mrc_lazy_image_matches_jax(tmp_path):
         want = jax_mrc.LazyImage(path, (8, 8), np.float32, off).get()
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got, data[i])
+
+
+# ---- io/star.py: a numpy-only copy of the JAX package's module
+
+STAR_TEXT = (
+    "# Created by a test\n\ndata_\n\nloop_\n_rlnImageName #1\n"
+    "_rlnDefocusU #2\n_rlnDefocusV #3\n_rlnDefocusAngle #4\n_rlnVoltage #5\n"
+    "_rlnSphericalAberration #6\n_rlnAmplitudeContrast #7\n"
+    "_rlnPhaseShift #8\n_rlnDetectorPixelSize #9\n_rlnMagnification #10\n"
+    "1@stack.mrcs 12000.0 11800.0 35.0 200.0 2.0 0.07 10.0 5.0 29411.76\n"
+    "3@stack.mrcs 15000.0 15100.0 80.0 200.0 2.0 0.07 45.0 5.0 29411.76\n"
+    "2@stack.mrcs 9000.0 9100.0 5.0 200.0 2.0 0.07 0.0 5.0 29411.76\n")
+STAR_31 = ("data_optics\n\nloop_\n_rlnOpticsGroup #1\n1\n\n"
+           "data_particles\n\nloop_\n_rlnDefocusU #1\n_rlnDefocusV #2\n"
+           "12000.0 11000.0\n13000.0 12500.0\n")
+
+
+def _star_modules():
+    from cryo_ralib_tpu.io import star as jax_star
+    from cryo_ralib_tpu_torch.io import star as port_star
+    return port_star, jax_star
+
+
+@pytest.mark.parametrize("text,relion31", [(STAR_TEXT, False),
+                                           (STAR_31, True)])
+def test_starfile_load_equals_jax(tmp_path, text, relion31):
+    port_star, jax_star = _star_modules()
+    path = tmp_path / "p.star"
+    path.write_text(text)
+    got = port_star.Starfile.load(str(path), relion31=relion31)
+    want = jax_star.Starfile.load(str(path), relion31=relion31)
+    assert got.headers == want.headers and len(got.df) == len(want.df)
+    for h in want.headers:
+        assert list(got.df[h]) == list(want.df[h])
+    assert got.df.row(1) == want.df.row(1)
+    empty = tmp_path / "empty.star"
+    empty.write_text("# nothing\n")
+    for load in (port_star.Starfile.load, jax_star.Starfile.load):
+        with pytest.raises(ValueError, match="no data_"):
+            load(str(empty))
+
+
+@pytest.mark.parametrize("angpix", [None, 1.25])
+def test_parse_ctf_star_equals_jax(tmp_path, angpix):
+    port_star, jax_star = _star_modules()
+    path = tmp_path / "p.star"
+    path.write_text(STAR_TEXT)
+    got = port_star.parse_ctf_star(port_star.Starfile.load(str(path)).df,
+                                   d=48, angpix=angpix)
+    want = jax_star.parse_ctf_star(jax_star.Starfile.load(str(path)).df,
+                                   d=48, angpix=angpix)
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (3, 9) and got[1, 2] == 15000.0
+    assert got[0, 1] == (angpix or 5.0 * 10000 / 29411.76)
+
+
+def test_starfile_write_and_particles_equal_jax(tmp_path):
+    """A written STAR file loads back; ``get_particles`` reads the images
+    the rows name (``index@stack.mrcs``, 1-based) like the JAX reader."""
+    port_star, jax_star = _star_modules()
+    imgs = _images(3, 8, 8)
+    port_mrc.write_mrc(str(tmp_path / "stack.mrcs"), imgs)
+    src = tmp_path / "p.star"
+    src.write_text(STAR_TEXT)
+    star = port_star.Starfile.load(str(src))
+    out = tmp_path / "w.star"
+    star.write(str(out))
+    back = jax_star.Starfile.load(str(out))
+    assert back.headers == star.headers
+    assert list(back.df["_rlnDefocusU"]) == list(star.df["_rlnDefocusU"])
+    got = port_star.Starfile.load(str(out)).get_particles(
+        datadir=str(tmp_path), lazy=False)
+    want = back.get_particles(datadir=str(tmp_path), lazy=False)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, imgs[[0, 2, 1]])
+
+
+def test_params_table_and_text_rows_equal_jax(tmp_path):
+    port_star, jax_star = _star_modules()
+    rows = np.array([[0, 10.5, -1.0, 2.0, 1, 3], [1, 359.9, 0.25, 0.0, 0, 0]])
+    a, b = str(tmp_path / "a.txt"), str(tmp_path / "b.txt")
+    port_star.write_text_row(rows, a)
+    jax_star.write_text_row(rows, b)
+    with open(a) as fa, open(b) as fb:
+        assert fa.read() == fb.read()
+    got, want = port_star.read_params_table(a), jax_star.read_params_table(a)
+    assert got.headers == want.headers == port_star.PARAMS_HEADERS
+    for h in want.headers:
+        np.testing.assert_array_equal(got[h], want[h])
+    assert "class" in got and len(got) == 2

@@ -365,3 +365,141 @@ def test_kernel_empty_stack_counts_no_launch(cuda_device):
     assert fs.fused_search_stage.launches == stages
     for got in outs:
         assert got.best_val.shape == (0,) and got.best_row.shape == (0, 256)
+
+
+# ---- the kernel on half rings (mode "H"), on CTF-filtered images, and
+# as the rotation stage of SCF
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mirror", [True, False], ids=["mirror", "nomirror"])
+@pytest.mark.parametrize("delta", [0.0, 15.0], ids=["unmasked", "dst15"])
+@pytest.mark.parametrize("geom", [(90, 36, 3.0, 8), (90, 36, 3.0, 1),
+                                  (90, 36, 0.0, 1), (160, 48, 2.0, 4)],
+                         ids=str)
+def test_kernel_mode_h_matches_plain(cuda_device, geom, delta, mirror):
+    """Half rings: the kernel reads its angles from the same tables as the
+    plain search, which span pi at mode H, so every variant (K=8, K=1,
+    one shift, masked with the 180-degree ``--dst`` mask, no mirror)
+    gives the plain version's winners and the mode-H decode."""
+    nx, rings, xr, k = geom
+    cfg = AlignConfig(img_dim=nx, ring_num=rings, shift_step=1.0,
+                      shift_rng_x=xr, shift_rng_y=xr, mirror=mirror, mode="H")
+    tmpl = asymmetric_templates(k, nx)
+    n = 64
+    imgs = scattered_stack(tmpl, n, max_shift=1, noise=0.1, seed=6,
+                           device=cuda_device, mirror=mirror)[0].contiguous()
+    params = _params(n, cuda_device, seed=8)
+    rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
+                                                     device=cuda_device), cfg)
+    mask = (torch.as_tensor(delta_angle_mask(256, delta, "H"),
+                            device=cuda_device) if delta else None)
+    key = fs.variant(cfg, mask is not None)
+    before = fs.fused_search.launches[key]
+    got = fs.fused_search(imgs, rfw, params, cfg, angle_mask=mask)
+    assert fs.fused_search.launches[key] == before + 1
+    want = fs.search_plain(imgs, rfw, params, cfg, angle_mask=mask)
+    allowed = None if mask is None else mask == 0
+    _check(got, want, allowed=allowed)
+    refine = mask is None
+    p_got = decode_params(got, params, cfg, refine=refine)
+    p_want = decode_params(want, params, cfg, refine=refine)
+    for f in ("shift_x", "shift_y", "mirror", "ref_id"):
+        assert torch.equal(getattr(p_got, f), getattr(p_want, f)), f
+    d = (p_got.angle - p_want.angle).abs()
+    assert float(torch.minimum(d, 360.0 - d).max()) < 1e-3
+    # the same stack on full rings picks other bins: the tables matter
+    cfg_f = AlignConfig(img_dim=nx, ring_num=rings, shift_step=1.0,
+                        shift_rng_x=xr, shift_rng_y=xr, mirror=mirror)
+    full = fs.fused_search(imgs, search.prepare_ref_spectra(
+        torch.as_tensor(tmpl, device=cuda_device), cfg_f), params, cfg_f)
+    assert not torch.equal(full.best_aidx, got.best_aidx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 1])
+def test_kernel_on_ctf_filtered_images_matches_plain(cuda_device, k):
+    """The search kernel is unchanged under ``--CTF``: it sees particles
+    premultiplied by their CTFs (oscillating, zero-mean spectra)."""
+    from cryo_ralib_tpu_torch.ops.ctf_ops import CtfContext
+
+    nx, n = 90, 64
+    cfg = AlignConfig(img_dim=nx, ring_num=36, shift_step=1.0,
+                      shift_rng_x=3.0, shift_rng_y=3.0)
+    tmpl = asymmetric_templates(k, nx)
+    imgs = scattered_stack(tmpl, n, max_shift=1, noise=0.1, seed=9,
+                           device=cuda_device)[0]
+    rng = np.random.default_rng(0)
+    ctx = CtfContext(nx, dict(dfu=rng.uniform(8000.0, 25000.0, n), apix=1.7,
+                              voltage=200.0), device=cuda_device)
+    # once for the microscope (particles seen through their CTFs), once
+    # for the premultiplication ``--CTF`` does
+    filtered = ctx.premultiply(ctx.premultiply(imgs)).contiguous()
+    assert filtered.device.type == "cuda"
+    assert not torch.allclose(filtered, imgs, atol=1e-2)
+    params = _params(n, cuda_device, seed=10)
+    rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
+                                                     device=cuda_device), cfg)
+    got = fs.fused_search(filtered, rfw, params, cfg)
+    _check(got, fs.search_plain(filtered, rfw, params, cfg))
+
+
+@pytest.mark.cuda
+def test_scf_align_kernel_matches_plain(cuda_device):
+    """SCF's rotation stage is a K=1, S=1, mode-H search on the scf
+    images: through the kernel (one launch) and through the plain search
+    the alignment agrees (mirrors and integer shifts equal, angles within
+    1e-3 degree where the winning bins agree, which they do here)."""
+    from cryo_ralib_tpu_torch.ops.scf import scf_align
+
+    nx, n = 90, 128
+    cfg = AlignConfig(img_dim=nx, ring_num=36, shift_step=1.0,
+                      shift_rng_x=3.0, shift_rng_y=3.0, mode="H")
+    tmpl = asymmetric_templates(1, nx)
+    imgs = scattered_stack(tmpl, n, max_shift=2, noise=0.1, seed=11,
+                           device=cuda_device)[0].contiguous()
+    ref = torch.as_tensor(tmpl[0], device=cuda_device)
+    before = dict(fs.fused_search.launches)
+    got, peak = scf_align(imgs, ref, cfg, sampler="kernel")
+    assert fs.fused_search.launches["search"] == before["search"] + 1
+    want, want_peak = scf_align(imgs, ref, cfg, sampler="plain")
+    assert fs.fused_search.launches["search"] == before["search"] + 1
+    for f in ("mirror", "shift_x", "shift_y", "ref_id"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    d = (got.angle - want.angle).abs()
+    assert float(torch.minimum(d, 360.0 - d).max()) < 1e-3
+    assert ((peak - want_peak).abs().max()
+            <= 1e-4 * want_peak.abs().max())
+
+
+@pytest.mark.cuda
+def test_steps_without_a_kernel_launch_none(cuda_device):
+    """SHC and the eman2 rings run the PyTorch search on the card (the
+    explicit rule of ``resolve_sampler``): no launch is counted, and
+    forcing the kernel raises."""
+    from cryo_ralib_tpu_torch.models.steps import align_step, align_step_shc
+
+    nx, n, k = 64, 32, 2
+    tmpl = asymmetric_templates(k, nx)
+    imgs = scattered_stack(tmpl, n, max_shift=1, noise=0.1, seed=12,
+                           device=cuda_device)[0].contiguous()
+    refs = torch.as_tensor(tmpl, device=cuda_device)
+    params = AlignParams.zeros(n, cuda_device)
+    gidx = torch.arange(n, device=cuda_device)
+    geom = dict(img_dim=nx, ring_num=24, shift_step=1.0, shift_rng_x=1.0,
+                shift_rng_y=1.0)
+    fs.reset_launches()
+    pm = torch.full((n,), 1.0e-23, device=cuda_device)
+    shc = align_step_shc(imgs, refs, params, gidx, None, pm,
+                         AlignConfig(**geom), n_classes=k)
+    assert int(shc.nope) == 0
+    out = align_step(imgs, refs, params, gidx, None,
+                     AlignConfig(ring_scheme="eman2", **geom), n_classes=k)
+    assert int(out.counts.sum()) == n
+    assert not any(fs.fused_search.launches.values())
+    with pytest.raises(ValueError, match="sampler='kernel'"):
+        align_step_shc(imgs, refs, params, gidx, None, pm,
+                       AlignConfig(**geom), n_classes=k, sampler="kernel")
+    with pytest.raises(ValueError, match="sampler='kernel'"):
+        align_step(imgs, refs, params, gidx, None,
+                   AlignConfig(ring_scheme="eman2", **geom), n_classes=k,
+                   sampler="kernel")

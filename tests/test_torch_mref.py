@@ -31,6 +31,7 @@ from cryo_ralib_tpu.utils.synthetic import (asymmetric_templates,
 from cryo_ralib_tpu_torch.config import AlignConfig
 from cryo_ralib_tpu_torch.models.mref import mref_ali2d
 from cryo_ralib_tpu_torch.models.steps import align_step
+from cryo_ralib_tpu_torch.ops import ctf_ops
 from cryo_ralib_tpu_torch.params import params_from_numpy
 from cryo_ralib_tpu_torch.utils.log import RunLogger
 
@@ -68,6 +69,45 @@ def _assert_results_match(got, want):
                                atol=1e-3)
     assert [list(m) for m in got.members] == [list(m) for m in want.members]
     assert got.iterations == want.iterations == ITERS
+
+
+def _assert_outputs_match(d_port, d_jax, atol=1e-4):
+    """The same output files, the resume checkpoint included; images
+    within ``atol``."""
+    want_files = set(os.listdir(d_jax))
+    assert set(os.listdir(d_port)) == want_files
+    assert {"aqm000.hdf", "aqm001.hdf", "final2Dparams.txt",
+            "checkpoint.npz", "checkpoint_rng.pkl"} <= want_files
+    assert any(name.startswith("drm") for name in want_files)
+    for name in sorted(want_files):
+        a, b = os.path.join(d_port, name), os.path.join(d_jax, name)
+        if name == "checkpoint.npz":
+            za, zb = np.load(a), np.load(b)
+            assert set(za.files) == set(zb.files)
+            for key in ("iteration", "mirror", "ref_id"):
+                np.testing.assert_array_equal(za[key], zb[key])
+            np.testing.assert_allclose(za["refs"], zb["refs"], atol=atol)
+        elif name == "checkpoint_rng.pkl":
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                assert fa.read() == fb.read()
+        elif name.endswith(".hdf"):
+            with h5py.File(a, "r") as fa, h5py.File(b, "r") as fb:
+                ga, gb = fa["MDF/images"], fb["MDF/images"]
+                assert ga.attrs["imageid_max"] == gb.attrs["imageid_max"]
+                for key in gb:
+                    np.testing.assert_allclose(ga[key]["image"][()],
+                                               gb[key]["image"][()],
+                                               atol=atol)
+                    assert dict(ga[key].attrs).keys() == \
+                        dict(gb[key].attrs).keys()
+                    np.testing.assert_array_equal(
+                        ga[key].attrs["EMAN.members"],
+                        gb[key].attrs["EMAN.members"])
+                    assert ga[key].attrs["EMAN.ave_n"] == \
+                        gb[key].attrs["EMAN.ave_n"]
+        elif name != "logfile.txt":
+            np.testing.assert_allclose(np.loadtxt(a), np.loadtxt(b),
+                                       atol=1e-3, err_msg=name)
 
 
 @pytest.mark.parametrize("update_ref", [True, False])
@@ -170,41 +210,63 @@ def test_mref_matches_jax_ref_ali2d_with_outputs(tmp_path):
     _assert_results_match(got, want)
     np.testing.assert_allclose(got.references, want.references, atol=1e-4)
 
-    # the same outputs, the resume checkpoint included
-    want_files = set(os.listdir(d_jax))
-    assert set(os.listdir(d_port)) == want_files
-    assert {"aqm000.hdf", "aqm001.hdf", "drm0000000.txt",
-            "final2Dparams.txt", "checkpoint.npz",
-            "checkpoint_rng.pkl"} <= want_files
-    for name in sorted(want_files):
-        a, b = os.path.join(d_port, name), os.path.join(d_jax, name)
-        if name == "checkpoint.npz":
-            za, zb = np.load(a), np.load(b)
-            assert set(za.files) == set(zb.files)
-            for key in ("iteration", "mirror", "ref_id"):
-                np.testing.assert_array_equal(za[key], zb[key])
-            np.testing.assert_allclose(za["refs"], zb["refs"], atol=1e-4)
-        elif name == "checkpoint_rng.pkl":
-            with open(a, "rb") as fa, open(b, "rb") as fb:
-                assert fa.read() == fb.read()
-        elif name.endswith(".hdf"):
-            with h5py.File(a, "r") as fa, h5py.File(b, "r") as fb:
-                ga, gb = fa["MDF/images"], fb["MDF/images"]
-                assert ga.attrs["imageid_max"] == gb.attrs["imageid_max"]
-                for key in gb:
-                    np.testing.assert_allclose(ga[key]["image"][()],
-                                               gb[key]["image"][()],
-                                               atol=1e-4)
-                    assert dict(ga[key].attrs).keys() == \
-                        dict(gb[key].attrs).keys()
-                    np.testing.assert_array_equal(
-                        ga[key].attrs["EMAN.members"],
-                        gb[key].attrs["EMAN.members"])
-                    assert ga[key].attrs["EMAN.ave_n"] == \
-                        gb[key].attrs["EMAN.ave_n"]
-        else:
-            np.testing.assert_allclose(np.loadtxt(a), np.loadtxt(b),
-                                       atol=1e-3, err_msg=name)
+    _assert_outputs_match(d_port, d_jax)
+    assert "drm0000000.txt" in os.listdir(d_port)
+
+
+def _ctf_params(seed=0):
+    """Per-particle defocus, astigmatism and the microscope's scalars."""
+    rng = np.random.default_rng(seed)
+    dfu = rng.uniform(8000.0, 25000.0, N)
+    return dict(dfu=dfu, dfv=dfu + rng.uniform(-400.0, 400.0, N),
+                dfang=rng.uniform(0.0, 180.0, N), apix=1.7, voltage=200.0,
+                cs=2.0, w=0.07)
+
+
+@pytest.mark.parametrize("case", ["eman2", "ctf", "eman2_ctf"])
+def test_mref_modes_match_jax_with_outputs(tmp_path, case):
+    """``ring_scheme="eman2"`` and ``CTF=True`` (Wiener-restored
+    references) end to end, every output file compared.  Asymmetric
+    templates: the dihedral ``class_templates`` make every mirror flag a
+    near-tie, which the eman2 weights decide by rounding."""
+    base = asymmetric_templates(K, NX)
+    imgs = scattered_stack(base, N, max_shift=1, noise=0.05, seed=43)[0]
+    kw = dict(ou=OU, xr=XR, yr=XR, ts=1, maxit=ITERS, rand_seed=1000)
+    if "eman2" in case:
+        kw["ring_scheme"] = "eman2"
+    atol = 1e-4
+    if "ctf" in case:
+        # particles seen through their CTFs; the two packages' f32 CTFs
+        # agree to 6e-5 (tests/test_torch_ctf.py) and the Wiener division
+        # carries that into the references: 5e-4 (measured 1.2e-4)
+        p = _ctf_params()
+        ctf = ctf_ops.ctf_rfft2(NX, p["apix"], p["dfu"], p["dfv"],
+                                p["dfang"], p["voltage"], p["cs"], p["w"])
+        imgs = ctf_ops.filt_ctf(torch.as_tensor(imgs), ctf).numpy()
+        kw.update(CTF=True, snr=2.0, ctf_params=p)
+        atol = 5e-4
+    d_jax, d_port = str(tmp_path / "jax"), str(tmp_path / "port")
+    want = mref_ali2d_tpu(imgs, base.copy(), outdir=d_jax, sampler="gather",
+                          log=JaxLogger(None, quiet=True), **kw)
+    got = mref_ali2d(imgs, base.copy(), outdir=d_port, device="cpu",
+                     log=RunLogger(None, quiet=True), **kw)
+    _assert_results_match(got, want)
+    np.testing.assert_allclose(got.references, want.references, atol=atol)
+    _assert_outputs_match(d_port, d_jax, atol=atol)
+    plain, _ = _run_both(imgs, base, "ref_ali2d")
+    assert not np.allclose(plain.references, got.references, atol=1e-4)
+    assert (want.class_counts >= 4).all()
+
+
+def test_mref_refuses_the_kernel_for_eman2():
+    base, imgs, _ = _stack()
+    with pytest.raises(ValueError, match="sampler='kernel'"):
+        mref_ali2d(imgs, base, ou=OU, xr=XR, maxit=1, ring_scheme="eman2",
+                   sampler="kernel", device="cpu",
+                   log=RunLogger(None, quiet=True))
+    with pytest.raises(ValueError, match="ctf_params"):
+        mref_ali2d(imgs, base, ou=OU, xr=XR, maxit=1, CTF=True,
+                   device="cpu", log=RunLogger(None, quiet=True))
 
 
 def test_mref_vanished_class_reseeds_like_jax(tmp_path):

@@ -10,6 +10,9 @@ their largest value and the text files within 1e-3 (f32 FFTs against
 f32 matmul DFTs, through the Nelder-Mead tanh fit and the iterations).
 The FSC value of the zero-frequency shell is left out: the stack's
 masked mean is subtracted, so it is the sign of two rounding residues.
+The same bars hold every alignment mode (half rings, SHC, SCF, the eman2
+rings, CTF); ``Fourvar``, where ``ali2d_base_tpu``'s default variance engine
+is another interpolation, is in tests/test_torch_fourvar.py.
 """
 
 import os
@@ -35,7 +38,23 @@ CASES = {
     "dst": dict(maxit=11, dst=90.0, user_func_name="ref_ali2d_no_filter"),
     "center1": dict(maxit=3, center=1),
     "maxit0": dict(maxit=0),
+    "mode_h": dict(maxit=3, mode="H"),
+    "mode_h_dst": dict(maxit=11, dst=45.0, mode="H",
+                       user_func_name="ref_ali2d_no_filter"),
+    "shc": dict(maxit=4, random_method="SHC"),
+    "scf": dict(maxit=3, random_method="SCF"),
+    "eman2": dict(maxit=3, ring_scheme="eman2"),
+    "ctf": dict(maxit=3, CTF=True, snr=2.0),
 }
+
+
+def _ctf_params(seed=0):
+    """Per-particle defocus, astigmatism and the microscope's scalars."""
+    rng = np.random.default_rng(seed)
+    dfu = rng.uniform(8000.0, 25000.0, N)
+    return dict(dfu=dfu, dfv=dfu + rng.uniform(-400.0, 400.0, N),
+                dfang=rng.uniform(0.0, 180.0, N), apix=1.7, voltage=200.0,
+                cs=2.0, w=0.07)
 
 
 def _stack(mirror=True, seed=3):
@@ -108,11 +127,28 @@ def _assert_outputs_match(d_port, d_jax):
 
 @pytest.mark.parametrize("case", CASES)
 def test_reffree_matches_jax(tmp_path, case):
-    kw = CASES[case]
+    kw = dict(CASES[case])
+    if kw.get("CTF"):
+        kw["ctf_params"] = _ctf_params()
     imgs = _stack(mirror=not kw.get("nomirror", False))
     got, want, d_port, d_jax = _run_both(imgs, tmp_path, **kw)
     _assert_results_match(got, want)
     _assert_outputs_match(d_port, d_jax)
+    with open(os.path.join(d_port, "logfile.txt")) as f:
+        log_text = f.read()
+    assert ("SHC:" in log_text) == (case == "shc")
+    assert ("CTF premultiplication on, snr=2" in log_text) == (case == "ctf")
+    if case == "shc":
+        ck = np.load(os.path.join(d_port, "checkpoint.npz"))
+        np.testing.assert_allclose(
+            ck["x_previousmax"],
+            np.load(os.path.join(d_jax, "checkpoint.npz"))["x_previousmax"],
+            rtol=1e-5)
+    if case in ("mode_h", "mode_h_dst"):
+        # half rings: rotations in [0, 180), +180 when mirrored
+        alpha = got.params[:, 0]
+        flipped = got.params[:, 3] == 1
+        assert ((alpha[~flipped] > 179.0) | (alpha[~flipped] < 1e-3)).all()
     if case == "nomirror":
         assert (got.params[:, 3] == 0).all()
     if case == "dst":
