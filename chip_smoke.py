@@ -99,8 +99,25 @@ Phases (any failure raises and the script exits non-zero):
      f. ali2d_base(Fourvar=True), 3 iterations: 3 launches; varf.hdf read
         back by the port's reader holds one finite, non-negative image per
         iteration, radial_variances one (H//2+1,) profile each.
+  11. stacks larger than the card (90 px, K=8, ou=36, xr=yr=3, ts=1):
+     a. one headline align_step (N=16384): its peak device memory
+        (max_memory_allocated) beside the planner's model, which must not
+        be below it nor over twice it, and its time;
+     b. 2^18 particles (8.49 GB): the planner's own pick; the engine on
+        one preprocessed stack resident and streamed in 8 batches of
+        32768 (8 launches per streamed iteration), s/iteration of both,
+        the time to pin the stack and of the 8 uploads alone, and the
+        particles whose first-iteration params differ (at most 1e-4 of
+        them); then mref_ali2d, maxit=2, both ways from the host array:
+        purity >= 0.9, final assignments agreeing on >= 99.99%;
+     c. ali2d_base(random_method="SHC") on reffree A's stack, 2
+        iterations, resident and in batches of 4096: no launch, params
+        and previousmax agreeing on >= 99.9% of particles;
+     d. align_step at ring_len=128 with sampler="auto" on the card: no
+        launch, the plain engine logged, winners equal to the plain
+        search on the CPU; sampler="kernel" raises ValueError.
 Every launch counter is set to 0 just before each main-path run (6, 6b,
-7, 8, 9, 10) and read just after it.  The last lines are the slice's JSON
+7, 8, 9, 10, 11) and read just after it.  The last lines are the slice's JSON
 line (loop rates, stage breakdown, CLI times), the stage ablation's JSON
 line, the card, the kernels' JSON record (with each instantiation's
 registers, spill bytes and shared memory per block) and the run's
@@ -414,10 +431,13 @@ def stage_breakdown(imgs, tmpl, cfg, dev) -> dict:
     from cryo_ralib_tpu_torch.ops.classavg import class_sum_oe
     from cryo_ralib_tpu_torch.ops.search import (decode_params,
                                                  prepare_ref_spectra)
-    from cryo_ralib_tpu_torch.ops.transform import transform_batch
+    from cryo_ralib_tpu_torch.ops.transform import (transform_batch,
+                                                    transform_block)
     from cryo_ralib_tpu_torch.params import AlignParams
 
     n, k = imgs.shape[0], tmpl.shape[0]
+    block = transform_block(*imgs.shape[1:])
+    out = torch.empty_like(imgs)
     refs = torch.as_tensor(tmpl, device=dev)
     params = AlignParams.zeros(n, dev)
     gidx = torch.arange(n, device=dev)
@@ -429,9 +449,16 @@ def stage_breakdown(imgs, tmpl, cfg, dev) -> dict:
         mark("search")
         p = decode_params(res, params, cfg)
         mark("decode_params")
-        t = transform_batch(imgs, p)
+        # by blocks, as _finish_step runs them (there each block's
+        # transform is followed by its class sums)
+        for s in range(0, n, block):
+            sl = slice(s, s + block)
+            out[sl] = transform_batch(imgs[sl], AlignParams(*[f[sl]
+                                                              for f in p]))
         mark("transform_batch")
-        class_sum_oe(t, p.ref_id, k, global_index=gidx)
+        for s in range(0, n, block):
+            sl = slice(s, s + block)
+            class_sum_oe(out[sl], p.ref_id[sl], k, global_index=gidx[sl])
         mark("class_sum_oe")
 
     out = events_ms(stages)
@@ -830,6 +857,290 @@ def modes_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, mir_a,
         seconds, n_fv, card,
         f"; varf.hdf {varf.shape}, criteria "
         f"{[float('%.4g' % c) for c in res.criteria]}")
+    return out
+
+
+N_STREAM = 262144      # 2^18 particles of 90 px: 8.49 GB
+STREAM_BATCH = 32768   # 11b's forced batch: 8 batches
+STEP_MS_PR5 = 97.73    # the headline align_step before the peak cut
+
+
+def mem_available() -> str:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable"):
+                return line.split(":", 1)[1].strip()
+    return "not reported"
+
+
+def big_stack(tmpl, n, dev, seed):
+    """``n`` particles like phase 6's, made on the card by blocks of
+    N_SLICE and gathered into one host array; returns (images, classes)."""
+    from cryo_ralib_tpu_torch.utils.synthetic import scattered_stack
+
+    out = np.empty((n,) + tmpl.shape[1:], np.float32)
+    cls = np.empty(n, np.int64)
+    for i, s in enumerate(range(0, n, N_SLICE)):
+        imgs, c = scattered_stack(tmpl, min(N_SLICE, n - s), max_shift=2,
+                                  noise=1.0, seed=seed + i, device=dev)[:2]
+        out[s:s + len(c)] = imgs.cpu().numpy()
+        cls[s:s + len(c)] = c
+    return out, cls
+
+
+def params_differ(a, b):
+    """(N,) bool: particles whose ref_id or mirror differ, or whose angle
+    or shifts differ by 1e-3 or more (AlignParams of host arrays)."""
+    d = np.abs(a.angle - b.angle)
+    return ((a.ref_id != b.ref_id) | (a.mirror != b.mirror)
+            | (np.minimum(d, 360.0 - d) >= 1e-3)
+            | (np.abs(a.shift_x - b.shift_x) >= 1e-3)
+            | (np.abs(a.shift_y - b.shift_y) >= 1e-3))
+
+
+def streaming_phase(dev, card, main_path, imgs, tmpl, cls, stack_a) -> dict:
+    """Phase 11: the peak cut (11a), a stack of 2^18 particles resident
+    and streamed (11b), SHC streamed (11c) and the kernel's gate (11d)."""
+    import logging
+
+    from cryo_ralib_tpu_torch.config import AlignConfig
+    from cryo_ralib_tpu_torch.models.engine import (AlignmentEngine,
+                                                    host_stack, plan_batch)
+    from cryo_ralib_tpu_torch.models.mref import mref_ali2d
+    from cryo_ralib_tpu_torch.models.reffree import ali2d_base
+    from cryo_ralib_tpu_torch.models.steps import align_step
+    from cryo_ralib_tpu_torch.ops import fused_search as fs
+    from cryo_ralib_tpu_torch.ops.masks import model_circle, normalize_mask
+    from cryo_ralib_tpu_torch.parallel.batching import (device_memory_bytes,
+                                                        step_footprint)
+    from cryo_ralib_tpu_torch.params import AlignParams
+    from cryo_ralib_tpu_torch.utils.log import RunLogger
+    from cryo_ralib_tpu_torch.utils.synthetic import scattered_stack
+
+    out = {"card": card}
+    k, nx = tmpl.shape[0], tmpl.shape[-1]
+    cfg = geometry(HEADLINE)
+    quiet = dict(log=RunLogger(None, quiet=True))
+
+    # ---- 11a. the peak cut: one headline align_step
+    refs = torch.as_tensor(tmpl, device=dev)
+    zeros = AlignParams.zeros(N_SLICE, dev)
+    gidx = torch.arange(N_SLICE, device=dev)
+    align_step(imgs, refs, zeros, gidx, None, cfg, n_classes=k)   # warm-up
+    torch.cuda.synchronize()
+    held = (imgs.nbytes + refs.nbytes + gidx.nbytes
+            + sum(f.nbytes for f in zeros))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    align_step(imgs, refs, zeros, gidx, None, cfg, n_classes=k)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base + held
+    model = step_footprint(N_SLICE, k, cfg).total
+    step_ms = events_ms(lambda mark: (
+        align_step(imgs, refs, zeros, gidx, None, cfg, n_classes=k),
+        mark("align_step")))["align_step"]
+    out["peak_cut"] = {"peak_bytes": peak, "model_bytes": model,
+                       "align_step_ms": step_ms}
+    log(f"11a align_step N={N_SLICE} 90px K={k}: peak "
+        f"{peak / 2**30:.3f} GiB (max_memory_allocated over the step, with "
+        f"its images, refs and params), the planner's model "
+        f"{model / 2**30:.3f} GiB (ratio {model / peak:.3f}); step "
+        f"{step_ms:.2f} ms (CUDA events, mean of 3; {STEP_MS_PR5} ms "
+        f"before the cut)  [{card}]")
+    check(model >= peak, f"11a: the model {model} is below the peak {peak}")
+    check(model <= 2 * peak, f"11a: the model {model} is over twice the "
+          f"peak {peak}")
+
+    # ---- 11b. 2^18 particles: resident, and streamed in 8 batches
+    log(f"11b host memory before the phase: MemAvailable {mem_available()}")
+    big, big_cls = big_stack(tmpl, N_STREAM, dev, seed=100)
+    log(f"11b stack: {big.shape} float32, {big.nbytes / 1e9:.2f} GB on the "
+        f"host; MemAvailable {mem_available()}")
+    budget = device_memory_bytes(dev)
+    picked = plan_batch(N_STREAM, k, cfg, dev, log=log)
+    log(f"11b the planner, unprompted: batch {picked} "
+        f"({'resident' if picked >= N_STREAM else 'streamed'}) of "
+        f"{budget / 2**30:.2f} GiB usable  [{card}]")
+    out["planner_batch"] = picked
+
+    # the engine on one preprocessed stack, both ways: the first
+    # iteration runs the same kernel on the same inputs and refs
+    mask = torch.as_tensor(model_circle(HEADLINE["ou"], nx), device=dev)
+    data = torch.empty(big.shape, dtype=torch.float32, device=dev)
+    for s in range(0, N_STREAM, N_SLICE):
+        data[s:s + N_SLICE] = normalize_mask(
+            torch.as_tensor(big[s:s + N_SLICE], device=dev), mask)
+    refs_n = normalize_mask(refs, mask, no_sigma=True).cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pinned = host_stack(data, pin=True)
+    pin_s = time.perf_counter() - t0
+    buf = torch.empty((STREAM_BATCH,) + big.shape[1:], device=dev)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.cuda.stream(side):
+        for s in range(0, N_STREAM, STREAM_BATCH):
+            buf.copy_(pinned[s:s + STREAM_BATCH], non_blocking=True)
+    side.synchronize()
+    upload_s = time.perf_counter() - t0
+    del buf
+    log(f"11b pinning the {pinned.nbytes / 1e9:.2f} GB stack (from the card): "
+        f"{pin_s:.3f} s; the 8 uploads of {STREAM_BATCH} particles alone, "
+        f"no compute: {upload_s:.4f} s "
+        f"({pinned.nbytes / upload_s / 1e9:.1f} GB/s)  [{card}]")
+
+    runs = {}
+    for name, bs, src in (("resident", None, data),
+                          ("streamed", STREAM_BATCH, pinned)):
+        eng = AlignmentEngine(src, cfg, n_classes=k, device=dev,
+                              batch_size=bs)
+        check(eng.resident == (bs is None), f"11b {name}: resident "
+              f"{eng.resident}")
+        per_it, first = [], None
+        for it in range(2):
+            fs.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.iterate(refs_n)
+            per_it.append(time.perf_counter() - t0)
+            got = fs.fused_search.launches["search"]
+            want = 1 if bs is None else N_STREAM // STREAM_BATCH
+            check(got == want, f"11b engine {name}: {got} launches in an "
+                  f"iteration, not {want}")
+            if it == 0:
+                first = eng.params_np()
+        runs[name] = (first, eng.params_np(), per_it)
+        del eng
+    diff1 = params_differ(runs["resident"][0], runs["streamed"][0])
+    diff2 = params_differ(runs["resident"][1], runs["streamed"][1])
+    s_res, s_str = (float(np.mean(runs[n][2])) for n in ("resident",
+                                                        "streamed"))
+    overhead = s_str - s_res
+    verdict = ("the uploads are hidden behind the compute"
+               if overhead < 0.5 * upload_s else
+               "the overlap is NOT working: streamed costs resident plus "
+               "the upload")
+    log(f"11b engine N={N_STREAM} K={k}: s/iteration resident "
+        f"{runs['resident'][2]} mean {s_res:.4f}, streamed in batches of "
+        f"{STREAM_BATCH} {runs['streamed'][2]} mean {s_str:.4f} "
+        f"({overhead * 1e3:+.1f} ms beside {upload_s * 1e3:.1f} ms of "
+        f"uploads alone: {verdict}); iteration 1 (one preprocessed stack, "
+        f"the same refs, so 0 expected): {int(diff1.sum())} particles "
+        f"differ; after iteration 2: {int(diff2.sum())}  [{card}]")
+    check(diff1.mean() <= 1e-4, f"11b: {int(diff1.sum())} differ after "
+          "iteration 1")
+    out["engine"] = {"n": N_STREAM, "batch": STREAM_BATCH,
+                     "resident_s_per_iteration": s_res,
+                     "streamed_s_per_iteration": s_str,
+                     "pin_s": pin_s, "upload_alone_s": upload_s,
+                     "differ_iteration_1": int(diff1.sum()),
+                     "differ_iteration_2": int(diff2.sum())}
+    del data, pinned
+
+    # the drivers: mref_ali2d, maxit=2, from the host array
+    res = {}
+    for name, bs, expect in (("resident", None, 2),
+                             ("streamed", STREAM_BATCH,
+                              2 * N_STREAM // STREAM_BATCH)):
+        lines = ListLogger()
+        res[name], seconds = main_path(f"mref N={N_STREAM} {name}",
+                                       lambda: mref_ali2d(
+            big, tmpl, ou=HEADLINE["ou"], xr=HEADLINE["xr"],
+            yr=HEADLINE["xr"], ts=1, maxit=2, device=dev, batch_size=bs,
+            log=lines), {"search": expect})
+        r = res[name]
+        check(bool(np.isfinite(r.params).all()
+                   and np.isfinite(r.references).all()), f"11b {name}: NaN")
+        check(int(r.class_counts.sum()) == N_STREAM, f"11b {name}: counts")
+        pur = purity(r.assignments, big_cls, k)
+        streaming = [m for m in lines.lines if m.startswith("streaming")]
+        log(f"11b mref_ali2d N={N_STREAM} {name}, maxit=2: {seconds:.2f} s "
+            f"({seconds / 2:.3f} s/iteration, preprocessing and outputs "
+            f"included), purity {pur:.4f}, counts "
+            f"{r.class_counts.tolist()}; {streaming}  [{card}]")
+        check(pur >= 0.9, f"11b {name}: purity {pur}")
+        out[f"mref_{name}"] = {"seconds": seconds, "purity": pur}
+    same = float((res["resident"].assignments
+                  == res["streamed"].assignments).mean())
+    log(f"11b final assignments agree on {same:.6f} of particles")
+    check(same >= 0.9999, f"11b: final assignments agree on {same}")
+    out["final_agreement"] = same
+    del big
+
+    # ---- 11c. SHC streamed, batches of 4096
+    n_shc, shc = 2, {}
+    rf_kw = dict(ou=HEADLINE["ou"], xr=HEADLINE["xr"], yr=HEADLINE["xr"],
+                 ts=1.0, center=-1, device=dev, maxit=n_shc,
+                 random_method="SHC")
+    for name, bs in (("resident", None), ("streamed", 4096)):
+        lines = ListLogger()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_shc_") as tmp:
+            r, seconds = main_path(f"reffree SHC {name}", lambda: ali2d_base(
+                stack_a, outdir=tmp, batch_size=bs, log=lines, **rf_kw),
+                NO_LAUNCH)
+            pm = np.load(os.path.join(tmp, "checkpoint.npz"))["x_previousmax"]
+        nope = [int(m.split()[1]) for m in lines.lines if m.startswith("SHC:")]
+        shc[name] = (r, pm, nope, seconds)
+    (r_r, pm_r, nope_r, s_r), (r_s, pm_s, nope_s, s_s) = shc.values()
+    d = np.abs(r_r.params[:, 0] - r_s.params[:, 0])
+    differ = ((r_r.params[:, 3] != r_s.params[:, 3])
+              | (np.minimum(d, 360.0 - d) >= 1e-3)
+              | (np.abs(r_r.params[:, 1:3] - r_s.params[:, 1:3]) >= 1e-3)
+              .any(1) | (np.abs(pm_r - pm_s) > 1e-4 * np.abs(pm_r)))
+    log(f"11c ali2d_base SHC N={N_SLICE}, {n_shc} iterations: resident "
+        f"{s_r:.2f} s, streamed in batches of 4096 {s_s:.2f} s; nope "
+        f"{nope_r} / {nope_s}; {int(differ.sum())} particles differ in "
+        f"params (1e-3) or previousmax (1e-4 relative)  [{card}]")
+    check(differ.mean() <= 1e-3, f"11c: {int(differ.sum())} differ")
+    check(len(nope_s) == n_shc
+          and all(abs(a - b) <= max(1, differ.sum())
+                  for a, b in zip(nope_r, nope_s)), f"11c nope {nope_s}")
+    out["shc"] = {"resident_s": s_r, "streamed_s": s_s, "nope": [nope_r,
+                                                                nope_s],
+                  "differ": int(differ.sum())}
+
+    # ---- 11d. the kernel's gate: ring_len=128 runs the plain search
+    cfg128 = AlignConfig(img_dim=nx, ring_num=HEADLINE["ou"], ring_len=128,
+                         shift_step=1.0, shift_rng_x=HEADLINE["xr"],
+                         shift_rng_y=HEADLINE["xr"])
+    small = scattered_stack(tmpl, N_CHECK, max_shift=2, noise=0.1, seed=60,
+                            device=dev)[0].contiguous()
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    steps_log = logging.getLogger("cryo_ralib_tpu_torch.models.steps")
+    steps_log.addHandler(handler)
+    steps_log.setLevel(logging.INFO)
+    try:
+        got, _ = main_path("align_step ring_len=128", lambda: align_step(
+            small, refs, AlignParams.zeros(N_CHECK, dev),
+            torch.arange(N_CHECK, device=dev), None, cfg128, n_classes=k,
+            sampler="auto"), NO_LAUNCH)
+    finally:
+        steps_log.removeHandler(handler)
+    engine_lines = [r.getMessage() for r in records]
+    want = align_step(small.cpu(), refs.cpu(), AlignParams.zeros(N_CHECK),
+                      torch.arange(N_CHECK), None, cfg128, n_classes=k)
+    p_got = AlignParams(*[f.cpu().numpy() for f in got.params])
+    p_want = AlignParams(*[f.numpy() for f in want.params])
+    n_diff = int(params_differ(p_got, p_want).sum())
+    try:
+        align_step(small, refs, AlignParams.zeros(N_CHECK, dev),
+                   torch.arange(N_CHECK, device=dev), None, cfg128,
+                   n_classes=k, sampler="kernel")
+        raised = None
+    except ValueError as err:
+        raised = str(err)
+    log(f"11d align_step ring_len=128 N={N_CHECK} K={k}, sampler='auto' on "
+        f"the card: logged {engine_lines}; {n_diff} winners differ from the "
+        f"plain search on the CPU; sampler='kernel' raised: {raised!r}")
+    check(any("search engine: plain" in m for m in engine_lines),
+          "11d: the engine was not logged as plain")
+    check(n_diff == 0, f"11d: {n_diff} differ from the CPU")
+    check(raised is not None and "gate" in raised,
+          "11d: sampler='kernel' did not raise ValueError")
+    out["gate"] = {"launches": 0, "differ_from_cpu": n_diff}
     return out
 
 
@@ -1248,6 +1559,10 @@ def main():
     # ---- 10. the alignment modes
     slice_json["modes"] = modes_phase(dev, card, main_path, imgs, tmpl, cls,
                                       stack_a, mir_a, tmpl1)
+
+    # ---- 11. stacks larger than the card
+    slice_json["streaming"] = streaming_phase(dev, card, main_path, imgs,
+                                              tmpl, cls, stack_a)
     del imgs, stack_a
 
     shapes = {   # entry -> (timing key, K, mirror channels, mask)

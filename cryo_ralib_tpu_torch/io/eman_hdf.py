@@ -19,7 +19,8 @@ except that a string is stored fixed-length (UTF-8, null-padded) where
 h5py stores it variable-length: either reads back as the same text
 through ``read_hdf_stack``.  An attribute that h5py could not hold in
 one object-header message (64 KiB: the ``members`` of a class of more
-than 16364 particles) raises ``ValueError`` before anything is written.
+than 16364 particles) raises ``ValueError`` before anything is written;
+``header_fits`` tells beforehand.
 
 A write into an existing file (``append=True``, ``write_image`` at a
 slot, ``update_headers``) reads the stack and rewrites the file whole.
@@ -194,6 +195,17 @@ def _attr_message(name: str, value) -> bytes:
     return (bytes([3, 0]) + struct.pack("<HHH", len(name_b), len(dtype),
                                         len(space))
             + b"\0" + name_b + dtype + space + data)
+
+
+def header_fits(key: str, value) -> bool:
+    """Whether header attribute ``key`` holding ``value`` fits the one
+    object-header message that HDF5 gives an attribute (``members`` of
+    up to 16364 particles)."""
+    try:
+        _attr_message("EMAN." + key, _encode_attr(value))
+    except ValueError:
+        return False
+    return True
 
 
 def _link_message(name: str, addr: int) -> bytes:

@@ -49,13 +49,13 @@ def _schedule(values, n_iter: int, default: float, device) -> torch.Tensor:
 
 
 def _build(cfg: AlignConfig, n_iter: int, cutoffs, falloffs, device,
-           sampler: str):
+           sampler: str, n_refs: int = 1):
     """Device, sampler and the (n_iter,) cutoff / falloff schedules on
     the device, with the search's tables copied there."""
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    sampler = resolve_sampler(sampler, device, cfg)
+    sampler = resolve_sampler(sampler, device, cfg, n_refs=n_refs)
     search_tables(cfg, device)
     device_freq_grid(cfg.img_dim, cfg.img_dim, device)
     if cfg.ring_scheme == "eman2":
@@ -108,7 +108,7 @@ def make_mref_device_loop(cfg: AlignConfig, n_iter: int, n_classes: int,
     Returns ``run(images, refs0, params, gidx, valid) -> (params, refs)``.
     """
     device, sampler, cut, fall = _build(cfg, n_iter, cutoffs, falloffs,
-                                        device, sampler)
+                                        device, sampler, n_classes)
 
     def run(images, refs0, params: AlignParams, gidx, valid):
         refs = torch.as_tensor(refs0, dtype=torch.float32, device=device)

@@ -10,10 +10,12 @@ Wiener-restored references, the ``ref_ali2d`` filter (and centering with
 ``final2Dparams.txt``, and a ``checkpoint.npz`` after every iteration
 that ``resume=True`` continues from.
 
-The stack is uploaded to ``device`` once, premultiplied by its CTFs
-there under ``CTF``, and normalised there; the
-engine keeps that tensor.  The reference update (K small images) runs on
-the host.
+The stack is premultiplied by its CTFs under ``CTF`` and normalised on
+``device`` in blocks (``engine.prepare_stack``), into a device tensor
+that the engine keeps when it fits (``parallel/batching.py``) or else
+into pinned host memory, from which the engine streams it in batches
+(``batch_size=`` forces a batch).  The reference update (K small images)
+runs on the host.
 """
 
 from __future__ import annotations
@@ -30,11 +32,13 @@ from ..params import params_table
 from ..ops.ctf_ops import CtfContext
 from ..ops.fsc import fsc, write_fsc
 from ..ops.masks import model_circle, normalize_mask
-from ..io.eman_hdf import write_hdf_stack
+from ..io.eman_hdf import header_fits, write_hdf_stack
 from ..io.star import write_text_row
 from ..utils.log import RunLogger
+from ..utils.profiling import annotate
 from .checkpoint import load_checkpoint, save_checkpoint
-from .engine import AlignmentEngine, resolve_device
+from .engine import (AlignmentEngine, plan_batch, prepare_stack,
+                     resolve_device)
 from .user_functions import factory
 
 
@@ -71,6 +75,7 @@ def mref_ali2d(
     ring_scheme: str = "cuda",
     device="cuda",
     sampler: str = "auto",
+    batch_size: int | None = None,
 ) -> MrefResult:
     """Multireference-align ``images`` (N, H, W; numpy or tensor) against
     ``refs`` (K, H, W) on ``device`` (the GPU unless ``device="cpu"``).
@@ -85,7 +90,9 @@ def mref_ali2d(
     ``ValueError`` there).  ``CTF=True`` premultiplies the particles by
     their CTFs (``ctf_params``: ``dfu`` per particle at least, see
     ``ops.ctf_ops.CtfContext``) and Wiener-restores the references with
-    ``snr``.
+    ``snr``.  ``batch_size`` streams the stack from the host in batches
+    of that many particles (None: the planner's choice, resident where
+    the stack fits the device).
     """
     device = resolve_device(device)
     if outdir:
@@ -119,23 +126,35 @@ def mref_ali2d(
 
     mask = maskfile if maskfile is not None else model_circle(last_ring, nx)
     mask_host = torch.as_tensor(np.asarray(mask, np.float32))
-    # particles: no_sigma=False (N(0,1) under the mask); refs: mean only
-    data = torch.as_tensor(images, dtype=torch.float32, device=device)
+    mask_dev = mask_host.to(device)
     ctf_ctx = None
     if CTF:
         if ctf_params is None:
             raise ValueError("CTF=True requires ctf_params (at least "
                              "per-particle 'dfu' defocus in A)")
         ctf_ctx = CtfContext(nx, ctf_params, snr=snr, device=device)
-        data = ctf_ctx.premultiply(data)
+        if images.shape[0] != ctf_ctx.n:
+            raise ValueError(f"{images.shape[0]} images vs {ctf_ctx.n} CTFs")
         log.add("CTF premultiplication on, snr=%g" % snr)
-    data = normalize_mask(data, mask_host.to(device), no_sigma=False)
+
+    def prep(x, start):
+        # particles: no_sigma=False (N(0,1) under the mask); refs: mean only
+        if ctf_ctx is not None:
+            x = ctf_ctx.premultiply_block(x, start)
+        return normalize_mask(x, mask_dev, no_sigma=False)
+
+    batch = plan_batch(n, numref, cfg, device, sampler, "", batch_size,
+                       log=log.add)
+    data = prepare_stack(images, device, batch >= n, prep)
     refi = normalize_mask(torch.as_tensor(np.asarray(refs, np.float32)),
                           mask_host, no_sigma=True).numpy()
 
     rng = _random.Random(rand_seed)
     engine = AlignmentEngine(data, cfg, n_classes=numref, device=device,
-                             sampler=sampler)
+                             sampler=sampler, batch_size=batch)
+    if not engine.resident:
+        log.add("streaming %d particles in batches of %d"
+                % (n, engine.batch))
 
     counts = np.zeros(numref, np.int64)
     assign = np.zeros(n, np.int64)
@@ -151,7 +170,8 @@ def mref_ali2d(
             log.add("resumed from checkpoint at iteration %d" % start_it)
 
     for it in range(start_it, max_iter):
-        out = engine.iterate(refi)
+        with annotate("mref::align_iter"):
+            out = engine.iterate(refi)
         sums = out.class_sums                  # (K, 2, H, W)
         counts = out.counts
         assign = engine.params_np().ref_id.astype(np.int64)
@@ -199,14 +219,8 @@ def mref_ali2d(
                 torch.as_tensor(np.asarray(filtered, np.float32)),
                 mask_host, no_sigma=True).numpy()
         if outdir:
-            # one write of the K images: the JAX driver's K write_image
-            # calls give the same file
-            write_hdf_stack(os.path.join(outdir, "aqm%03d.hdf" % it),
-                            new_refs, [{
-                                "ave_n": int(counts[j]),
-                                "members": sorted(float(m)
-                                                  for m in members[j]),
-                            } for j in range(numref)])
+            write_class_averages(os.path.join(outdir, "aqm%03d.hdf" % it),
+                                 new_refs, counts, members, log)
         refi = new_refs
 
         if outdir:
@@ -226,3 +240,23 @@ def mref_ali2d(
     return MrefResult(params=table, assignments=assign, references=refi,
                       class_counts=counts, members=members,
                       iterations=max_iter)
+
+
+def write_class_averages(path: str, refs, counts, members, log):
+    """``aqm%03d.hdf``: the K references with ``ave_n`` and ``members``
+    headers, in one write (the JAX driver's K ``write_image`` calls give
+    the same file).  A class whose ``members`` does not fit HDF5's one
+    object-header message (more than 16364 particles) is written
+    without it, keeping ``ave_n``, and logged; ``final2Dparams.txt``
+    carries every assignment."""
+    headers = []
+    for j, mem in enumerate(members):
+        hdr = {"ave_n": int(counts[j]),
+               "members": sorted(float(m) for m in mem)}
+        if not header_fits("members", hdr["members"]):
+            del hdr["members"]
+            log.add("   group #%3d: %d members, more than an HDF5 header "
+                    "attribute holds; %s has no members list for it"
+                    % (j, len(mem), os.path.basename(path)))
+        headers.append(hdr)
+    write_hdf_stack(path, refs, headers)

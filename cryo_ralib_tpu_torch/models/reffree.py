@@ -14,10 +14,12 @@ continues from (either package's file), and the outputs ``aqc.hdf``,
 ``aqf.hdf``, ``aqfinal.hdf``, ``resolution%03d``, ``initial2Dparams.txt``
 and ``logfile.txt``.
 
-The stack is uploaded to ``device`` once, premultiplied by its CTFs
-there under ``CTF``, and its masked mean taken off there; the engine
-keeps that tensor.  The average conditioning (one
-H x W image per iteration) runs on the host.
+The stack is premultiplied by its CTFs under ``CTF`` and its masked
+mean taken off on ``device`` in blocks (``engine.prepare_stack``), into
+a device tensor that the engine keeps when it fits
+(``parallel/batching.py``) or else into pinned host memory, from which
+the engine streams it in batches (``batch_size=`` forces a batch).  The
+average conditioning (one H x W image per iteration) runs on the host.
 """
 
 from __future__ import annotations
@@ -38,8 +40,10 @@ from ..ops.masks import infomask, model_circle
 from ..io.eman_hdf import write_image
 from ..io.star import write_text_row
 from ..utils.log import RunLogger
+from ..utils.profiling import annotate
 from .checkpoint import load_checkpoint, save_checkpoint
-from .engine import AlignmentEngine, resolve_device
+from .engine import (PREP_BLOCK, AlignmentEngine, plan_batch, prepare_stack,
+                     resolve_device)
 from .user_functions import factory
 
 
@@ -82,6 +86,7 @@ def ali2d_base(
     ring_scheme: str = "cuda",
     device="cuda",
     sampler: str = "auto",
+    batch_size: int | None = None,
 ) -> RefFreeResult:
     """Align ``images`` (N, H, W; numpy or tensor) to their iteratively
     refined global average on ``device`` (the GPU unless
@@ -105,7 +110,7 @@ def ali2d_base(
     stack each iteration, divides the average's spectrum by it and
     writes ``varf.hdf``.  ``sampler`` as in ``mref_ali2d``; SHC and eman2
     run the PyTorch search on either device (``sampler="kernel"`` raises
-    ``ValueError`` there).
+    ``ValueError`` there).  ``batch_size`` as in ``mref_ali2d``.
     """
     device = resolve_device(device)
     if outdir:
@@ -144,7 +149,6 @@ def ali2d_base(
     mask = maskfile if maskfile is not None else model_circle(last_ring, nx)
     mask = np.asarray(mask, np.float32)
     mask_dev = torch.as_tensor(mask, device=device)
-    data = torch.as_tensor(images, dtype=torch.float32, device=device)
 
     ctf_ctx = None
     if CTF:
@@ -152,18 +156,28 @@ def ali2d_base(
             raise ValueError("CTF=True requires ctf_params (at least "
                              "per-particle 'dfu' defocus in A)")
         ctf_ctx = CtfContext(nx, ctf_params, snr=snr, device=device)
-        data = ctf_ctx.premultiply(data)
+        if images.shape[0] != ctf_ctx.n:
+            raise ValueError(f"{images.shape[0]} images vs {ctf_ctx.n} CTFs")
         log.add("CTF premultiplication on, snr=%g" % snr)
 
-    # subtract each particle's mean under the mask, on the device
-    mean, _sigma = infomask(data, mask_dev)
-    data = data - mean[:, None, None]
+    def prep(x, start):
+        # subtract each particle's mean under the mask
+        if ctf_ctx is not None:
+            x = ctf_ctx.premultiply_block(x, start)
+        mean, _sigma = infomask(x, mask_dev)
+        return x - mean[:, None, None]
 
+    batch = plan_batch(n, 1, cfg, device, sampler, random_method,
+                       batch_size, log=log.add)
+    data = prepare_stack(images, device, batch >= n, prep)
     engine = AlignmentEngine(data, cfg, n_classes=1, device=device,
                              sampler=sampler, update_ref=False, delta=dst,
-                             random_method=random_method)
+                             random_method=random_method, batch_size=batch)
     if dst:
         log.add("Discrete angle used         : %d" % int(dst))
+    if not engine.resident:
+        log.add("streaming %d particles in batches of %d"
+                % (n, engine.batch))
 
     result = RefFreeResult(params=np.zeros((n, 4)),
                            average=np.zeros((nx, nx)))
@@ -203,8 +217,7 @@ def ali2d_base(
         # ---- the new average from the previous iteration's sums
         if sums is None:
             # iteration 0: even/odd sums of the raw stack
-            sums = torch.stack([data[0::2].sum(0),
-                                data[1::2].sum(0)])[None].cpu().numpy()
+            sums = _even_odd_sums(data, device)
         ave1, ave2 = sums[0, 0], sums[0, 1]
         if ctf_ctx is not None:
             tavg = ctf_ctx.restore((ave1 + ave2)[None])[0]
@@ -224,7 +237,9 @@ def ali2d_base(
         # built these sums; the average is divided by it BEFORE the
         # criterion
         if Fourvar:
-            vav, rvar = fourier_variance(data, engine.params, mask=mask_dev)
+            with annotate("reffree::fourvar"):
+                vav, rvar = fourier_variance(data, engine.params,
+                                             mask=mask_dev)
             tavg = divide_by_variance(tavg, vav)
             result.radial_variances.append(rvar)
             if outdir:
@@ -264,7 +279,8 @@ def ali2d_base(
         if delta_it:
             log.add("Iteration %d uses discrete angles (delta=%g)"
                     % (total_iter, delta_it))
-        out = engine.iterate(tavg[None], discrete=delta_it != 0.0)
+        with annotate("reffree::align_iter"):
+            out = engine.iterate(tavg[None], discrete=delta_it != 0.0)
         sums = out.class_sums
         result.class_counts = out.counts
         sx_sum = out.sx_sum
@@ -303,3 +319,16 @@ def ali2d_base(
                        os.path.join(outdir, "initial2Dparams.txt"))
     log.add("Finished ali2d_base")
     return result
+
+
+def _even_odd_sums(data, device) -> np.ndarray:
+    """(1, 2, H, W) sums of the even- and odd-indexed particles of
+    ``data`` (on the device or the host), by blocks of ``PREP_BLOCK`` on
+    ``device``, as numpy."""
+    n, h, w = data.shape
+    acc = torch.zeros((2, h, w), dtype=torch.float32, device=device)
+    for s in range(0, n, PREP_BLOCK):
+        x = torch.as_tensor(data[s:s + PREP_BLOCK], device=device)
+        acc[0] += x[0::2].sum(0)
+        acc[1] += x[1::2].sum(0)
+    return acc[None].cpu().numpy()

@@ -11,12 +11,23 @@ Which search runs (``resolve_sampler``): the hand-written CUDA kernel
 takes the standard search on uniform 256-sample rings, full or half
 (mode "F" or "H"); the SHC pick and the eman2 ring scheme have no
 kernel, as the JAX package has no Pallas kernel for them, and run the
-PyTorch search on either device.  Asking for the kernel there raises
-``ValueError``; nothing falls back from the kernel to the plain search.
+PyTorch search on either device, and so does a geometry outside the
+kernel's gate (``ops/fused_search.py::kernel_gate``: other ring lengths,
+a block larger than the device's shared memory, the int32 priority
+bound), as the JAX package's "auto" leaves the Pallas kernel there.
+Asking for the kernel there raises ``ValueError``; the rule is decided
+from the geometry before any launch, and nothing falls back from a
+kernel that fails to build or launch to the plain search.
+
+The end of every step (``_finish_step``) transforms and class-sums the
+particles in blocks of ``ops/transform.py::transform_block`` particles,
+adding the blocks' sums on the device: the bilinear transform holds ~28
+stack sizes of temporaries, so its peak no longer grows with the stack.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple
 
 import torch
@@ -26,11 +37,13 @@ from ..params import AlignParams, gpu_params_to_align2d
 from ..ops.classavg import class_sum_oe
 from ..ops.eman_search import (prepare_ref_spectra_eman,
                                rotational_shift_search_eman)
-from ..ops.fused_search import fused_search, search_plain
-from ..ops.scf import scf_align
+from ..ops.fused_search import fused_search, kernel_gate, search_plain
+from ..ops.scf import scf_align, zero_shift_cfg
 from ..ops.search import (decode_params, prepare_ref_spectra,
                           rotational_shift_search_shc)
-from ..ops.transform import transform_batch
+from ..ops.transform import transform_batch, transform_block
+
+_log = logging.getLogger(__name__)
 
 
 class StepOutput(NamedTuple):
@@ -54,15 +67,18 @@ def _header_shift_sums(params: AlignParams, valid):
 
 
 def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
-                    random_method: str = "") -> str:
+                    random_method: str = "", n_refs: int = 1,
+                    smem_limit: int | None = None) -> str:
     """The search a step runs: "kernel" (the CUDA kernel) or "plain" (the
     PyTorch search).
 
     "auto" is the kernel for CUDA tensors and plain for CPU tensors,
     except where there is no kernel: the SHC pick
-    (``random_method="SHC"``) and the eman2 ring scheme
-    (``cfg.ring_scheme == "eman2"``) run plain on either device.
-    "kernel" asked for there raises ``ValueError``.
+    (``random_method="SHC"``), the eman2 ring scheme
+    (``cfg.ring_scheme == "eman2"``) and, on a CUDA device, a geometry
+    outside ``kernel_gate`` (``n_refs`` references of ``cfg``'s box;
+    ``smem_limit`` defaults to the device's) run plain, which is logged.
+    "kernel" asked for there raises ``ValueError`` naming the rule.
     """
     if sampler not in ("auto", "kernel", "plain"):
         raise ValueError(f"sampler must be 'auto', 'kernel' or 'plain', "
@@ -73,10 +89,18 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
     elif cfg is not None and cfg.ring_scheme == "eman2":
         no_kernel = ("ring_scheme='eman2' (the kernel takes uniform "
                      "256-sample rings)")
+    elif (cfg is not None and sampler != "plain"
+          and (sampler == "kernel" or torch.device(device).type == "cuda")):
+        gate = kernel_gate(cfg, n_refs, cfg.img_dim, cfg.img_dim,
+                           smem_limit, device)
+        if gate is not None:
+            no_kernel = "the kernel's gate: " + gate
     if no_kernel is not None:
         if sampler == "kernel":
             raise ValueError(f"sampler='kernel' does not support {no_kernel}"
                              " — use sampler='auto' or 'plain'")
+        if sampler == "auto" and torch.device(device).type == "cuda":
+            _log.info("search engine: plain, not the kernel: %s", no_kernel)
         return "plain"
     if sampler == "auto":
         return "kernel" if torch.device(device).type == "cuda" else "plain"
@@ -108,7 +132,8 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
     device); ``cfg.mode == "H"`` searches half rings, through the kernel
     on a CUDA tensor like mode "F".
     """
-    sampler = resolve_sampler(sampler, images.device, cfg)
+    sampler = resolve_sampler(sampler, images.device, cfg,
+                              n_refs=refs.shape[0])
     if cfg.ring_scheme == "eman2":
         result = rotational_shift_search_eman(
             images, prepare_ref_spectra_eman(refs, cfg), params, cfg,
@@ -126,10 +151,26 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
 def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
                  n_classes: int) -> StepOutput:
     """Transform by the new params, sum the classes even/odd, and the
-    centering sums: the end of every kind of step."""
-    transformed = transform_batch(images, new_params)
-    sums, counts = class_sum_oe(transformed, new_params.ref_id, n_classes,
-                                global_index=global_index, valid=valid)
+    centering sums: the end of every kind of step.  The transform and the
+    class sums go in blocks of ``transform_block`` particles, whose sums
+    add up on the device."""
+    n, h, w = images.shape
+    block = transform_block(h, w)
+    if global_index is None:
+        global_index = torch.arange(n, device=images.device)
+    sums = counts = None
+    for start in range(0, max(n, 1), block):
+        sl = slice(start, start + block)
+        part = AlignParams(*[f[sl] for f in new_params])
+        s_b, c_b = class_sum_oe(transform_batch(images[sl], part),
+                                part.ref_id, n_classes,
+                                global_index=global_index[sl],
+                                valid=None if valid is None else valid[sl])
+        if sums is None:
+            sums, counts = s_b, c_b
+        else:
+            sums += s_b
+            counts += c_b
     sx_sum, sy_sum = _header_shift_sums(new_params, valid)
     if valid is not None:
         peak = torch.where(valid > 0, peak, 0.0)
@@ -183,6 +224,7 @@ def align_step_scf(images, refs, params: AlignParams, global_index, valid,
         raise ValueError("random_method='SCF' runs the standard ring "
                          "scheme only (ring_scheme='cuda')")
     new_params, peak = scf_align(
-        images, refs[0], cfg, sampler=resolve_sampler(sampler, images.device))
+        images, refs[0], cfg,
+        sampler=resolve_sampler(sampler, images.device, zero_shift_cfg(cfg)))
     return _finish_step(images, new_params, peak, global_index, valid,
                         n_classes)

@@ -164,27 +164,34 @@ class CtfContext:
         self._freqs = torch.as_tensor(flat.astype(np.float32),
                                       device=self.device)
 
-    def ctf_chunk(self, start: int):
+    def ctf_chunk(self, start: int, count: int | None = None):
         """(b, H, Fw) float32 CTFs of the particles ``start ..
-        start+batch-1``."""
-        df = self.df[start:start + self.batch]
+        start+count-1`` (``count`` defaults to ``batch``)."""
+        count = self.batch if count is None else count
+        df = self.df[start:start + count]
         sc = self.scalars
         ctf = compute_ctf(self._freqs, df[:, 0], df[:, 1], df[:, 2],
                           sc["voltage"], sc["cs"], sc["w"],
                           phase_shift=df[:, 3], bfactor=sc["bfactor"])
         return ctf.reshape(-1, self.nx, self.nx // 2 + 1)
 
+    def premultiply_block(self, block, start: int):
+        """``filt_ctf`` of the particles ``start .. start+len(block)-1``,
+        a block on the device."""
+        return filt_ctf(block, self.ctf_chunk(start, block.shape[0]))
+
     def premultiply(self, images):
-        """``filt_ctf`` over the stack, chunk by chunk, on the device; the
-        result stays there."""
-        images = torch.as_tensor(images, dtype=torch.float32,
-                                 device=self.device)
+        """``filt_ctf`` over the stack, chunk by chunk on the device, into
+        a new tensor there; ``images`` (numpy or a tensor, on the host or
+        the device) is uploaded a chunk at a time."""
         if images.shape[0] != self.n:
             raise ValueError(f"{images.shape[0]} images vs {self.n} CTFs")
-        out = torch.empty_like(images)
+        out = torch.empty(tuple(images.shape), dtype=torch.float32,
+                          device=self.device)
         for i in range(0, self.n, self.batch):
-            out[i:i + self.batch] = filt_ctf(images[i:i + self.batch],
-                                             self.ctf_chunk(i))
+            block = torch.as_tensor(images[i:i + self.batch],
+                                    dtype=torch.float32, device=self.device)
+            out[i:i + self.batch] = self.premultiply_block(block, i)
         return out
 
     def restore(self, summed, assign=None):

@@ -98,19 +98,24 @@ def fourier_variance(data, params: AlignParams, mask=None,
                      batch: int = 4096):
     """Chunked variance of a whole stack.
 
-    ``data`` (N, H, W) and ``params`` are tensors on one device; the
-    moments are summed per chunk of ``batch`` particles in float32 there
-    and across chunks in float64 on the host.  Returns ``(var (H, F),
-    rvar (H//2+1,))`` as float32 numpy arrays.
+    ``data`` (N, H, W) and ``params`` are numpy arrays or tensors on the
+    host or on the device; each chunk of ``batch`` particles goes to the
+    device of ``mask`` (else of ``data``, else the CPU), where its
+    moments are summed in float32, and the chunks add up in float64 on
+    the host.  Returns ``(var (H, F), rvar (H//2+1,))`` as float32
+    numpy arrays.
     """
+    device = (mask.device if torch.is_tensor(mask) else
+              data.device if torch.is_tensor(data) else "cpu")
     n, h, _w = data.shape
     acc = [np.zeros((h, h // 2 + 1), np.float64) for _ in range(3)]
     total = 0.0
     for start in range(0, n, batch):
         sl = slice(start, start + batch)
-        *sums, cnt = fourier_moments(data[sl],
-                                     AlignParams(*[f[sl] for f in params]),
-                                     mask=mask)
+        imgs = torch.as_tensor(data[sl], dtype=torch.float32, device=device)
+        part = AlignParams(*[torch.as_tensor(f[sl], device=device)
+                             for f in params])
+        *sums, cnt = fourier_moments(imgs, part, mask=mask)
         for a, s in zip(acc, sums):
             a += s.double().cpu().numpy()
         total += float(cnt)

@@ -51,15 +51,21 @@ import torch
 from ..config import AlignConfig
 from ..kernels import load_library
 from ..params import AlignParams
-from .search import SearchResult, rotational_shift_search, search_tables
+from .search import (SearchResult, plain_shift_chunk, rotational_shift_search,
+                     search_tables)
 
 RING_LEN = 256   # the kernel's angle count (its block has one thread each)
 _NEG_INF = -3.0e38
 
 
 def search_plain(images, ref_fw, params: AlignParams, cfg: AlignConfig,
-                 shift_chunk: int = 8, angle_mask=None) -> SearchResult:
-    """The kernel's plain PyTorch version (any device)."""
+                 shift_chunk: int | None = None,
+                 angle_mask=None) -> SearchResult:
+    """The kernel's plain PyTorch version (any device); ``shift_chunk``
+    defaults to the most shifts per pass that ``PLAIN_SAMPLE_BUDGET``
+    holds (``plain_shift_chunk``)."""
+    if shift_chunk is None:
+        shift_chunk = plain_shift_chunk(images.shape[0], cfg)
     return rotational_shift_search(images, ref_fw, params, cfg,
                                    shift_chunk=shift_chunk,
                                    angle_mask=angle_mask)
@@ -285,6 +291,88 @@ def kernel_plan(n_rings: int, mirror: bool, n_refs: int, n_shifts: int,
             "smem_bytes": smem}
 
 
+# csrc/search.cu's block geometry, for the model of its plan below: bins
+# stored per spectrum, 256-point FFTs per round and the transpose
+# scratch (16 x 17 float2) of each, threads per block
+_NB, _NFFT, _TSIZE, _NTHREADS, _GMAX = 128, 16, 16 * 17, 256, 4
+# cudaDevAttrMaxSharedMemoryPerBlockOptin of every sm_90 device, the one
+# architecture the kernel is built for: the limit where no device is
+# there to ask
+SM90_SMEM_OPTIN = 232448
+
+
+def _smem_bytes(n_rings: int, n_mirr: int, kg: int, g: int) -> int:
+    """``smem_bytes`` of csrc/search.cu: G shifts' spectra, their ccf
+    rows (stride 129 or 130), the FFT scratch, and the row, mask and
+    warp partials."""
+    x_stride = 129 if n_mirr == 2 else 130
+    return (8 * (g * n_rings * _NB + g * kg * n_mirr * x_stride
+                 + _NFFT * _TSIZE)
+            + 4 * (2 * RING_LEN + 2 * (_NTHREADS // 32)))
+
+
+def plan_model(n_rings: int, mirror: bool, n_refs: int, n_shifts: int,
+               h: int, w: int, smem_limit: int) -> dict:
+    """A CPU copy of ``plan()`` in csrc/search.cu under a shared-memory
+    limit: ``kernel_plan``'s dict with no device and no build
+    (``tests/test_torch_streaming_gpu.py`` holds the two equal)."""
+    n_mirr = 2 if mirror else 1
+    kg = 1 if n_refs == 1 else 8
+
+    def max_group(extra):
+        g = 0
+        while (g < _GMAX and g < n_shifts
+               and _smem_bytes(n_rings, n_mirr, kg, g + 1) + extra
+               <= smem_limit):
+            g += 1
+        return g
+
+    image = 4 * h * w
+    g_staged, g_ldg = max_group(image), max(1, max_group(0))
+    if g_staged >= 2 or (g_staged == 1 and (g_ldg == 1 or kg == 1)):
+        return {"group": g_staged, "image_in_smem": True,
+                "smem_bytes": _smem_bytes(n_rings, n_mirr, kg, g_staged)
+                + image}
+    return {"group": g_ldg, "image_in_smem": False,
+            "smem_bytes": _smem_bytes(n_rings, n_mirr, kg, g_ldg)}
+
+
+def device_smem_limit(device) -> int:
+    """The opt-in shared memory per block of ``device`` (a CUDA device),
+    or of any sm_90 device where CUDA is not available."""
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return SM90_SMEM_OPTIN
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
+def kernel_gate(cfg: AlignConfig, n_refs: int, h: int, w: int,
+                smem_limit: int | None = None, device="cuda") -> str | None:
+    """Why the kernel cannot run this geometry, or None where it can: the
+    checks on which ``_launch`` raises, decided from the geometry alone.
+    ``smem_limit`` defaults to ``device``'s (``device_smem_limit``)."""
+    if cfg.ring_len != RING_LEN or cfg.ring_scheme != "cuda":
+        return (f"ring_len={cfg.ring_len}, ring_scheme={cfg.ring_scheme!r}"
+                " (the kernel takes ring_len=256 uniform rings)")
+    if 2 * cfg.n_shifts * n_refs * RING_LEN >= 2 ** 31:
+        return (f"{cfg.n_shifts} shifts x {n_refs} refs (over the kernel's "
+                "int32 priority index)")
+    limit = device_smem_limit(device) if smem_limit is None else smem_limit
+    smem = plan_model(cfg.ring_num, cfg.mirror, n_refs, cfg.n_shifts, h, w,
+                      limit)["smem_bytes"]
+    if smem > limit:
+        return (f"ring_num={cfg.ring_num} needs {smem} B of shared memory "
+                f"per block, the device allows {limit}")
+    return None
+
+
+def kernel_supported(cfg: AlignConfig, n_refs: int, h: int, w: int,
+                     smem_limit: int | None = None, device="cuda") -> bool:
+    """Whether the kernel runs this geometry (``kernel_gate`` is None)."""
+    return kernel_gate(cfg, n_refs, h, w, smem_limit, device) is None
+
+
 def _check(name, t, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -320,8 +408,14 @@ def fused_search(images, ref_fw, params: AlignParams, cfg: AlignConfig,
     if angle_mask is not None:
         _check("angle_mask", angle_mask, torch.float32, (RING_LEN,),
                images.device)
-        if not bool((angle_mask > _NEG_INF).any()):
-            raise ValueError("angle_mask allows no angle bin")
+        # read back once per mask and version: a streamed iteration
+        # searches batch after batch with the same mask, and each read
+        # would make the host wait for the card
+        version = angle_mask._version
+        if getattr(angle_mask, "_checked_version", None) != version:
+            if not bool((angle_mask > _NEG_INF).any()):
+                raise ValueError("angle_mask allows no angle bin")
+            angle_mask._checked_version = version
     return _launch(images, ref_fw, params, cfg, angle_mask, 0,
                    fused_search.launches,
                    variant(cfg, angle_mask is not None))

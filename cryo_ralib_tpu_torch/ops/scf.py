@@ -35,7 +35,7 @@ from ..config import AlignConfig
 from ..params import AlignParams
 from .fused_search import fused_search, search_plain
 from .search import SearchResult, decode_params, prepare_ref_spectra
-from .transform import transform_batch
+from .transform import transform_batch, transform_block
 
 
 def scf_batch(images):
@@ -46,7 +46,7 @@ def scf_batch(images):
     return torch.roll(s, (h // 2, w // 2), dims=(-2, -1))
 
 
-def _zero_shift_cfg(cfg: AlignConfig) -> AlignConfig:
+def zero_shift_cfg(cfg: AlignConfig) -> AlignConfig:
     return dataclasses.replace(cfg, shift_rng_x=0.0, shift_rng_y=0.0)
 
 
@@ -67,41 +67,50 @@ def scf_align(images, ref, cfg: AlignConfig, sampler: str = "plain"):
         raise ValueError("SCF requires mode='H' half rings")
     n, h, w = images.shape
     dev = images.device
-    cfg0 = _zero_shift_cfg(cfg)
+    cfg0 = zero_shift_cfg(cfg)
     zeros = AlignParams.zeros(n, dev)
 
-    # ---- stage 1: rotation (+ mirror) from the scf ring spectra
-    sci = scf_batch(images).contiguous()
+    # ---- stage 1: rotation (+ mirror) from the scf ring spectra; the
+    # scf images are made by blocks, the search is one call
+    block = transform_block(h, w)
+    sci = torch.empty_like(images)
+    for start in range(0, n, block):
+        sci[start:start + block] = scf_batch(images[start:start + block])
     ref_fw = prepare_ref_spectra(scf_batch(ref[None]), cfg0)
     search = fused_search if sampler == "kernel" else search_plain
     res = search(sci, ref_fw, zeros, cfg0)
+    del sci
     dec = decode_params(res, zeros, cfg0, update_ref=False)
     ang = dec.angle % 360.0
     mirror = dec.mirror
 
-    # ---- stage 2: translation, one ccf map per 180-degree candidate
-    img_f = torch.fft.rfft2(images)
+    # ---- stage 2: translation, one ccf map per 180-degree candidate,
+    # by blocks of ``transform_block`` particles (the inverse-transformed
+    # references take the transform's temporaries)
     xr = int(round(cfg.shift_rng_x))
     yr = int(round(cfg.shift_rng_y))
     wy, wx = 2 * yr + 1, 2 * xr + 1
-    ref_b = ref[None].expand(n, h, w)
     zeros_f = torch.zeros(n, dtype=torch.float32, device=dev)
+    cands = [(ang + 180.0 * k) % 360.0 for k in range(2)]
+    wins = torch.empty((n, 2, wy, wx), dtype=torch.float32, device=dev)
+    for start in range(0, n, block):
+        sl = slice(start, start + block)
+        m = images[sl].shape[0]
+        img_f = torch.fft.rfft2(images[sl])
+        for k, cand in enumerate(cands):
+            c = cand[sl]
+            mir = mirror[sl]
+            inv = AlignParams(torch.where(mir == 1, c, -c), zeros_f[sl],
+                              zeros_f[sl], mir, zeros.ref_id[sl])
+            invref = transform_batch(ref[None].expand(m, h, w), inv)
+            # score(s) = sum_z invref(z) img(z + s) = irfft2(conj(IR) * I)(s)
+            cc = torch.fft.irfft2(torch.fft.rfft2(invref).conj() * img_f,
+                                  s=(h, w))
+            # entry s lives at (s mod h): one roll puts the window
+            # [-yr..yr] x [-xr..xr] at the top-left corner
+            wins[sl, k] = torch.roll(cc, (yr, xr), dims=(-2, -1))[:, :wy, :wx]
 
-    cands, wins = [], []
-    for k in range(2):
-        cand = (ang + 180.0 * k) % 360.0
-        inv = AlignParams(torch.where(mirror == 1, cand, -cand), zeros_f,
-                          zeros_f, mirror, zeros.ref_id)
-        invref = transform_batch(ref_b, inv)
-        # score(s) = sum_z invref(z) img(z + s) = irfft2(conj(IR) * I)(s)
-        cc = torch.fft.irfft2(torch.fft.rfft2(invref).conj() * img_f,
-                              s=(h, w))
-        # entry s lives at (s mod h): one roll puts the window
-        # [-yr..yr] x [-xr..xr] at the top-left corner
-        wins.append(torch.roll(cc, (yr, xr), dims=(-2, -1))[:, :wy, :wx])
-        cands.append(cand)
-
-    flat = torch.stack(wins, dim=1).reshape(n, -1)     # [cand][sy][sx]
+    flat = wins.reshape(n, -1)                         # [cand][sy][sx]
     peak, idx = torch.max(flat, dim=1)                 # first maximum
     xi = idx % wx
     rest = idx // wx

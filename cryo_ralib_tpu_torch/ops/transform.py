@@ -13,6 +13,29 @@ import torch
 from ..params import AlignParams
 from .interp import bilinear_sample
 
+# Device memory ``transform_batch`` takes per output pixel, its output and
+# every temporary of ``bilinear_sample`` included: ~112 B (28 f32 stack
+# sizes) measured on an H100 at 90 px, over 16384 particles in one call
+# (an align_step peak of 15.41 GB) and over blocks of 2048 (2.41 GB);
+# charged with a margin for the allocator's rounding
+TRANSFORM_BYTES_PER_PIXEL = 136
+# Device memory the transform's temporaries of one block may take
+# (``transform_block``): 2048 particles at 90 px, where a block is still
+# large enough that the step's time does not move (chip_smoke.py 11a)
+TRANSFORM_BLOCK_BYTES = 3 * 2**30
+
+
+def transform_block(h: int, w: int) -> int:
+    """Particles per block where a stack is transformed by blocks: the
+    largest power of two whose temporaries fit ``TRANSFORM_BLOCK_BYTES``,
+    at least 2 (even, so that a block starting at an even index keeps
+    its parity)."""
+    per = TRANSFORM_BYTES_PER_PIXEL * h * w
+    b = 2
+    while 2 * b * per <= TRANSFORM_BLOCK_BYTES:
+        b *= 2
+    return b
+
 
 def transform_batch(images, params: AlignParams):
     """Apply (mirror -> rotate -> shift) as an inverse map, bilinear.

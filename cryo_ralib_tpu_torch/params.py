@@ -71,7 +71,8 @@ def gpu_params_to_align2d(angle, shift_x, shift_y):
 
 def params_table(params: AlignParams) -> np.ndarray:
     """(N, 4) float64 rows [alpha, sx, sy, mirror] in header convention,
-    alpha wrapped into [0, 360)."""
+    alpha wrapped into [0, 360); the fields are tensors or numpy arrays."""
+    params = AlignParams(*[torch.as_tensor(f) for f in params])
     sx, sy = gpu_params_to_align2d(params.angle, params.shift_x,
                                    params.shift_y)
     return np.stack(

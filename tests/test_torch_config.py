@@ -138,7 +138,9 @@ def test_import_boundary_covers_every_module_and_chip_smoke():
             "cryo_ralib_tpu_torch.ops.eman_search",
             "cryo_ralib_tpu_torch.ops.ctf_ops",
             "cryo_ralib_tpu_torch.ops.fourvar",
-            "cryo_ralib_tpu_torch.io.star"} <= names
+            "cryo_ralib_tpu_torch.io.star",
+            "cryo_ralib_tpu_torch.parallel.batching",
+            "cryo_ralib_tpu_torch.utils.profiling"} <= names
     root = pathlib.Path(pkg.__file__).parent
     files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
     assert len(files) > len(names)
