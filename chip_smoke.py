@@ -116,8 +116,31 @@ Phases (any failure raises and the script exits non-zero):
      d. align_step at ring_len=128 with sampler="auto" on the card: no
         launch, the plain engine logged, winners equal to the plain
         search on the CPU; sampler="kernel" raises ValueError.
+  12. after the alignment, on phase 6's stack (16384 x 90 px) and its
+     mref_ali2d params, with no search launch:
+     a. rot_shift2d (quadri) by blocks on the card: its CUDA-event ms and
+        peak device memory beside transform_batch's on the same
+        transforms; the first 2048 particles against the port on the
+        CPU (atol 1e-4, pixels over 1e-5 counted), and the CPU's time;
+     b. examples/torch_08_export_aligned.py from an EDA params table:
+        aligned.hdf and class_avgs.hdf read back by the port's reader
+        (N images, zeroed xform.align2d, assign, members), each class
+        average correlating >= 0.9 with its template;
+     c. io/dataset.py's HDFfile on the raw stack and the same table,
+        aligned_particles() on the card: bitwise 12b's stack;
+     d. TwoSDR(20, 20, 8) and MPCA(10, 10) of the aligned stack on the
+        card, seconds and iterations, examples/torch_03_eda.py's k-means
+        purity (not a gate); on a 2048-image stack with a separated
+        spectrum at the same width the card and the CPU agree on the
+        means, each column's subspace (1e-3) and the sign-aligned
+        factors (1e-3 of the largest);
+     e. the native MRC reader (whether it builds, and why not) held
+        bitwise to numpy on the stack's .mrcs, both timed; whether the
+        system's libdb is present, and where it is, a bdb: copy of run
+        A's stack through cli.reffree for 2 iterations (its own main
+        path: 2 launches).
 Every launch counter is set to 0 just before each main-path run (6, 6b,
-7, 8, 9, 10, 11) and read just after it.  The last lines are the slice's JSON
+7, 8, 9, 10, 11, 12) and read just after it.  The last lines are the slice's JSON
 line (loop rates, stage breakdown, CLI times), the stage ablation's JSON
 line, the card, the kernels' JSON record (with each instantiation's
 registers, spill bytes and shared memory per block) and the run's
@@ -1144,6 +1167,291 @@ def streaming_phase(dev, card, main_path, imgs, tmpl, cls, stack_a) -> dict:
     return out
 
 
+N_ROT_CPU = 2048       # 12a's CPU timing and card-vs-CPU check, 12d's
+ROT_ATOL = 1e-4        # rot_shift2d card vs CPU (tests/test_torch_rot_shift.py)
+RED_TOL = 1e-3         # subspace overlap, factors (tests/test_torch_analysis.py)
+
+
+def load_example(name):
+    """An example script of ``examples/`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def separated_stack(n, nx, comps, seed):
+    """``n`` images ``sum_k c_ik s_k u_k v_k^T`` (orthonormal u, v, weights
+    0.8^k) plus 1e-3 noise: a spectrum whose leading eigenvalues lie
+    apart, so that eigenvectors are defined up to sign on any device."""
+    rng = np.random.default_rng(seed)
+    u = np.linalg.qr(rng.standard_normal((nx, comps)))[0]
+    v = np.linalg.qr(rng.standard_normal((nx, comps)))[0]
+    coef = rng.standard_normal((n, comps)) * 0.8 ** np.arange(comps)
+    arr = (coef * u[:, None, :]).transpose(1, 0, 2) @ v.T
+    arr += 1e-3 * rng.standard_normal((n, nx, nx))
+    return arr.astype(np.float32)
+
+
+def reduction_agree(got, want, label):
+    """Card against CPU results of MPCA / TwoSDR (numpy tuples, mean
+    last): means within 1e-5, every factor column's overlap within 1e-3
+    of 1 (Gt's rows first aligned to At's and Bt's column signs), factors
+    within 1e-3 of the largest after the sign of each column is aligned,
+    energy within rtol 1e-4; returns the worst of each."""
+    *mats, mean = got
+    *mats_c, mean_c = want
+    f, fc = mats[0], mats_c[0]
+    bases = list(zip(mats[1:], mats_c[1:]))
+    if len(bases) == 3:   # TwoSDR: (Gt, At, Bt)
+        sa = np.sign(np.diag(bases[1][0].T @ bases[1][1]))
+        sb = np.sign(np.diag(bases[2][0].T @ bases[2][1]))
+        bases[0] = (np.kron(sa, sb)[:, None] * bases[0][0], bases[0][1])
+    row = {"mean": float(np.abs(mean - mean_c).max()),
+           "overlap": max(float(np.abs(1.0 - np.abs(np.diag(a.T @ b))).max())
+                          for a, b in bases)}
+    sign = np.sign((f * fc).sum(0))
+    row["factors"] = float(np.abs(f * sign - fc).max() / np.abs(fc).max())
+    row["energy"] = float(abs((f ** 2).sum() / (fc ** 2).sum() - 1.0))
+    log(f"12d {label} card vs CPU: {json.dumps(row)}")
+    check(row["mean"] <= 1e-5 and row["overlap"] <= RED_TOL
+          and row["factors"] <= RED_TOL and row["energy"] <= 1e-4,
+          f"12d {label}: the card and the CPU disagree {row}")
+    return row
+
+
+def post_alignment_phase(dev, card, tmp, imgs, tmpl, truth, mref_params,
+                         mref_assign) -> dict:
+    """Phase 12: after the alignment, on phase 6's stack and mref_ali2d
+    params: the batch op (12a), the aligned-stack export (12b), HDFfile
+    (12c), the reduction (12d) and host input (12e, the native reader)."""
+    import logging
+    import shutil
+
+    from cryo_ralib_tpu_torch import native
+    from cryo_ralib_tpu_torch.analysis import MPCA, TwoSDR, purity_score
+    from cryo_ralib_tpu_torch.io.dataset import HDFfile
+    from cryo_ralib_tpu_torch.io.eman_hdf import read_own_hdf, write_hdf_stack
+    from cryo_ralib_tpu_torch.io.mrc import read_mrc, write_mrc
+    from cryo_ralib_tpu_torch.io.star import write_text_row
+    from cryo_ralib_tpu_torch.ops.transform import (rot_shift2d,
+                                                    transform_batch,
+                                                    transform_block)
+    from cryo_ralib_tpu_torch.params import AlignParams
+
+    out = {"card": card}
+    n, h, w = imgs.shape
+    k = tmpl.shape[0]
+    alpha, sx, sy = (torch.as_tensor(mref_params[:, i], dtype=torch.float32,
+                                     device=dev) for i in range(3))
+    mirror = torch.as_tensor(mref_params[:, 3].astype(np.int32), device=dev)
+
+    # ---- 12a. rot_shift2d: card against the port on the CPU, its time
+    # and peak beside transform_batch's (by blocks, as the step runs it)
+    def rot():
+        return rot_shift2d(imgs, alpha, sx, sy, mirror=mirror)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    aligned_card = rot()
+    torch.cuda.synchronize()
+    rot_peak = torch.cuda.max_memory_allocated()
+    rot_ms = cuda_ms(rot, 3)
+    rad = alpha * (np.pi / 180.0)
+    c, s = torch.cos(rad), torch.sin(rad)
+    tb_params = AlignParams(alpha, -(sx * c - sy * s), -(sx * s + sy * c),
+                            mirror, torch.zeros_like(mirror))
+    block = transform_block(h, w)
+
+    def bilinear():
+        res = torch.empty_like(imgs)
+        for b0 in range(0, n, block):
+            sl = slice(b0, b0 + block)
+            res[sl] = transform_batch(imgs[sl],
+                                      AlignParams(*[f[sl] for f in tb_params]))
+        return res
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bilinear()
+    torch.cuda.synchronize()
+    tb_peak = torch.cuda.max_memory_allocated()
+    tb_ms = cuda_ms(bilinear, 3)
+    cpu_args = [t[:N_ROT_CPU].cpu() for t in (imgs, alpha, sx, sy, mirror)]
+    rot_shift2d(cpu_args[0][:8], *[t[:8] for t in cpu_args[1:4]],
+                mirror=cpu_args[4][:8])
+    t0 = time.perf_counter()
+    aligned_cpu = rot_shift2d(*cpu_args[:4], mirror=cpu_args[4]).numpy()
+    cpu_s = time.perf_counter() - t0
+    diff = np.abs(aligned_card[:N_ROT_CPU].cpu().numpy() - aligned_cpu)
+    out["rot_shift2d"] = {
+        "n": n, "ms": rot_ms, "peak_gib": rot_peak / 2**30,
+        "peak_above_inputs_gib": (rot_peak - base) / 2**30,
+        "transform_batch_ms": tb_ms, "transform_batch_peak_gib": tb_peak / 2**30,
+        "block": block, "cpu_n": N_ROT_CPU, "cpu_s": cpu_s,
+        "images_per_s": n / (rot_ms / 1e3), "cpu_images_per_s": N_ROT_CPU / cpu_s,
+        "card_over_cpu": (n / (rot_ms / 1e3)) / (N_ROT_CPU / cpu_s),
+        "max_abs_err_vs_cpu": float(diff.max()),
+        "pixels_over_1e-5": int((diff > 1e-5).sum())}
+    log(f"12a rot_shift2d N={n} {h}px by blocks of {block}: {rot_ms:.2f} ms "
+        f"(CUDA events, mean of 3), peak {rot_peak / 2**30:.3f} GiB "
+        f"({(rot_peak - base) / 2**30:.3f} above the inputs); transform_batch "
+        f"on the same transforms by the same blocks {tb_ms:.2f} ms, peak "
+        f"{tb_peak / 2**30:.3f} GiB; the port on this machine's CPU at "
+        f"N={N_ROT_CPU}: {cpu_s:.3f} s, so the card runs "
+        f"{out['rot_shift2d']['card_over_cpu']:.1f}x the CPU's images/s; "
+        f"card vs CPU max |diff| {diff.max():.3e}, "
+        f"{out['rot_shift2d']['pixels_over_1e-5']} of {diff.size} pixels "
+        f"over 1e-5  [{card}]")
+    check(diff.max() <= ROT_ATOL, f"12a: card vs CPU {diff.max()}")
+
+    # ---- 12b. the export (examples/torch_08_export_aligned.py) from a
+    # params table in the EDA format, read back by the port's reader
+    host = imgs.cpu().numpy()
+    table = np.column_stack([np.arange(n), mref_params[:, :4], mref_assign])
+    params_path = os.path.join(tmp, "params.txt")
+    stack_path = os.path.join(tmp, "stack.hdf")
+    write_text_row(table, params_path)
+    write_hdf_stack(stack_path, host)
+    ex = load_example("torch_08_export_aligned")
+    t0 = time.perf_counter()
+    a_p, sx_p, sy_p, m_p, cls_p = ex.load_params(params_path)
+    aligned_path, avg_path, aligned = ex.export_aligned(
+        host, a_p, sx_p, sy_p, m_p, cls_p, os.path.join(tmp, "export"),
+        device=dev)
+    out["export_s"] = time.perf_counter() - t0
+    back, headers = read_own_hdf(aligned_path)
+    check(back.shape == (n, h, w) and np.array_equal(back, aligned),
+          "12b: aligned.hdf does not read back as written")
+    zero = {"alpha": 0.0, "tx": 0.0, "ty": 0.0, "mirror": 0, "scale": 1.0}
+    check(all(json.loads(hd["xform.align2d"]) == zero for hd in headers),
+          "12b: a transform is not zeroed")
+    check([hd["assign"] for hd in headers] == mref_assign.tolist(),
+          "12b: assign headers")
+    avgs, avg_headers = read_own_hdf(avg_path)
+    check([hd["members"] for hd in avg_headers]
+          == np.bincount(mref_assign, minlength=k).tolist(), "12b: members")
+    corr = [float(np.corrcoef(avgs[j].ravel(), tmpl[j].ravel())[0, 1])
+            for j in range(k)]
+    out["class_average_corr"] = corr
+    log(f"12b export of {n} particles (rot_shift2d on the card, HDF5 written "
+        f"by the port): {out['export_s']:.2f} s; class averages' correlation "
+        f"with their templates {[round(x, 4) for x in corr]}  [{card}]")
+    check(min(corr) >= 0.9, f"12b: class average correlation {corr}")
+
+    # ---- 12c. HDFfile on the raw stack and the same table, on the card
+    t0 = time.perf_counter()
+    via_hdffile = HDFfile.load(stack_path, params_path).aligned_particles()
+    out["hdffile_s"] = time.perf_counter() - t0
+    check(np.array_equal(via_hdffile, aligned),
+          "12c: HDFfile.aligned_particles differs from the export")
+    log(f"12c HDFfile.load(stack.hdf, params.txt).aligned_particles(): "
+        f"{out['hdffile_s']:.2f} s, bitwise equal to 12b's stack")
+
+    # ---- 12d. the reduction on the aligned stack, and card vs CPU on a
+    # stack with a separated spectrum at the same width
+    iters = []
+
+    class Iterations(logging.Handler):
+        def emit(self, record):
+            iters.append(record.getMessage())
+
+    red_log = logging.getLogger("cryo_ralib_tpu_torch.analysis.reduction")
+    handler = Iterations(logging.INFO)
+    red_log.addHandler(handler)
+    red_log.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        f_two = TwoSDR(aligned, 20, 20, 8, device=dev)[0]
+        two_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        f_mpca = MPCA(aligned, 10, 10, device=dev)[0]
+        mpca_s = time.perf_counter() - t0
+        eda = load_example("torch_03_eda")
+        out["reduction"] = {
+            "twosdr_20_20_8_s": two_s, "mpca_10_10_s": mpca_s,
+            "log": list(iters),
+            "kmeans_purity_twosdr": purity_score(
+                truth, eda.kmeans(f_two, k, seed=0)),
+            "kmeans_purity_mpca": purity_score(
+                truth, eda.kmeans(f_mpca, k, seed=0))}
+        log(f"12d on the aligned {n} x {h} x {w} stack on the card: "
+            f"TwoSDR(20,20,8) {two_s:.3f} s, MPCA(10,10) {mpca_s:.3f} s "
+            f"({'; '.join(iters)}); torch_03's k-means purity against the "
+            f"stack's classes (not a gate): TwoSDR "
+            f"{out['reduction']['kmeans_purity_twosdr']:.4f}, MPCA "
+            f"{out['reduction']['kmeans_purity_mpca']:.4f}  [{card}]")
+        sep = separated_stack(N_ROT_CPU, h, 24, seed=31)
+        out["reduction"]["card_vs_cpu"] = {
+            "twosdr": reduction_agree(TwoSDR(sep, 20, 20, 8, device=dev),
+                                      TwoSDR(sep, 20, 20, 8, device="cpu"),
+                                      f"TwoSDR(20,20,8) N={N_ROT_CPU}"),
+            "mpca": reduction_agree(MPCA(sep, 10, 10, device=dev),
+                                    MPCA(sep, 10, 10, device="cpu"),
+                                    f"MPCA(10,10) N={N_ROT_CPU}"),
+            "log": iters[2:]}
+    finally:
+        red_log.removeHandler(handler)
+
+    # ---- 12e. host input: the threaded native MRC reader
+    mrcs = os.path.join(tmp, "stack.mrcs")
+    write_mrc(mrcs, host)
+    t0 = time.perf_counter()
+    by_numpy = read_mrc(mrcs, native=False)
+    numpy_s = time.perf_counter() - t0
+    built = native.available()
+    why = ("" if built else
+           f"make {'found' if shutil.which('make') else 'missing'}, "
+           f"g++ {'found' if shutil.which('g++') else 'missing'}")
+    out["native"] = {"built": built, "numpy_s": numpy_s}
+    if built:
+        t0 = time.perf_counter()
+        by_native = read_mrc(mrcs, native=True)
+        out["native"]["native_s"] = time.perf_counter() - t0
+        check(np.array_equal(by_native, by_numpy) and np.array_equal(
+            by_numpy, host), "12e: the native reader differs from numpy")
+    log(f"12e native MRC reader: {'built' if built else 'not built (' + why + ')'}"
+        f"; {n} x {h} x {w} .mrcs read by numpy {numpy_s:.3f} s"
+        + (f", natively {out['native']['native_s']:.3f} s, bitwise equal"
+           if built else ""))
+    return out
+
+
+def bdb_phase(tmp, stack, main_path, card) -> dict:
+    """12e: whether the system's libdb is present and, where it is, a
+    ``bdb:`` copy of the stack through cli.reffree (2 iterations, with
+    the header write-back into the container): 2 launches."""
+    from cryo_ralib_tpu_torch.cli import reffree as cli_reffree
+    from cryo_ralib_tpu_torch.io import bdb
+
+    out = {"libdb": bdb._load_libdb() is not None}
+    log(f"12e libdb with the DB 1.85 API: "
+        f"{'present' if out['libdb'] else 'absent, no bdb: run'}")
+    if not out["libdb"]:
+        return out
+    spec = f"bdb:{tmp}#stack"
+    bdb.write_bdb_stack(spec, stack.cpu().numpy())
+    outdir = os.path.join(tmp, "reffree_bdb")
+    (rc, _), out["reffree_seconds"] = main_path(
+        "cli reffree bdb", lambda: quietly(lambda: cli_reffree.main(
+            [spec, outdir, "--ou=36", "--xr=3", "--ts=1", "--maxit=2",
+             "--header_writeback"])), {**NO_LAUNCH, "search": 2})
+    check(rc == 0, f"cli reffree on bdb: exit {rc}")
+    params = np.loadtxt(os.path.join(outdir, "initial2Dparams.txt"))
+    headers = bdb.read_bdb_stack(spec)[1]
+    check(params.shape == (stack.shape[0], 4) and np.isfinite(params).all()
+          and "xform.align2d" in headers[-1], "cli reffree on bdb: outputs")
+    log(f"12e cli.reffree on a bdb: stack of {stack.shape[0]}: "
+        f"{out['reffree_seconds']:.2f} s for 2 iterations, params written "
+        f"back into the container  [{card}]")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -1453,6 +1761,7 @@ def main():
         f"counts {res.class_counts.tolist()}  [{card}]")
     check(pur >= 0.9, f"class purity {pur}")
     mref_s_it = seconds / MAXIT
+    mref_params, mref_assign = res.params, res.assignments
 
     # ---- 6b. mref at K=64
     imgs64, cls64 = scattered_stack(tmpl64, N_SLICE, max_shift=2, noise=1.0,
@@ -1563,6 +1872,16 @@ def main():
     # ---- 11. stacks larger than the card
     slice_json["streaming"] = streaming_phase(dev, card, main_path, imgs,
                                               tmpl, cls, stack_a)
+
+    # ---- 12. after the alignment: nothing in 12a-12e searches
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_post_") as tmp:
+        post, seconds = main_path("post-alignment", lambda: (
+            post_alignment_phase(dev, card, tmp, imgs, tmpl, cls,
+                                 mref_params, mref_assign)), NO_LAUNCH)
+        post["seconds"] = seconds
+        post["bdb"] = bdb_phase(tmp, stack_a, main_path, card)
+    slice_json["post_alignment"] = post
+    log(f"phase 12: {seconds:.1f} s without the bdb: run")
     del imgs, stack_a
 
     shapes = {   # entry -> (timing key, K, mirror channels, mask)

@@ -5,9 +5,10 @@ The same flags, spellings and per-CLI defaults as the JAX CLI (the
 reference's optparse surface), so a command line that runs there parses
 the same here.  One process runs on one GPU with the stack resident in
 device memory; there is no mesh.  What is not ported yet (the TPU
-engines ``--sampler=template/matmul``, more than one device and ``bdb:``
-stacks) exits with status 2 and a message naming the flag before any
-stack is read.  ``--sampler``: ``auto`` and ``fused`` run the CUDA search
+engines ``--sampler=template/matmul`` and more than one device) exits
+with status 2 and a message naming the flag before any stack is read.
+Stacks are ``.hdf``, ``.mrc(s)`` or EMAN2 ``bdb:`` containers (read and
+written back through the system's ``libdb``, ``io/bdb.py``).  ``--sampler``: ``auto`` and ``fused`` run the CUDA search
 kernel on the GPU, ``gather`` its plain PyTorch version (the JAX
 ``gather`` engine's f32 semantics); ``--random_method=SHC`` and
 ``--ring_scheme=eman2`` have no kernel and run the PyTorch search under
@@ -163,7 +164,7 @@ def _device_count(s: str) -> int:
     return len(entries)
 
 
-def reject_unported(args, paths):
+def reject_unported(args):
     """Exit 2, naming each flag, on what the port does not do yet; runs
     before any stack is read."""
     problems = []
@@ -174,8 +175,6 @@ def reject_unported(args, paths):
         problems.append(f"--devices={args.devices} (multi-GPU)")
     if _device_count(args.gpu_devices) > 1:
         problems.append(f"--gpu_devices={args.gpu_devices} (multi-GPU)")
-    problems += [f"{p} (bdb: stacks; convert with `e2proc2d.py {p} "
-                 "stack.hdf`)" for p in paths if p and p.startswith("bdb:")]
     if problems:
         print("ERROR: not ported yet to the PyTorch/CUDA package:\n  "
               + "\n  ".join(problems), file=sys.stderr)
@@ -259,11 +258,27 @@ def print_device_info():
 
 
 def load_stack(path: str):
-    """Read a particle stack by extension: EMAN2-HDF (.hdf, through h5py
-    unless this package wrote it), MRC(S) (numpy)."""
+    """Read a particle stack: an EMAN2 ``bdb:`` container (through the
+    system's libdb), or by extension EMAN2-HDF (.hdf, through h5py unless
+    this package wrote it) or MRC(S)."""
     from ..io.eman_hdf import read_hdf_stack
     from ..io.mrc import read_mrc
 
+    if path.startswith("bdb:"):
+        from ..io.bdb import read_bdb_stack
+
+        try:
+            images, headers = read_bdb_stack(path)
+        except FileNotFoundError:
+            raise
+        except (RuntimeError, ValueError, OSError, KeyError) as e:
+            # missing libdb, a foreign layout (no maxrec/data_path) or a
+            # corrupt btree: the same guidance as the JAX CLI's
+            raise ValueError(
+                f"{e}; convert to HDF first, e.g. "
+                f"`e2proc2d.py {path} stack.hdf` — then pass stack.hdf"
+            ) from e
+        return np.asarray(images, np.float32), headers
     ext = os.path.splitext(path)[1].lower()
     if ext in (".hdf", ".h5", ".hdf5"):
         images, headers = read_hdf_stack(path)
@@ -300,9 +315,7 @@ def check_outdir(outdir: str):
 
 def writeback_headers(stack_path: str, table: np.ndarray, assign=None):
     """Final header write-back (``xform.align2d`` + ``assign``) into an
-    HDF stack."""
-    from ..io.eman_hdf import update_headers
-
+    HDF stack or a ``bdb:`` container."""
     updates = []
     for i in range(table.shape[0]):
         upd = {"xform.align2d": {
@@ -312,4 +325,11 @@ def writeback_headers(stack_path: str, table: np.ndarray, assign=None):
         if assign is not None:
             upd["assign"] = int(assign[i])
         updates.append(upd)
+    if stack_path.startswith("bdb:"):
+        from ..io.bdb import update_bdb_headers
+
+        update_bdb_headers(stack_path, updates)
+        return
+    from ..io.eman_hdf import update_headers
+
     update_headers(stack_path, updates)

@@ -24,7 +24,7 @@ def build_parser():
         prog="cryo-ralib-torch-mref",
         description="multireference 2D alignment on one NVIDIA GPU "
                     "(PyTorch/CUDA port of cryo_ralib_tpu)")
-    p.add_argument("stack", help="particle stack (.hdf/.mrcs)")
+    p.add_argument("stack", help="particle stack (.hdf/.mrcs/bdb:)")
     p.add_argument("refs", help="initial references (.hdf/.mrcs)")
     p.add_argument("outdir", help="output directory (must not exist)")
     p.add_argument("maskfile", nargs="?", default=None,
@@ -40,7 +40,7 @@ def main(argv=None, device="cuda"):
     if args.gpu_info:
         print_device_info()
         return 0
-    reject_unported(args, (args.stack, args.refs, args.maskfile))
+    reject_unported(args)
     device = cli_device(device)
     if args.resume:
         os.makedirs(args.outdir, exist_ok=True)

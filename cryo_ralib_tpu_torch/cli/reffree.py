@@ -28,7 +28,7 @@ def build_parser():
         prog="cryo-ralib-torch-reffree",
         description="reference-free 2D alignment on one NVIDIA GPU "
                     "(PyTorch/CUDA port of cryo_ralib_tpu)")
-    p.add_argument("stack", help="particle stack (.hdf/.mrcs)")
+    p.add_argument("stack", help="particle stack (.hdf/.mrcs/bdb:)")
     p.add_argument("outdir", help="output directory (must not exist)")
     p.add_argument("maskfile", nargs="?", default=None,
                    help="optional mask image replacing the default "
@@ -44,7 +44,7 @@ def main(argv=None, device="cuda"):
         print_device_info()
         return 0
     validate_reffree_flags(args)
-    reject_unported(args, (args.stack, args.maskfile))
+    reject_unported(args)
     device = cli_device(device)
     if args.resume:
         os.makedirs(args.outdir, exist_ok=True)

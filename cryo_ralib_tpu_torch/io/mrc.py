@@ -1,8 +1,8 @@
 """MRC/MRCS stack I/O (a copy of ``cryo_ralib_tpu/io/mrc.py``, no mrcfile
 dependency): the MRC2014 header, a numpy reader and writer, and the lazy
-per-particle reader with the 1024-byte header offset.  The JAX package's
-threaded native reader is not ported yet: ``read_mrc`` reads with numpy
-and refuses ``native=True``.
+per-particle reader with the 1024-byte header offset.  ``read_mrc``
+reads through the threaded native reader (``cryo_ralib_tpu_torch.native``)
+where it is built, as the JAX package's does, and with numpy otherwise.
 """
 
 from __future__ import annotations
@@ -62,13 +62,20 @@ def parse_header(path: str) -> MRCHeader:
 def read_mrc(path: str, indices=None, native: bool | None = None) -> np.ndarray:
     """Read a full stack (or selected z-slices) as (N, H, W) float32.
 
-    ``native=True`` (the JAX package's threaded C++ reader) raises
-    ``NotImplementedError``: it is not ported yet.
+    ``native=None`` uses the threaded C++ reader when it is built and the
+    read is large enough to matter (64 slices); True uses it wherever it
+    is available; False forces numpy.  Both give the same values.
     """
-    if native:
-        raise NotImplementedError("the threaded native MRC reader is not "
-                                  "ported yet; read with native=False")
     hdr = parse_header(path)
+    n_read = hdr.nz if indices is None else len(indices)
+    if native is None:
+        native = n_read >= 64
+    if native and hdr.mode in _MODE_DTYPES:
+        from .. import native as native_mod
+
+        if native_mod.available():
+            idx = np.arange(hdr.nz) if indices is None else indices
+            return native_mod.read_slices(path, idx)
     item = hdr.nx * hdr.ny
     dtype = hdr.dtype
     if indices is None:

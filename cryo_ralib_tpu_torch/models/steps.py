@@ -5,13 +5,15 @@ every particle against every reference, decode the winners, transform
 and sum the classes even/odd; an ``angle_mask`` (``--dst``) restricts
 the angle argmax and turns off the parabolic refinement),
 ``align_step_shc`` (stochastic hill climbing) and ``align_step_scf``
-(self-correlation alignment).
+(self-correlation alignment), and ``raw_sum_step`` (the even/odd sums
+of the raw stack).
 
 Which search runs (``resolve_sampler``): the hand-written CUDA kernel
 takes the standard search on uniform 256-sample rings, full or half
 (mode "F" or "H"); the SHC pick and the eman2 ring scheme have no
 kernel, as the JAX package has no Pallas kernel for them, and run the
-PyTorch search on either device, and so does a geometry outside the
+PyTorch search on either device, and so do the per-particle-reference
+search (``per_particle_ref``) and a geometry outside the
 kernel's gate (``ops/fused_search.py::kernel_gate``: other ring lengths,
 a block larger than the device's shared memory, the int32 priority
 bound), as the JAX package's "auto" leaves the Pallas kernel there.
@@ -68,14 +70,16 @@ def _header_shift_sums(params: AlignParams, valid):
 
 def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
                     random_method: str = "", n_refs: int = 1,
-                    smem_limit: int | None = None) -> str:
+                    smem_limit: int | None = None,
+                    per_particle_ref: bool = False) -> str:
     """The search a step runs: "kernel" (the CUDA kernel) or "plain" (the
     PyTorch search).
 
     "auto" is the kernel for CUDA tensors and plain for CPU tensors,
     except where there is no kernel: the SHC pick
     (``random_method="SHC"``), the eman2 ring scheme
-    (``cfg.ring_scheme == "eman2"``) and, on a CUDA device, a geometry
+    (``cfg.ring_scheme == "eman2"``), the per-particle-reference search
+    (``per_particle_ref``) and, on a CUDA device, a geometry
     outside ``kernel_gate`` (``n_refs`` references of ``cfg``'s box;
     ``smem_limit`` defaults to the device's) run plain, which is logged.
     "kernel" asked for there raises ``ValueError`` naming the rule.
@@ -86,6 +90,9 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
     no_kernel = None
     if random_method == "SHC":
         no_kernel = "random_method='SHC' (the kernel has no SHC pick)"
+    elif per_particle_ref:
+        no_kernel = ("per_particle_ref (the kernel searches every "
+                     "reference)")
     elif cfg is not None and cfg.ring_scheme == "eman2":
         no_kernel = ("ring_scheme='eman2' (the kernel takes uniform "
                      "256-sample rings)")
@@ -175,6 +182,17 @@ def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
     if valid is not None:
         peak = torch.where(valid > 0, peak, 0.0)
     return StepOutput(new_params, sums, counts, peak, sx_sum, sy_sum)
+
+
+def raw_sum_step(images, global_index, valid, *, n_classes: int = 1):
+    """Even/odd sums (K, 2, H, W) of the raw, untransformed stack, every
+    particle in class 0: iteration 0 of the reference-free loop
+    (``statistics.sum_oe``)."""
+    ref_id = torch.zeros(images.shape[0], dtype=torch.int32,
+                         device=images.device)
+    sums, _ = class_sum_oe(images, ref_id, n_classes,
+                           global_index=global_index, valid=valid)
+    return sums
 
 
 class ShcStepOutput(NamedTuple):

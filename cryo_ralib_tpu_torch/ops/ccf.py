@@ -39,6 +39,25 @@ def ccf_spectra(sbj_f, ref_fw):
     return orig, mirr
 
 
+def ccf_spectra_per_particle_ref(sbj_f, ref_fw, ref_id):
+    """``ccf_spectra`` with each particle against its assigned reference
+    only (the reference's ``cu_ccf_mult``, which selects
+    ``ref_batch_ptr[aln_param[i].ref_id]``).
+
+    Args:
+      sbj_f: (N, C, R, F); ref_fw: (K, R, F); ref_id: (N,) integer.
+    Returns:
+      (orig, mirr), each (N, C, 1, F) complex: the K axis is kept with
+      one entry, so the downstream argmax decodes the same way.
+    """
+    ref_sel = ref_fw[ref_id.long()]   # (N, R, F)
+    orig = torch.einsum("ncrf,nrf->ncf", sbj_f.conj().resolve_conj(),
+                        ref_sel)[:, :, None, :]
+    mirr = torch.einsum("ncrf,nrf->ncf", sbj_f,
+                        ref_sel).conj().resolve_conj()[:, :, None, :]
+    return orig, mirr
+
+
 def ccf_rows(orig_f, mirr_f, ring_len: int):
     """Inverse-FFT ccf spectra to (N, 2, C, K, L) real angle rows ordered
     [orig, mirr] on axis 1, so a flat argmax follows the priority order

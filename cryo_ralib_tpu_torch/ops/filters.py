@@ -3,8 +3,9 @@
 Counterparts of ``cryo_ralib_tpu/ops/filters.py``: ``filt_tanl``, the
 FSC-driven filter of the ``ref_ali2d`` user function, ``filt_tanl_dyn``,
 the device loops' filter with its cutoff and falloff on the device, and
-``fshift``, the sub-pixel Fourier shift of average centering, on
-``torch.fft.rfft2`` / ``irfft2``.
+``fshift``, the sub-pixel Fourier shift of average centering, and
+``filt_btwl``, EMAN2's Butterworth low-pass, on ``torch.fft.rfft2`` /
+``irfft2``.
 """
 
 from __future__ import annotations
@@ -70,6 +71,24 @@ def filt_tanl_dyn(img, cutoff, falloff):
                        torch.ones_like(resp))
     f = torch.fft.rfft2(img)
     return torch.fft.irfft2(f * resp, s=(h, w)).to(img.dtype)
+
+
+def filt_btwl(img, freq_low: float, freq_high: float):
+    """Butterworth low-pass of (..., H, W) images between the pass band
+    ``freq_low`` and the stop band ``freq_high`` (EMAN2 ``filt_btwl``:
+    -3 dB at the pass band, eps=0.882, the order from the band edges)."""
+    img = torch.as_tensor(img)
+    h, w = img.shape[-2:]
+    eps = 0.882
+    aa = 10.624
+    order = (2.0 * np.log10(eps / np.sqrt(aa * aa - 1.0))
+             / np.log10(freq_low / freq_high))
+    rad = freq_low / (eps ** (2.0 / order))
+    resp = (1.0 / np.sqrt(1.0 + (_freq_grid(h, w) / rad) ** order)
+            ).astype(np.float32)
+    f = torch.fft.rfft2(img)
+    return torch.fft.irfft2(f * torch.as_tensor(resp, device=img.device),
+                            s=(h, w)).to(img.dtype)
 
 
 def fshift(img, sx, sy):

@@ -24,7 +24,8 @@ import torch
 
 from ..config import AlignConfig
 from ..params import AlignParams
-from .ccf import ccf_rows, ccf_spectra, ring_spectra, weight_ring_spectra
+from .ccf import (ccf_rows, ccf_spectra, ccf_spectra_per_particle_ref,
+                  ring_spectra, weight_ring_spectra)
 from .polar import polar_resample
 
 _NEG_INF = -3.0e38
@@ -97,7 +98,8 @@ def priority_index(mirror, sidx, ref, aidx, n_shifts: int, n_refs: int,
 
 def rotational_shift_search(images, ref_fw, params: AlignParams,
                             cfg: AlignConfig, shift_chunk: int = 8,
-                            angle_mask=None) -> SearchResult:
+                            angle_mask=None,
+                            per_particle_ref: bool = False) -> SearchResult:
     """Full (mirror x shift x ref x angle) search for one batch.
 
     Args:
@@ -110,11 +112,14 @@ def rotational_shift_search(images, ref_fw, params: AlignParams,
       angle_mask: optional (L,) additive f32 mask (``delta_angle_mask``)
         added to every row before the argmax, so the winning row comes
         back masked; decode with ``refine=False``.
+      per_particle_ref: each particle against its ``params.ref_id`` only
+        (``ccf_spectra_per_particle_ref``); every winner's ``best_ref``
+        is then 0, so decode with ``update_ref=False``.
     """
     n = images.shape[0]
     dev = images.device
     ring_len = cfg.ring_len
-    n_refs = ref_fw.shape[0]
+    n_refs = 1 if per_particle_ref else ref_fw.shape[0]
     tables = search_tables(cfg, dev)
     shifts = tables.shifts  # (S, 2)
     s_total = shifts.shape[0]
@@ -130,12 +135,19 @@ def rotational_shift_search(images, ref_fw, params: AlignParams,
         sx = params.shift_x[:, None] + grid[None, :, 0]
         sy = params.shift_y[:, None] + grid[None, :, 1]
         polar = polar_resample(images, coords, sx, sy)  # (N, C, R, L)
-        orig_f, mirr_f = ccf_spectra(ring_spectra(polar), ref_fw)
+        orig_f, mirr_f = _ccf(ring_spectra(polar), ref_fw, params,
+                              per_particle_ref)
         rows = ccf_rows(orig_f, mirr_f if cfg.mirror else None, ring_len)
         if angle_mask is not None:
             rows = rows + angle_mask
         best = _update_best(best, rows, s0, s_total, n_refs)
     return best
+
+
+def _ccf(sbj_f, ref_fw, params: AlignParams, per_particle_ref: bool):
+    if per_particle_ref:
+        return ccf_spectra_per_particle_ref(sbj_f, ref_fw, params.ref_id)
+    return ccf_spectra(sbj_f, ref_fw)
 
 
 def empty_result(n: int, ring_len: int, device) -> SearchResult:
@@ -252,7 +264,8 @@ def _shc_fold(carry, rows, global_sidx, s_total: int, previousmax):
 
 def rotational_shift_search_shc(images, ref_fw, params: AlignParams,
                                 cfg: AlignConfig, previousmax,
-                                shift_chunk: int | None = None):
+                                shift_chunk: int | None = None,
+                                per_particle_ref: bool = False):
     """Stochastic-hill-climbing (SHC) variant of the search
     (``random_method="SHC"``).
 
@@ -261,6 +274,8 @@ def rotational_shift_search_shc(images, ref_fw, params: AlignParams,
     strictly above its ``previousmax`` (N,), with that row's angle
     argmax.  The order is fixed, not random, so runs reproduce.
     ``shift_chunk`` is a memory knob only (None: ``plain_shift_chunk``).
+    ``per_particle_ref`` searches each particle's ``params.ref_id`` only,
+    as in ``rotational_shift_search``.
 
     Returns ``(SearchResult, found)``; ``found`` is an (N,) bool mask.  A
     particle with no such candidate has zero-filled result fields, and
@@ -279,7 +294,8 @@ def rotational_shift_search_shc(images, ref_fw, params: AlignParams,
         sx = params.shift_x[:, None] + grid[None, :, 0]
         sy = params.shift_y[:, None] + grid[None, :, 1]
         polar = polar_resample(images, tables.polar_coords, sx, sy)
-        orig_f, mirr_f = ccf_spectra(ring_spectra(polar), ref_fw)
+        orig_f, mirr_f = _ccf(ring_spectra(polar), ref_fw, params,
+                              per_particle_ref)
         rows = ccf_rows(orig_f, mirr_f if cfg.mirror else None, cfg.ring_len)
         gs = torch.arange(s0, s0 + grid.shape[0], device=dev)
         carry = _shc_fold(carry, rows, gs, s_total, previousmax)

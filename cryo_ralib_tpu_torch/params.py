@@ -2,8 +2,9 @@
 
 Counterpart of ``cryo_ralib_tpu/params.py``: the struct-of-arrays
 ``AlignParams`` state, the search-to-header shift decode, the
-``params_table`` rows of ``final2Dparams.txt`` and the ``pixel_error_2D``
-QC metric.  ``params_from_numpy`` /
+``params_table`` rows of ``final2Dparams.txt``, the ``pixel_error_2D``
+QC metric and the SPHIRE transform algebra (``combine_params2``,
+``inverse_transform2``).  ``params_from_numpy`` /
 ``AlignParams.to_numpy`` carry state across packages: they take and give
 exactly the dict of the JAX ``AlignParams.to_numpy()``.
 """
@@ -67,6 +68,63 @@ def gpu_params_to_align2d(angle, shift_x, shift_y):
     out_sx = sx_neg * c - sy_neg * s
     out_sy = sx_neg * s + sy_neg * c
     return out_sx, out_sy
+
+
+def _algebra(*args):
+    """The array module of the transform algebra and its converters
+    ``(xp, asarray, asfloat)``: torch on the device of the first tensor
+    argument, floats in float32, if any argument is a tensor; numpy,
+    floats in float64, otherwise (as the JAX package's numpy path)."""
+    t = next((a for a in args if torch.is_tensor(a)), None)
+    if t is None:
+        return np, np.asarray, lambda v: np.asarray(v, np.float64)
+
+    def as_t(v):
+        return torch.as_tensor(v, device=t.device)
+
+    return torch, as_t, lambda v: as_t(v).float()
+
+
+def combine_params2(alpha1, sx1, sy1, mirror1, alpha2, sx2, sy2, mirror2):
+    """Compose two 2D align transforms: the result applies T1, then T2
+    (SPHIRE ``sp_utilities.combine_params2``, in plain trigonometry).
+
+    With each transform in mirror-last form ``T(p) = F^m (R(a) p + t)``
+    (F = x-flip)::
+
+        mirror = m1 ^ m2
+        alpha  = a1 + (-1)^m1 * a2   (mod 360)
+        t      = R((-1)^m1 * a2) @ t1 + F^m1 @ t2
+
+    Arguments are scalars or arrays, mirrors 0/1.  Numpy (or Python
+    numbers) in gives numpy out, in float64; any tensor in gives tensors
+    out on its device, in float32.
+    """
+    xp, asarray, asfloat = _algebra(alpha1, sx1, sy1, mirror1, alpha2, sx2,
+                                    sy2, mirror2)
+    m1, m2 = asarray(mirror1), asarray(mirror2)
+    a1, a2 = asfloat(alpha1), asfloat(alpha2)
+    x1, y1, x2, y2 = (asfloat(v) for v in (sx1, sy1, sx2, sy2))
+    sign1 = xp.where(m1 == 1, -1.0, 1.0)
+    ang2 = xp.deg2rad(sign1 * a2)
+    c2, s2 = xp.cos(ang2), xp.sin(ang2)
+    return ((a1 + sign1 * a2) % 360.0, x1 * c2 - y1 * s2 + sign1 * x2,
+            x1 * s2 + y1 * c2 + y2, (m1 + m2) % 2)
+
+
+def inverse_transform2(alpha, sx, sy, mirror=0):
+    """Invert a 2D align transform (SPHIRE ``inverse_transform2``): with
+    ``T(p) = F^m (R(a) p + t)`` the inverse in the same form is
+    ``mirror' = m``, ``alpha' = (-1)^(m+1) a``, ``t' = -F^m R(-a) t``.
+    Numpy in gives numpy out; a tensor in gives tensors out."""
+    xp, asarray, _ = _algebra(alpha, sx, sy)
+    m, a, sxn, syn = (asarray(v) for v in (mirror, alpha, sx, sy))
+    ang = xp.deg2rad(a)
+    c, s = xp.cos(ang), xp.sin(ang)
+    rx = c * sxn + s * syn       # R(-a) @ t
+    ry = -s * sxn + c * syn
+    return (xp.where(m == 1, a % 360.0, (-a) % 360.0),
+            xp.where(m == 1, rx, -rx), -ry, m)
 
 
 def params_table(params: AlignParams) -> np.ndarray:

@@ -1,7 +1,8 @@
 """Synthetic particle stacks for tests, smoke runs and demos.
 
-``class_templates``, ``asymmetric_templates`` and ``blob_stack`` are
-copies of ``cryo_ralib_tpu/utils/synthetic.py``'s (numpy);
+``random_stack``, ``class_templates``, ``asymmetric_templates`` and
+``blob_stack`` are copies of ``cryo_ralib_tpu/utils/synthetic.py``'s
+(numpy);
 ``unit_sigma_blobs`` normalises ``blob_stack`` templates.  ``scattered_stack`` is
 this package's own generator: numpy-seeded classes, angles, shifts,
 mirrors and noise, applied to the templates with the port's
@@ -16,6 +17,12 @@ import torch
 
 from ..params import AlignParams
 from ..ops.transform import transform_batch
+
+
+def random_stack(n: int, nx: int, seed: int = 0) -> np.ndarray:
+    """Uniform-noise stack (the C harnesses' ImageStack)."""
+    rng = np.random.default_rng(seed)
+    return rng.random((n, nx, nx), np.float32)
 
 
 def class_templates(n_classes: int, nx: int) -> np.ndarray:

@@ -369,9 +369,7 @@ UNPORTED = [
     ("mref", ["--sampler=matmul"], "--sampler"),
     ("mref", ["--devices=2"], "--devices"),
     ("mref", ["--gpu_devices=0,1"], "--gpu_devices"),
-    ("mref", ["bdb:refs"], "bdb:"),
     ("reffree", ["--gpu_devices=4"], "--gpu_devices"),
-    ("reffree", ["bdb:stack"], "bdb:"),
 ]
 
 
@@ -382,18 +380,38 @@ def test_cli_unported_flags_exit_2(tmp_path, capsys, cli, argv, flag):
     any stack is read (the stack paths here do not exist) and before the
     output directory is made."""
     out = str(tmp_path / "out")
-    if argv[0].startswith("bdb:"):
-        pos = (["missing.hdf", argv[0], out] if cli == "mref"
-               else [argv[0], out])
-        argv = []
-    else:
-        pos = (["missing.hdf", "missing_refs.hdf", out] if cli == "mref"
-               else ["missing.hdf", out])
+    pos = (["missing.hdf", "missing_refs.hdf", out] if cli == "mref"
+           else ["missing.hdf", out])
     with pytest.raises(SystemExit) as exc:
         _run(cli, "port", pos + argv)
     assert exc.value.code == 2
     assert flag in capsys.readouterr().err
     assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("cli,spec", [("mref", "bdb:refs"),
+                                      ("reffree", "bdb:stack")])
+def test_cli_bdb_reaches_load_stack(tmp_path, monkeypatch, stacks, cli,
+                                    spec):
+    """A ``bdb:`` path is taken (no longer refused with exit 2): it
+    reaches ``load_stack``, which without libdb raises the JAX CLI's
+    ``ValueError`` naming ``e2proc2d.py``, in both packages."""
+    from cryo_ralib_tpu.io import bdb as jax_bdb
+    from cryo_ralib_tpu_torch.io import bdb as port_bdb
+
+    monkeypatch.chdir(tmp_path)
+    for mod in (port_bdb, jax_bdb):
+        monkeypatch.setattr(mod, "_load_libdb", lambda: None)
+    _dbdir, dbfile = port_bdb.parse_bdb_path(spec)
+    os.makedirs(os.path.dirname(dbfile))
+    open(dbfile, "wb").close()
+    for which in ("port", "jax"):
+        out = str(tmp_path / f"out_{which}")
+        pos = ([stacks["stack", "mrcs"], spec, out] if cli == "mref"
+               else [spec, out])
+        with pytest.raises(ValueError, match="e2proc2d.py") as err:
+            _run(cli, which, pos + COMMON)
+        assert spec in str(err.value) and "libdb" in str(err.value)
 
 
 def test_cli_reffree_rejects_dst_with_random_method(capsys):

@@ -123,9 +123,10 @@ def test_port_imports_neither_jax_nor_jax_package():
 
 def test_import_boundary_covers_every_module_and_chip_smoke():
     """The walk above reaches every module of the package (the modes'
-    modules among them), and no source file of the package, nor
-    ``chip_smoke.py``, names ``jax`` or ``cryo_ralib_tpu`` in an import,
-    a lazy one inside a function included."""
+    and the post-alignment modules among them), and no source file of the
+    package, nor ``chip_smoke.py`` nor the port's examples and tools,
+    names ``jax`` or ``cryo_ralib_tpu`` in an import, a lazy one inside a
+    function included."""
     import ast
     import pathlib
     import pkgutil
@@ -140,9 +141,17 @@ def test_import_boundary_covers_every_module_and_chip_smoke():
             "cryo_ralib_tpu_torch.ops.fourvar",
             "cryo_ralib_tpu_torch.io.star",
             "cryo_ralib_tpu_torch.parallel.batching",
-            "cryo_ralib_tpu_torch.utils.profiling"} <= names
+            "cryo_ralib_tpu_torch.utils.profiling",
+            "cryo_ralib_tpu_torch.utils.oracle",
+            "cryo_ralib_tpu_torch.analysis.reduction",
+            "cryo_ralib_tpu_torch.analysis.plots",
+            "cryo_ralib_tpu_torch.io.dataset",
+            "cryo_ralib_tpu_torch.io.bdb",
+            "cryo_ralib_tpu_torch.native"} <= names
     root = pathlib.Path(pkg.__file__).parent
-    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    files = (sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+             + sorted(root.parent.glob("examples/torch_*.py"))
+             + sorted(root.parent.glob("tools/torch_*.py")))
     assert len(files) > len(names)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
