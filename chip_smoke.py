@@ -139,12 +139,35 @@ Phases (any failure raises and the script exits non-zero):
         system's libdb is present, and where it is, a bdb: copy of run
         A's stack through cli.reffree for 2 iterations (its own main
         path: 2 launches).
+  13. two ranks (torch.distributed), each a process of its own: NCCL over
+     two cards where two are visible, else gloo with both ranks on
+     cuda:0 (the backend is printed):
+     a. mref_ali2d on phase 6's stack (16384 x 90 px, K=8, maxit=2),
+        each rank reading its block of phase 9's .mrcs: iteration 1's
+        winners equal one process's, the class sums within 1e-5 of their
+        largest, then at least 99.9% of assignments equal and the params
+        within 1e-3 where they agree; exactly one search launch per rank
+        per iteration (each rank's counters); s/iteration beside one
+        process's, the all-reduce's ms (CUDA events) and bytes, the params
+        gather's ms;
+     b. python -m torch.distributed.run --nproc_per_node 2 -m
+        cryo_ralib_tpu_torch.cli.mref on phase 9's files: its
+        final2Dparams.txt and aqm005.hdf members against phase 9's run by
+        13a's rule, its log naming the ranks and the backend;
+     c. reffree A (ali2d_base, maxit=11, dst=15) resident and streamed in
+        batches of 4096 against phase 7's run (phase 4b's rule), and the
+        mref device loop (6 iterations) against phase 8's; under NCCL the
+        loop runs again under sync debug mode "error" (gloo stages CUDA
+        tensors through the host, so the check is not made there).
+     A rank that raises fails the phase (torch.multiprocessing.spawn
+     re-raises it) and the run.
 Every launch counter is set to 0 just before each main-path run (6, 6b,
-7, 8, 9, 10, 11, 12) and read just after it.  The last lines are the slice's JSON
-line (loop rates, stage breakdown, CLI times), the stage ablation's JSON
-line, the card, the kernels' JSON record (with each instantiation's
-registers, spill bytes and shared memory per block) and the run's
-verdict.
+7, 8, 9, 10, 11, 12, and 13 in each rank) and read just after it.  The
+last lines are the slice's JSON line (loop rates, stage breakdown, CLI
+times, phase 13), the stage ablation's JSON line, the card, the kernels'
+JSON record (with each instantiation's registers, spill bytes and shared
+memory per block, and the launches of each path, the ranks' among them)
+and the run's verdict.
 """
 
 import contextlib
@@ -570,7 +593,8 @@ def cli_phase(tmp, imgs, tmpl, truth, stack_a, main_path, card) -> dict:
     write_mrc(stack, imgs.cpu().numpy())
     write_mrc(refs, tmpl)
     write_mrc(stack1, stack_a.cpu().numpy())
-    geo = ["--ou=36", "--xr=3", "--ts=1"]
+    # one process on one card, on a machine with more (0 = every card)
+    geo = ["--ou=36", "--xr=3", "--ts=1", "--devices=1"]
     out_m, out_r = os.path.join(tmp, "mref"), os.path.join(tmp, "reffree")
     row = {}
     (rc, _), row["mref_seconds"] = main_path(
@@ -846,7 +870,8 @@ def modes_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, mir_a,
         (rc, _), cli_s = main_path(
             "cli mref CTF", lambda: quietly(lambda: cli_mref.main(
                 [stack, refs, out_c, "--ou=36", "--xr=3", "--ts=1",
-                 f"--maxit={MAXIT}", "--CTF", f"--ctf_file={star}"])),
+                 f"--maxit={MAXIT}", "--CTF", f"--ctf_file={star}",
+                 "--devices=1"])),
             {**NO_LAUNCH, "search": MAXIT})
         check(rc == 0, f"cli mref --CTF exit {rc}")
         _, headers = read_own_hdf(os.path.join(out_c,
@@ -1440,7 +1465,8 @@ def bdb_phase(tmp, stack, main_path, card) -> dict:
     (rc, _), out["reffree_seconds"] = main_path(
         "cli reffree bdb", lambda: quietly(lambda: cli_reffree.main(
             [spec, outdir, "--ou=36", "--xr=3", "--ts=1", "--maxit=2",
-             "--header_writeback"])), {**NO_LAUNCH, "search": 2})
+             "--header_writeback", "--devices=1"])),
+        {**NO_LAUNCH, "search": 2})
     check(rc == 0, f"cli reffree on bdb: exit {rc}")
     params = np.loadtxt(os.path.join(outdir, "initial2Dparams.txt"))
     headers = bdb.read_bdb_stack(spec)[1]
@@ -1450,6 +1476,353 @@ def bdb_phase(tmp, stack, main_path, card) -> dict:
         f"{out['reffree_seconds']:.2f} s for 2 iterations, params written "
         f"back into the container  [{card}]")
     return out
+
+
+# ---- phase 13: two ranks (torch.distributed), a process each
+MESH_RANKS = 2
+MESH_MAXIT = 2
+MESH_BATCH = 4096      # 13c streamed: batches of a rank's 8192
+
+
+def mesh_rank(rank, world, store, tmp):
+    """One rank of phase 13 (a process of its own, started by
+    ``torch.multiprocessing.spawn``): 13a's engine iteration and
+    mref_ali2d on phase 6's stack, the all-reduce and the params gather
+    timed, and 13c's reffree A resident and streamed and the mref device
+    loop.  Each rank writes its launch counts and times to
+    ``rank<r>.json``; rank 0 writes the gathered results to
+    ``mesh.npz``."""
+    from cryo_ralib_tpu_torch.models import make_mref_device_loop
+    from cryo_ralib_tpu_torch.models.engine import AlignmentEngine
+    from cryo_ralib_tpu_torch.models.mref import mref_ali2d
+    from cryo_ralib_tpu_torch.models.reffree import ali2d_base
+    from cryo_ralib_tpu_torch.io.mrc import read_mrc
+    from cryo_ralib_tpu_torch.ops import fused_search as fs
+    from cryo_ralib_tpu_torch.params import AlignParams
+    from cryo_ralib_tpu_torch.parallel.mesh import (
+        StackShard, all_reduce_sums, gather_params, initialize_distributed,
+        shard_range, shutdown)
+    from cryo_ralib_tpu_torch.utils.log import RunLogger
+
+    t_start = time.perf_counter()
+    mesh = initialize_distributed(rank=rank, world_size=world,
+                                  init_method=store, device="cuda",
+                                  timeout=120)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev, quiet = mesh.device, RunLogger(None, quiet=True)
+        tmpl = np.load(os.path.join(tmp, "tmpl.npy"))
+        refs = np.load(os.path.join(tmp, "refs.npy"))
+        k, n = tmpl.shape[0], N_SLICE
+        s, e = shard_range(n, mesh)
+        cfg = geometry(HEADLINE)
+        out, info = {}, {"backend": mesh.backend, "device": str(dev),
+                         "block": [s, e], "launches": {}, "seconds": {}}
+
+        def run(label, fn):
+            fs.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            info["seconds"][label] = time.perf_counter() - t0
+            info["launches"][label] = {
+                key: n_l for key, n_l in fs.fused_search.launches.items()
+                if n_l}
+            return res
+
+        # ---- 13a. one engine iteration on the normalised block, then
+        # mref_ali2d on the raw block
+        norm = np.load(os.path.join(tmp, "norm.npy"), mmap_mode="r")
+        eng = AlignmentEngine(StackShard(np.array(norm[s:e]),
+                                         s, n), cfg, n_classes=k, mesh=mesh)
+        it = eng.iterate(refs)
+        p1 = eng.params_np()
+        del eng, norm
+        imgs = read_mrc(os.path.join(tmp, "stack.mrcs"),
+                        indices=np.arange(s, e))
+
+        def mref():
+            return mref_ali2d(
+                StackShard(imgs, s, n), tmpl, ou=HEADLINE["ou"],
+                xr=HEADLINE["xr"], yr=HEADLINE["xr"], ts=1,
+                maxit=MESH_MAXIT, mesh=mesh, log=quiet)
+
+        # the first call in a fresh process pays the first use of every
+        # kernel, cuFFT plan and host library (scipy's fit) on its own;
+        # the second is the checked and timed main path
+        run("mesh mref, first call", mref)
+        res = run("mesh mref", mref)
+        out.update(it1_sums=it.class_sums, it1_counts=it.counts,
+                   it1_params=np.stack(p1, 1), mref_params=res.params,
+                   mref_assign=res.assignments)
+
+        # the per-iteration all-reduce (one f32 buffer of class sums, one
+        # f64 of counts and scalars) and the params gather, timed
+        sums = torch.zeros((k, 2, HEADLINE["nx"], HEADLINE["nx"]),
+                           device=dev)
+        scal = torch.zeros(k + 3, dtype=torch.float64, device=dev)
+        info["allreduce_bytes"] = (sums.numel() * 4 + scal.numel() * 8)
+        info["allreduce_ms"] = cuda_ms(
+            lambda: all_reduce_sums(mesh, sums, scal), 20)
+        prm = AlignParams.zeros(e - s, dev)
+        info["gather_bytes"] = n * 5 * 4
+        gather_params(prm, n, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            gather_params(prm, n, mesh)
+        info["gather_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+
+        # ---- 13c. reffree A, resident and streamed, and the mref loop
+        stack = read_mrc(os.path.join(tmp, "stack1.mrcs"),
+                         indices=np.arange(s, e))
+        for mode, batch in (("resident", None), ("streamed", MESH_BATCH)):
+            r = run(f"mesh reffree A {mode}", lambda: ali2d_base(
+                StackShard(stack, s, n), ou=HEADLINE["ou"],
+                xr=HEADLINE["xr"], yr=HEADLINE["xr"], ts=1.0, center=-1,
+                dst=DST, maxit=11, mesh=mesh, batch_size=batch, log=quiet))
+            out[f"reffree_{mode}"] = r.params
+        loop = make_mref_device_loop(cfg, MAXIT, k, np.full(MAXIT, 0.25),
+                                     mesh=mesh)
+        args = (torch.as_tensor(imgs, device=dev),
+                torch.as_tensor(tmpl, device=dev),
+                AlignParams.zeros(e - s, dev),
+                torch.arange(s, e, device=dev), torch.ones(e - s, device=dev))
+        lp, lrefs = run("mesh mref loop", lambda: loop(*args))
+        # under NCCL the loop, its all-reduce included, makes no host
+        # sync; under gloo a CUDA tensor is staged through the host
+        info["sync_checked"] = "nccl" in mesh.backend
+        if info["sync_checked"]:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                loop(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        out["loop_params"] = np.stack(gather_params(lp, n, mesh), 1)
+        out["loop_refs"] = lrefs.cpu().numpy()
+        info["rank_seconds"] = time.perf_counter() - t_start
+        if mesh.is_root:
+            np.savez(os.path.join(tmp, "mesh.npz"), **out)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+    finally:
+        shutdown()
+
+
+def assignments_of(outdir, it, n):
+    """Each particle's class from the members headers of
+    ``aqm<it>.hdf``."""
+    from cryo_ralib_tpu_torch.io.eman_hdf import read_own_hdf
+
+    _, headers = read_own_hdf(os.path.join(outdir, f"aqm{it:03d}.hdf"))
+    assign = np.full(n, -1, np.int64)
+    for j, h in enumerate(headers):
+        assign[np.asarray(h["members"], np.int64)] = j
+    check((assign >= 0).all(), f"{outdir}: members do not cover the stack")
+    return assign
+
+
+def mesh_agree(label, params, assign, want_params, want_assign,
+               params_share=1.0):
+    """Phase 13's rule against one process: at least 99.9% of the
+    assignments equal, and where they agree the mirrors equal and the
+    params within 1e-3 (angles on the circle), for every such particle
+    or, with ``params_share`` < 1, for at least that share of them (the
+    others are listed)."""
+    same = assign == want_assign
+    a, b = params[same], want_params[same]
+    d = np.abs(a[:, 0] - b[:, 0]) % 360.0
+    d = np.maximum(np.minimum(d, 360.0 - d), np.abs(a[:, 1:3] - b[:, 1:3]
+                                                    ).max(1, initial=0.0))
+    ok = (d < 1e-3) & (a[:, 3] == b[:, 3])
+    rows = np.nonzero(same)[0]
+    log(f"  {label}: {same.mean():.5f} of assignments equal to one "
+        f"process's; where equal, {int((~ok).sum())} particle(s) differ "
+        f"(mirror, or params by 1e-3 or more): "
+        + "; ".join(f"#{rows[i]} {a[i].round(3).tolist()} against "
+                    f"{b[i].round(3).tolist()}"
+                    for i in np.nonzero(~ok)[0][:10])
+        + f"; the others within {float(d[ok].max(initial=0.0)):.2e}")
+    check(same.mean() >= 0.999, f"{label}: {same.mean():.5f} equal")
+    check(ok.mean() >= params_share if ok.size else True,
+          f"{label}: {int((~ok).sum())} particles' params differ")
+    return float(same.mean())
+
+
+def mesh_phase(dev, card, tmp, imgs, tmpl, reffree_a, loop_params,
+               launches) -> dict:
+    """Phase 13: two ranks, a process each (NCCL over two cards where two
+    are visible, else gloo with both on cuda:0).  13a mref_ali2d on phase
+    6's stack against one process; 13b cli.mref under torchrun on phase
+    9's files against phase 9's run; 13c reffree A resident and streamed
+    against phase 7's run, and the mref device loop against phase 8's."""
+    import torch.multiprocessing as mp
+
+    from cryo_ralib_tpu_torch.models.engine import AlignmentEngine
+    from cryo_ralib_tpu_torch.models.mref import mref_ali2d
+    from cryo_ralib_tpu_torch.ops import fused_search as fs
+    from cryo_ralib_tpu_torch.ops.masks import model_circle, normalize_mask
+    from cryo_ralib_tpu_torch.utils.log import RunLogger
+
+    t_phase = time.perf_counter()
+    n_dev = torch.cuda.device_count()
+    want_backend = "cpu:gloo,cuda:nccl" if n_dev >= MESH_RANKS else "gloo"
+    log(f"13: {MESH_RANKS} ranks on {min(n_dev, MESH_RANKS)} card(s) of "
+        f"{n_dev} visible, backend {want_backend}"
+        + ("" if n_dev >= MESH_RANKS else " (both ranks on cuda:0)"))
+    cfg = geometry(HEADLINE)
+    k = tmpl.shape[0]
+    mask = torch.as_tensor(model_circle(HEADLINE["ou"], HEADLINE["nx"]),
+                           device=dev)
+    norm = torch.cat([normalize_mask(imgs[i:i + 2048], mask, no_sigma=False)
+                      for i in range(0, N_SLICE, 2048)])
+    refs = normalize_mask(torch.as_tensor(tmpl, device=dev), mask,
+                          no_sigma=True).cpu().numpy()
+    np.save(os.path.join(tmp, "norm.npy"), norm.cpu().numpy())
+    np.save(os.path.join(tmp, "tmpl.npy"), tmpl)
+    np.save(os.path.join(tmp, "refs.npy"), refs)
+    # one process at the same maxit, and its first engine iteration
+    eng = AlignmentEngine(norm, cfg, n_classes=k, device=dev)
+    one_it = eng.iterate(refs)
+    one_p = np.stack(eng.params_np(), 1)
+    del eng, norm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = mref_ali2d(imgs, tmpl, ou=HEADLINE["ou"], xr=HEADLINE["xr"],
+                     yr=HEADLINE["xr"], ts=1, maxit=MESH_MAXIT, device=dev,
+                     log=RunLogger(None, quiet=True))
+    torch.cuda.synchronize()
+    one_s_it = (time.perf_counter() - t0) / MESH_MAXIT
+
+    t0 = time.perf_counter()
+    mp.spawn(mesh_rank, args=(MESH_RANKS, "file://" + os.path.join(
+        tmp, "store"), tmp), nprocs=MESH_RANKS, join=True)
+    spawn_s = time.perf_counter() - t0
+    got = dict(np.load(os.path.join(tmp, "mesh.npz")))
+    infos = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+             for r in range(MESH_RANKS)]
+    row = {"ranks": MESH_RANKS, "cards": min(n_dev, MESH_RANKS),
+           "backend": infos[0]["backend"], "spawn_seconds": spawn_s}
+    for r, info in enumerate(infos):
+        check(info["backend"] == want_backend,
+              f"rank {r}: backend {info['backend']}, not {want_backend}")
+        check(info["device"] == f"cuda:{r % n_dev}",
+              f"rank {r} on {info['device']}")
+        log(f"13 rank {r} on {info['device']}, particles "
+            f"{info['block'][0]}..{info['block'][1] - 1}: launches "
+            f"{info['launches']}; {info['rank_seconds']:.2f} s in the rank")
+        for label, counts in info["launches"].items():
+            for variant, n_l in counts.items():
+                launches.setdefault(variant, {})[f"{label} rank {r}"] = n_l
+        for label in ("mesh mref, first call", "mesh mref"):
+            check(info["launches"][label] == {"search": MESH_MAXIT},
+                  f"rank {r}: {label} launches {info['launches'][label]}, "
+                  "not one per iteration")
+        check(info["launches"]["mesh mref loop"] == {"search": MAXIT},
+              f"rank {r}: mesh mref loop launches")
+        for mode in ("resident", "streamed"):
+            want = {"search": 10, "search_masked": 1}
+            if mode == "streamed":
+                want = {"search": 20, "search_masked": 2}
+            check(info["launches"][f"mesh reffree A {mode}"] == want,
+                  f"rank {r}: reffree A {mode} launches "
+                  f"{info['launches'][f'mesh reffree A {mode}']}")
+
+    # ---- 13a against one process
+    check(np.array_equal(got["it1_params"][:, 3:], one_p[:, 3:]),
+          "13a: iteration 1's winners (class, mirror) differ")
+    d = np.abs(got["it1_params"][:, 0] - one_p[:, 0]) % 360.0
+    it1_angle = float(np.minimum(d, 360.0 - d).max())
+    check(np.array_equal(got["it1_counts"], one_it.counts), "13a: counts")
+    rel = float(np.abs(got["it1_sums"] - one_it.class_sums).max()
+                / np.abs(one_it.class_sums).max())
+    log(f"13a iteration 1: winners equal, angles within {it1_angle:.2e}, "
+        f"class sums within {rel:.2e} of their largest")
+    check(it1_angle < 1e-4, f"13a: iteration 1's angles differ by {it1_angle}")
+    check(rel <= 1e-5, f"13a: class sums differ by {rel:.3e} relative")
+    row["mref_assign_equal"] = mesh_agree(
+        f"13a mref_ali2d maxit={MESH_MAXIT}", got["mref_params"],
+        got["mref_assign"], one.params, one.assignments)
+    info = infos[0]
+    mesh_s_it = info["seconds"]["mesh mref"] / MESH_MAXIT
+    cold_s_it = info["seconds"]["mesh mref, first call"] / MESH_MAXIT
+    row.update(s_per_iteration=mesh_s_it,
+               first_call_s_per_iteration=cold_s_it,
+               one_process_s_per_iteration=one_s_it,
+               allreduce_ms=info["allreduce_ms"],
+               allreduce_bytes=info["allreduce_bytes"],
+               gather_ms=info["gather_ms"], gather_bytes=info["gather_bytes"])
+    log(f"13a mref_ali2d N={N_SLICE} K={k} on {MESH_RANKS} ranks: "
+        f"{mesh_s_it:.4f} s/iteration ({cold_s_it:.4f} in a rank's first "
+        f"call) against {one_s_it:.4f} in one process;"
+        f" all-reduce {info['allreduce_ms']:.3f} ms for "
+        f"{info['allreduce_bytes']} bytes (CUDA events, mean of 20), params "
+        f"gather {info['gather_ms']:.3f} ms for {info['gather_bytes']} bytes "
+        f"(host clock, mean of 20)  [{card}]")
+
+    # ---- 13b. cli.mref under torchrun on phase 9's files
+    out_b = os.path.join(tmp, "mref_torchrun")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(MESH_RANKS), "-m",
+         "cryo_ralib_tpu_torch.cli.mref", os.path.join(tmp, "stack.mrcs"),
+         os.path.join(tmp, "refs.mrcs"), out_b, f"--ou={HEADLINE['ou']}",
+         f"--xr={HEADLINE['xr']:g}", "--ts=1", f"--maxit={MAXIT}"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    row["torchrun_seconds"] = time.perf_counter() - t0
+    check(proc.returncode == 0, "13b torchrun cli.mref exit "
+          f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    with open(os.path.join(out_b, "logfile.txt")) as f:
+        text = f.read()
+    check(f"{MESH_RANKS} ranks, backend {want_backend}" in text,
+          "13b: the log does not name the ranks and the backend")
+    out_m = os.path.join(tmp, "mref")
+    row["torchrun_assign_equal"] = mesh_agree(
+        f"13b torchrun cli.mref maxit={MAXIT} against phase 9's cli.mref",
+        np.loadtxt(os.path.join(out_b, "final2Dparams.txt")),
+        assignments_of(out_b, MAXIT - 1, N_SLICE),
+        np.loadtxt(os.path.join(out_m, "final2Dparams.txt")),
+        assignments_of(out_m, MAXIT - 1, N_SLICE), params_share=0.999)
+    log(f"13b torchrun --nproc_per_node {MESH_RANKS} cli.mref: "
+        f"{row['torchrun_seconds']:.2f} s (two processes' start, the stack "
+        f"read by blocks and the outputs included)  [{card}]")
+
+    # ---- 13c. reffree A on two ranks, and the mref device loop
+    # (phase 4b's rule for two reffree runs that differ by rounding: at
+    # least 99% of particles with the same mirror and params within 1e-3)
+    for mode in ("resident", "streamed"):
+        params = got[f"reffree_{mode}"]
+        d = np.abs(params[:, 0] - reffree_a.params[:, 0]) % 360.0
+        ok = ((params[:, 3] == reffree_a.params[:, 3])
+              & (np.minimum(d, 360.0 - d) < 1e-3)
+              & (np.abs(params[:, 1:3] - reffree_a.params[:, 1:3])
+                 < 1e-3).all(1))
+        row[f"reffree_{mode}_agree"] = float(ok.mean())
+        seconds = infos[0]["seconds"][f"mesh reffree A {mode}"]
+        log(f"13c reffree A on {MESH_RANKS} ranks, {mode}"
+            + (f" (batches of {MESH_BATCH})" if mode == "streamed" else "")
+            + f": {ok.mean():.5f} of particles with phase 7's mirror and "
+            f"params within 1e-3; {seconds:.2f} s for 11 iterations  [{card}]")
+        check(ok.mean() >= 0.99, f"13c reffree A {mode}: {ok.mean()}")
+    lp = np.stack([f.cpu().numpy() for f in loop_params], 1)
+    row["mref_loop_assign_equal"] = float(
+        (got["loop_params"][:, 4] == lp[:, 4]).mean())
+    log(f"13c mref device loop on {MESH_RANKS} ranks, {MAXIT} iterations: "
+        f"{row['mref_loop_assign_equal']:.5f} of assignments equal to "
+        f"phase 8's; the sync-debug check "
+        + ("ran (NCCL): no host sync" if infos[0]["sync_checked"] else
+           "does not apply under gloo, which stages CUDA tensors through "
+           "the host"))
+    check(row["mref_loop_assign_equal"] >= 0.999, "13c mref loop assignments")
+    row["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13: {row['seconds']:.1f} s  [{card}]")
+    return row
 
 
 def main():
@@ -1812,7 +2185,7 @@ def main():
         if label == "reffree A":
             check(res.criteria[-1] >= 0.5 * res.criteria[0],
                   f"{label}: criterion fell to {res.criteria[-1]}")
-            stack_a, mir_a = stack, mir
+            stack_a, mir_a, reffree_a = stack, mir, res
         del stack
 
     slice_json = {"card": card, "n": N_SLICE}
@@ -1860,10 +2233,10 @@ def main():
     slice_json["reffree_loop"] = loop_line(
         "reffree loop K=1", med, n_rf, None, card)
 
-    # ---- 9. the command line on files
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        slice_json["cli"] = cli_phase(tmp, imgs, tmpl, cls, stack_a,
-                                      main_path, card)
+    # ---- 9. the command line on files (kept for phase 13)
+    cli_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    slice_json["cli"] = cli_phase(cli_tmp.name, imgs, tmpl, cls, stack_a,
+                                  main_path, card)
 
     # ---- 10. the alignment modes
     slice_json["modes"] = modes_phase(dev, card, main_path, imgs, tmpl, cls,
@@ -1882,6 +2255,11 @@ def main():
         post["bdb"] = bdb_phase(tmp, stack_a, main_path, card)
     slice_json["post_alignment"] = post
     log(f"phase 12: {seconds:.1f} s without the bdb: run")
+
+    # ---- 13. two ranks, a process each
+    slice_json["mesh"] = mesh_phase(dev, card, cli_tmp.name, imgs, tmpl,
+                                    reffree_a, p_loop, launches)
+    cli_tmp.cleanup()
     del imgs, stack_a
 
     shapes = {   # entry -> (timing key, K, mirror channels, mask)

@@ -60,11 +60,14 @@ def _small_launch():
 def main(argv=None):
     p = argparse.ArgumentParser(prog="cryo-ralib-torch-check")
     p.add_argument("--mesh", type=int, default=0,
-                   help="a sharded step over an N-device mesh: not ported "
-                        "yet (one GPU)")
+                   help="a sharded step over an N-device mesh: not part of "
+                        "this check (run examples/torch_06_mesh_scaling.py "
+                        "--ranks=N)")
     args = p.parse_args(argv)
     if args.mesh > 1:
-        print(f"ERROR: --mesh={args.mesh}: multi-GPU is not ported yet")
+        print(f"ERROR: --mesh={args.mesh}: this check runs one process; "
+              "run examples/torch_06_mesh_scaling.py --ranks="
+              f"{args.mesh} for a sharded step")
         return 2
     failures = 0
 

@@ -3,10 +3,20 @@
 
 The same flags, spellings and per-CLI defaults as the JAX CLI (the
 reference's optparse surface), so a command line that runs there parses
-the same here.  One process runs on one GPU with the stack resident in
-device memory; there is no mesh.  What is not ported yet (the TPU
-engines ``--sampler=template/matmul`` and more than one device) exits
-with status 2 and a message naming the flag before any stack is read.
+the same here.  ``--devices`` (or ``--gpu_devices``, whose entries are
+counted) sets the number of ranks, one process per card, as the JAX
+CLI's ``make_mesh_arg`` sets its mesh: 0 means every visible card (one
+process on the CPU), and a count above the visible cards is clamped and
+logged.  Under ``torchrun`` (``python -m torch.distributed.run``,
+``WORLD_SIZE`` in the environment) each process joins the group as one
+rank, and torchrun's ranks replace ``--devices``; otherwise more than
+one rank is started here, one worker process per card
+(``torch.multiprocessing.spawn``, meeting through a file store in a
+temporary directory).  Each rank reads its block of the stack;
+rank 0 checks and writes the output directory and the log, writes the
+headers back, and its exit status is the run's.  The TPU engines
+``--sampler=template/matmul`` are not ported and exit with status 2 and
+a message naming the flag before any stack is read.
 Stacks are ``.hdf``, ``.mrc(s)`` or EMAN2 ``bdb:`` containers (read and
 written back through the system's ``libdb``, ``io/bdb.py``).  ``--sampler``: ``auto`` and ``fused`` run the CUDA search
 kernel on the GPU, ``gather`` its plain PyTorch version (the JAX
@@ -95,13 +105,13 @@ def add_common_flags(p: argparse.ArgumentParser, reffree: bool = False):
     p.add_argument("--EQ", action="store_true",
                    help="accepted for compatibility (EQ variant unused)")
     p.add_argument("--gpu_devices", default="",
-                   help="compatibility alias for --devices: more than one "
-                        "device is not ported yet")
+                   help="compatibility alias for --devices: a count, or a "
+                        "list of card ids whose entries are counted")
     p.add_argument("--gpu_info", action="store_true",
                    help="print the visible CUDA devices and exit")
     p.add_argument("--devices", type=int, default=0,
-                   help="number of GPUs (0 = the one GPU; more than one is "
-                        "not ported yet)")
+                   help="number of GPUs, one process each (0 = every "
+                        "visible GPU; more than are visible is clamped)")
     p.add_argument("--sampler", default="auto",
                    choices=["auto", "fused", "template", "matmul", "gather"],
                    help="search engine: auto and fused = the CUDA search "
@@ -164,17 +174,135 @@ def _device_count(s: str) -> int:
     return len(entries)
 
 
+def world_size(args, device, n_visible: int | None = None) -> int:
+    """The number of ranks that ``--devices`` / ``--gpu_devices`` ask
+    for (the counterpart of the JAX CLI's ``make_mesh_arg``): 0 means
+    every visible card on a CUDA device and one process on the CPU; a
+    count above the ``n_visible`` devices (the visible cards, or the CPU
+    cores) is clamped, and the clamp is logged to stderr."""
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    if n_visible is None:
+        n_visible = (torch.cuda.device_count() if cuda
+                     else os.cpu_count() or 1)
+    want = args.devices if args.devices > 0 else _device_count(
+        args.gpu_devices)
+    if want <= 0:
+        return n_visible if cuda else 1
+    if want > n_visible:
+        flag = (f"--devices={args.devices}" if args.devices > 0
+                else f"--gpu_devices={args.gpu_devices}")
+        print(f"NOTE: {flag} asks for {want} devices; {n_visible} "
+              f"{'are' if n_visible > 1 else 'is'} visible, so the run "
+              f"takes {n_visible}", file=sys.stderr)
+        return n_visible
+    return want
+
+
+def prepare_outdir(args):
+    """The output directory: made if it is missing under ``--resume``,
+    else it must not exist (exit 1)."""
+    if args.resume:
+        os.makedirs(args.outdir, exist_ok=True)
+    else:
+        check_outdir(args.outdir)
+
+
+def launch(run, args, device) -> int:
+    """Run ``run(args, device, mesh)`` on every rank and return the run's
+    exit status (rank 0's).
+
+    Under ``torchrun`` the process joins the group as one rank (the
+    ranks are torchrun's; ``--devices`` is not read); with one rank it
+    runs here with no mesh; with more it starts one worker per
+    rank (``torch.multiprocessing.spawn``) and waits for them: a worker
+    that raises or exits non-zero ends the others and makes this exit
+    non-zero.  Rank 0 (or this process, before the workers start)
+    prepares the output directory."""
+    from ..parallel.mesh import initialize_distributed, shutdown
+
+    if "WORLD_SIZE" in os.environ:
+        mesh = initialize_distributed(device=device)
+        try:
+            return _run_rank(run, args, mesh)
+        finally:
+            shutdown()
+    n = world_size(args, device)
+    prepare_outdir(args)
+    if n <= 1:
+        return run(args, device, None)
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="cryo_ralib_ranks_") as tmp:
+        store = "file://" + os.path.join(tmp, "store")
+        try:
+            mp.spawn(_spawned_rank, args=(run, args, str(device), n, store),
+                     nprocs=n, join=True)
+        except mp.ProcessExitedException as err:
+            print(f"ERROR: {err}", file=sys.stderr)
+            return err.exit_code or 1
+        except mp.ProcessRaisedException as err:
+            print(f"ERROR: a rank failed:\n{err}", file=sys.stderr)
+            return 1
+    return 0
+
+
+def _spawned_rank(rank, run, args, device, n, store):
+    """One worker of ``launch``: join the group through the file store and
+    run; the output directory is already prepared."""
+    from ..parallel.mesh import initialize_distributed, shutdown
+
+    mesh = initialize_distributed(rank=rank, world_size=n, local_rank=rank,
+                                  init_method=store, device=device)
+    try:
+        code = run(args, mesh.device, mesh)
+    finally:
+        shutdown()
+    if code:
+        raise SystemExit(code)
+
+
+def _run_rank(run, args, mesh) -> int:
+    """One rank under torchrun: rank 0 prepares the output directory and
+    every rank takes its status."""
+    from ..parallel.mesh import broadcast_status
+
+    code = 0
+    if mesh.is_root:
+        try:
+            prepare_outdir(args)
+        except SystemExit as err:
+            code = err.code
+    code = broadcast_status(code, mesh)
+    if code:
+        return code
+    return run(args, mesh.device, mesh)
+
+
+def rank_log(outdir: str, mesh):
+    """The run's log: rank 0's (or the single process's) in ``outdir``,
+    nothing on the other ranks; a rank's run logs its group first."""
+    from ..utils.log import RunLogger
+
+    if mesh is not None and not mesh.is_root:
+        return RunLogger(None, quiet=True)
+    log = RunLogger(outdir)
+    if mesh is not None:
+        log.add(f"{mesh.world_size} ranks, backend {mesh.backend}, rank 0 "
+                f"on {mesh.device}")
+    return log
+
+
 def reject_unported(args):
-    """Exit 2, naming each flag, on what the port does not do yet; runs
+    """Exit 2, naming each flag, on what the port does not do; runs
     before any stack is read."""
     problems = []
     if args.sampler not in SAMPLERS:
         problems.append(f"--sampler={args.sampler} (a TPU engine; use auto, "
                         "fused or gather)")
-    if args.devices > 1:
-        problems.append(f"--devices={args.devices} (multi-GPU)")
-    if _device_count(args.gpu_devices) > 1:
-        problems.append(f"--gpu_devices={args.gpu_devices} (multi-GPU)")
     if problems:
         print("ERROR: not ported yet to the PyTorch/CUDA package:\n  "
               + "\n  ".join(problems), file=sys.stderr)
@@ -257,10 +385,15 @@ def print_device_info():
               f"{prop.total_memory / 2**30:.1f} GiB)")
 
 
-def load_stack(path: str):
+def load_stack(path: str, mesh=None):
     """Read a particle stack: an EMAN2 ``bdb:`` container (through the
     system's libdb), or by extension EMAN2-HDF (.hdf, through h5py unless
-    this package wrote it) or MRC(S)."""
+    this package wrote it) or MRC(S).  Under a ``mesh`` the images are a
+    ``StackShard`` of the rank's block, with their headers: an MRC stack
+    reads only the block's slices, HDF picks them, ``bdb:`` is read
+    whole and cut."""
+    if mesh is not None:
+        return _load_block(path, mesh)
     from ..io.eman_hdf import read_hdf_stack
     from ..io.mrc import read_mrc
 
@@ -289,6 +422,30 @@ def load_stack(path: str):
             data = data[None]
         return np.asarray(data, np.float32), [{} for _ in range(len(data))]
     raise ValueError(f"unsupported stack format: {path}")
+
+
+def _load_block(path: str, mesh):
+    from ..io.eman_hdf import get_image_count, read_hdf_stack
+    from ..io.mrc import parse_header, read_mrc
+    from ..parallel.mesh import StackShard, shard_range
+
+    ext = os.path.splitext(path)[1].lower()
+    if path.startswith("bdb:") or ext not in (".hdf", ".h5", ".hdf5",
+                                              ".mrc", ".mrcs"):
+        images, headers = load_stack(path)
+        start, stop = shard_range(images.shape[0], mesh)
+        return StackShard(images[start:stop], start, images.shape[0]), \
+            headers[start:stop]
+    if ext in (".mrc", ".mrcs"):
+        n = parse_header(path).nz
+        start, stop = shard_range(n, mesh)
+        images = read_mrc(path, indices=np.arange(start, stop))
+        headers = [{} for _ in range(stop - start)]
+    else:
+        n = get_image_count(path)
+        start, stop = shard_range(n, mesh)
+        images, headers = read_hdf_stack(path, indices=range(start, stop))
+    return StackShard(np.asarray(images, np.float32), start, n), headers
 
 
 def load_mask(path: str | None, nx: int):

@@ -1,28 +1,30 @@
-"""Multireference 2D alignment CLI on one GPU (counterpart of
+"""Multireference 2D alignment CLI on one or more GPUs (counterpart of
 ``cryo_ralib_tpu/cli/mref.py``): the same positional arguments (stack,
 refs, outdir, optional maskfile), flags and output files
 (``aqm%03d.hdf`` with ``members``/``ave_n`` headers, ``drm*`` FSC files,
 ``final2Dparams.txt``, ``checkpoint.npz``, ``logfile.txt``).
 
-Usage:
+Usage (``--devices=2`` runs two ranks, one process per card; under
+``torchrun`` each process is one rank):
     python -m cryo_ralib_tpu_torch.cli.mref stack.hdf refs.hdf outdir \
         --ou=36 --xr=3 --yr=3 --ts=1 --maxit=6
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m cryo_ralib_tpu_torch.cli.mref stack.mrcs refs.mrcs outdir --ou=36
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 
-from .common import (SAMPLERS, add_common_flags, check_outdir, cli_device,
+from .common import (SAMPLERS, add_common_flags, cli_device, launch,
                      load_ctf_params, load_mask, load_stack, print_device_info,
-                     reject_unported, writeback_headers)
+                     rank_log, reject_unported, writeback_headers)
 
 
 def build_parser():
     p = argparse.ArgumentParser(
         prog="cryo-ralib-torch-mref",
-        description="multireference 2D alignment on one NVIDIA GPU "
+        description="multireference 2D alignment on NVIDIA GPUs "
                     "(PyTorch/CUDA port of cryo_ralib_tpu)")
     p.add_argument("stack", help="particle stack (.hdf/.mrcs/bdb:)")
     p.add_argument("refs", help="initial references (.hdf/.mrcs)")
@@ -41,18 +43,17 @@ def main(argv=None, device="cuda"):
         print_device_info()
         return 0
     reject_unported(args)
-    device = cli_device(device)
-    if args.resume:
-        os.makedirs(args.outdir, exist_ok=True)
-    else:
-        check_outdir(args.outdir)
+    return launch(run, args, cli_device(device))
 
+
+def run(args, device, mesh=None):
+    """One rank's run (the whole run without a ``mesh``); the output
+    directory is prepared.  Rank 0 logs and writes the headers back."""
     from ..models.mref import mref_ali2d
-    from ..utils.log import RunLogger
 
-    log = RunLogger(args.outdir)
+    log = rank_log(args.outdir, mesh)
     log.print_begin_msg("mref_ali2d")
-    images, _headers = load_stack(args.stack)
+    images, _headers = load_stack(args.stack, mesh)
     refs, _ = load_stack(args.refs)
     mask = load_mask(args.maskfile, images.shape[-1])
     ctf_params = load_ctf_params(args, images.shape[0])
@@ -64,8 +65,8 @@ def main(argv=None, device="cuda"):
         CTF=ctf_params is not None, snr=args.snr, ctf_params=ctf_params,
         user_func_name=args.function, rand_seed=args.rand_seed, log=log,
         resume=args.resume, ring_scheme=args.ring_scheme, device=device,
-        sampler=SAMPLERS[args.sampler])
-    if args.header_writeback:
+        sampler=SAMPLERS[args.sampler], mesh=mesh)
+    if args.header_writeback and (mesh is None or mesh.is_root):
         writeback_headers(args.stack, res.params, res.assignments)
     log.print_end_msg("mref_ali2d")
     return 0

@@ -1,4 +1,4 @@
-"""Reference-free 2D alignment CLI on one GPU (counterpart of
+"""Reference-free 2D alignment CLI on one or more GPUs (counterpart of
 ``cryo_ralib_tpu/cli/reffree.py``): the same arguments (stack, outdir,
 optional maskfile), flags (``--dst``, ``--nomirror``, ``--center``,
 ``--mode``, ``--random_method``, ``--CTF``, ``--Fourvar``,
@@ -7,7 +7,7 @@ optional maskfile), flags (``--dst``, ``--nomirror``, ``--center``,
 ``checkpoint.npz``, ``logfile.txt``, and ``varf.hdf`` under
 ``--Fourvar``).
 
-Usage:
+Usage (``--devices`` and ``torchrun`` as in ``cli.mref``):
     python -m cryo_ralib_tpu_torch.cli.reffree stack.hdf outdir --ou=36 \
         --xr=2 --ts=1
 """
@@ -15,18 +15,17 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import os
 
-from .common import (SAMPLERS, add_common_flags, check_outdir, cli_device,
+from .common import (SAMPLERS, add_common_flags, cli_device, launch,
                      load_ctf_params, load_mask, load_stack, print_device_info,
-                     reject_unported, validate_reffree_flags,
+                     rank_log, reject_unported, validate_reffree_flags,
                      writeback_headers)
 
 
 def build_parser():
     p = argparse.ArgumentParser(
         prog="cryo-ralib-torch-reffree",
-        description="reference-free 2D alignment on one NVIDIA GPU "
+        description="reference-free 2D alignment on NVIDIA GPUs "
                     "(PyTorch/CUDA port of cryo_ralib_tpu)")
     p.add_argument("stack", help="particle stack (.hdf/.mrcs/bdb:)")
     p.add_argument("outdir", help="output directory (must not exist)")
@@ -45,18 +44,17 @@ def main(argv=None, device="cuda"):
         return 0
     validate_reffree_flags(args)
     reject_unported(args)
-    device = cli_device(device)
-    if args.resume:
-        os.makedirs(args.outdir, exist_ok=True)
-    else:
-        check_outdir(args.outdir)
+    return launch(run, args, cli_device(device))
 
+
+def run(args, device, mesh=None):
+    """One rank's run (the whole run without a ``mesh``); the output
+    directory is prepared.  Rank 0 logs and writes the headers back."""
     from ..models.reffree import ali2d_base
-    from ..utils.log import RunLogger
 
-    log = RunLogger(args.outdir)
+    log = rank_log(args.outdir, mesh)
     log.print_begin_msg("ali2d_base")
-    images, _headers = load_stack(args.stack)
+    images, _headers = load_stack(args.stack, mesh)
     mask = load_mask(args.maskfile, images.shape[-1])
     ctf_params = load_ctf_params(args, images.shape[0])
     res = ali2d_base(
@@ -69,8 +67,8 @@ def main(argv=None, device="cuda"):
         user_func_name=args.function, random_method=args.random_method,
         nomirror=args.nomirror, mode=args.mode, log=log,
         resume=args.resume, ring_scheme=args.ring_scheme, device=device,
-        sampler=SAMPLERS[args.sampler])
-    if args.header_writeback:
+        sampler=SAMPLERS[args.sampler], mesh=mesh)
+    if args.header_writeback and (mesh is None or mesh.is_root):
         writeback_headers(args.stack, res.params)
     log.print_end_msg("ali2d_base")
     return 0

@@ -18,6 +18,13 @@ give the same results:
   on the device, the params and peaks go back to the host with
   ``non_blocking`` copies, and the host waits once per iteration.  The
   last batch is simply shorter (nothing is recompiled).
+
+Under a ``mesh`` (``parallel/mesh.py::ParticleMesh``) the engine holds
+only the rank's block of particles, resident or streamed, with their
+global indices; ``iterate`` all-reduces the class sums (one float32
+buffer) and the counts, centering sums and SHC's ``nope`` (one float64
+buffer) once per iteration, and ``params_np`` / ``previousmax_np``
+gather every rank's block to the whole stack.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from ..config import AlignConfig
 from ..params import AlignParams, params_from_numpy
 from ..ops.search import PREVIOUSMAX_INIT, delta_angle_mask
 from ..parallel.batching import plan_batch_size
+from ..parallel.mesh import (all_reduce_sums, gather_params, gather_rows,
+                             shard_range, shard_stack)
 from ..utils.profiling import annotate
 from .steps import (align_step, align_step_scf, align_step_shc,
                     resolve_sampler)
@@ -49,16 +58,20 @@ def resolve_device(device) -> torch.device:
 
 def plan_batch(n: int, n_classes: int, cfg: AlignConfig, device,
                sampler: str = "auto", random_method: str = "",
-               batch_size: int | None = None, log=None) -> int:
-    """The engine's batch for a stack of ``n``: ``batch_size`` where
-    given, else the planner's for the search that will run; a batch of
-    ``n`` or more means resident.  ``log`` (a callable) gets the plan."""
+               batch_size: int | None = None, log=None,
+               ranks_on_device: int = 1) -> int:
+    """The engine's batch for a stack (or a rank's block) of ``n``:
+    ``batch_size`` where given, else the planner's for the search that
+    will run, with the card's memory shared by ``ranks_on_device`` ranks;
+    a batch of ``n`` or more means resident.  ``log`` (a callable) gets
+    the plan."""
     if batch_size is None:
         search = resolve_sampler(sampler, device, cfg, random_method,
                                  n_refs=n_classes)
         batch_size = plan_batch_size(n, n_classes, cfg, device=device,
                                      sampler=search,
-                                     random_method=random_method, log=log)
+                                     random_method=random_method, log=log,
+                                     ranks_on_device=ranks_on_device)
     return max(1, min(int(batch_size), n))
 
 
@@ -106,7 +119,7 @@ def prepare_stack(images, device, resident: bool, fn) -> torch.Tensor:
 class IterationResult:
     class_sums: np.ndarray   # (K, 2, H, W)
     counts: np.ndarray       # (K,)
-    peak: np.ndarray         # (N,)
+    peak: np.ndarray         # (N,); the rank's block under a mesh
     sx_sum: float            # mirror-aware sum of header x-shifts
     sy_sum: float            # sum of header y-shifts
     nope: int = 0            # SHC only: particles with no improving candidate
@@ -122,14 +135,26 @@ class AlignmentEngine:
     is the discrete-angle step that ``iterate(discrete=True)`` searches;
     its angle mask is built once, on the device.  ``random_method`` is
     "" (the standard search), "SHC" or "SCF"; ``delta`` is defined for
-    the standard search only."""
+    the standard search only.
+
+    ``mesh`` (a ``ParticleMesh``) runs the engine as one rank of a
+    data-parallel group on ``mesh.device``: ``data`` is the whole stack
+    or a ``StackShard`` of the rank's block, the engine keeps the block
+    (``.start``, ``.n_local``; ``.n`` is the whole stack), and
+    ``batch_size`` is a batch of the block."""
 
     def __init__(self, data, cfg: AlignConfig, n_classes: int,
                  device="cuda", sampler: str = "auto",
                  update_ref: bool = True, delta: float = 0.0,
-                 random_method: str = "", batch_size: int | None = None):
-        self.device = resolve_device(device)
+                 random_method: str = "", batch_size: int | None = None,
+                 mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device)
         self.n = int(data.shape[0])
+        data, gidx = shard_stack(data, mesh)
+        self.start = int(shard_range(self.n, mesh)[0])
+        self.n_local = int(data.shape[0])
         self.cfg = cfg
         self.n_classes = n_classes
         self.sampler = sampler
@@ -150,16 +175,19 @@ class AlignmentEngine:
             raise ValueError(f"random_method={random_method!r} runs the "
                              "standard ring scheme only (ring_scheme='cuda')")
         self._angle_mask = None
-        self.batch = plan_batch(self.n, n_classes, cfg, self.device, sampler,
-                                random_method, batch_size)
-        self.resident = self.batch >= self.n
+        m = self.n_local
+        self.batch = plan_batch(
+            m, n_classes, cfg, self.device, sampler, random_method,
+            batch_size, ranks_on_device=1 if mesh is None
+            else mesh.ranks_on_device)
+        self.resident = self.batch >= m
         shc = random_method == "SHC"
         if self.resident:
             self._imgs = torch.as_tensor(data, dtype=torch.float32,
                                          device=self.device).contiguous()
-            self._gidx = torch.arange(self.n, device=self.device)
-            self.params = AlignParams.zeros(self.n, self.device)
-            self._prevmax = (torch.full((self.n,), PREVIOUSMAX_INIT,
+            self._gidx = gidx.to(self.device)
+            self.params = AlignParams.zeros(m, self.device)
+            self._prevmax = (torch.full((m,), PREVIOUSMAX_INIT,
                                         dtype=torch.float32,
                                         device=self.device)
                              if shc else None)
@@ -167,21 +195,33 @@ class AlignmentEngine:
         pin = self.device.type == "cuda"
         self._host = host_stack(data, pin)
         self.params = AlignParams(*[
-            torch.zeros(self.n, dtype=dt, pin_memory=pin)
+            torch.zeros(m, dtype=dt, pin_memory=pin)
             for dt in (torch.float32,) * 3 + (torch.int32,) * 2])
-        self._prevmax = (torch.full((self.n,), PREVIOUSMAX_INIT,
+        self._prevmax = (torch.full((m,), PREVIOUSMAX_INIT,
                                     dtype=torch.float32, pin_memory=pin)
                          if shc else None)
         self._buffers = None
 
     # -- params access ---------------------------------------------------
     def params_np(self) -> AlignParams:
-        """Current per-particle params as host numpy arrays (copies)."""
+        """Current per-particle params of the whole stack as host numpy
+        arrays (copies; under a mesh every rank's block, gathered)."""
+        if self.mesh is not None:
+            return gather_params(self.params, self.n, self.mesh)
         return AlignParams(*[f.cpu().numpy().copy() for f in self.params])
 
+    def _block(self, values):
+        """The rank's rows of a whole-stack array."""
+        values = np.asarray(values)
+        if values.shape[0] != self.n:
+            raise ValueError(f"{values.shape[0]} values for a stack of "
+                             f"{self.n}")
+        return values[self.start:self.start + self.n_local]
+
     def set_params(self, params: AlignParams):
-        """Restore per-particle params from host arrays (checkpoint
-        resume)."""
+        """Restore per-particle params from host arrays of the whole stack
+        (checkpoint resume); a rank keeps its block."""
+        params = AlignParams(*[self._block(f) for f in params])
         if self.resident:
             self.params = params_from_numpy(params._asdict(), self.device)
             return
@@ -191,7 +231,7 @@ class AlignmentEngine:
     def set_ref_id(self, ref_id):
         """Preset every particle's class (``pre_align_init`` presets
         ref_id)."""
-        rid = torch.as_tensor(np.asarray(ref_id, np.int32))
+        rid = torch.as_tensor(self._block(np.asarray(ref_id, np.int32)))
         if self.resident:
             self.params = self.params._replace(ref_id=rid.to(self.device))
         else:
@@ -199,9 +239,12 @@ class AlignmentEngine:
 
     # -- previousmax access (SHC) ----------------------------------------
     def previousmax_np(self) -> np.ndarray:
-        """SHC: each particle's best ccf so far, as a host array."""
+        """SHC: each particle's best ccf so far, as a host array of the
+        whole stack (gathered under a mesh)."""
         if self.random_method != "SHC":
             raise ValueError("previousmax exists under random_method='SHC'")
+        if self.mesh is not None:
+            return gather_rows(self._prevmax, self.n, self.mesh).numpy()
         return self._prevmax.cpu().numpy().copy()
 
     def set_previousmax(self, pm):
@@ -209,7 +252,7 @@ class AlignmentEngine:
         resume)."""
         if self.random_method != "SHC":
             raise ValueError("previousmax exists under random_method='SHC'")
-        pm = torch.as_tensor(np.asarray(pm, np.float32))
+        pm = torch.as_tensor(self._block(np.asarray(pm, np.float32)))
         if self.resident:
             self._prevmax = pm.to(self.device)
         else:
@@ -257,12 +300,26 @@ class AlignmentEngine:
         self.params = out.params
         if prevmax is not None:
             self._prevmax = prevmax
+        return self._result(out.class_sums, out.counts, out.sx_sum,
+                            out.sy_sum, nope, out.peak.cpu().numpy())
+
+    def _result(self, sums, counts, sx, sy, nope, peak) -> IterationResult:
+        """The iteration's result on the host, the sums all-reduced over
+        the mesh: one float32 buffer of class sums and one float64 buffer
+        of the counts, the centering sums and ``nope``."""
+        scalars = torch.cat([
+            counts.to(torch.float64),
+            torch.stack([torch.as_tensor(v, device=counts.device).to(
+                torch.float64).reshape(()) for v in
+                (sx, sy, 0 if nope is None else nope)])])
+        all_reduce_sums(self.mesh, sums, scalars)
+        scalars = scalars.cpu().numpy()
+        k = self.n_classes
         return IterationResult(
-            class_sums=out.class_sums.cpu().numpy(),
-            counts=out.counts.cpu().numpy().astype(np.int64),
-            peak=out.peak.cpu().numpy(),
-            sx_sum=float(out.sx_sum), sy_sum=float(out.sy_sum),
-            nope=0 if nope is None else int(nope))
+            class_sums=sums.cpu().numpy(),
+            counts=np.rint(scalars[:k]).astype(np.int64), peak=peak,
+            sx_sum=float(scalars[k]), sy_sum=float(scalars[k + 1]),
+            nope=int(round(scalars[k + 2])))
 
     def _device_buffers(self):
         """Two sets of (images, params, previousmax, free event) of one
@@ -287,8 +344,8 @@ class AlignmentEngine:
         records ``free`` on its stream once everything that reads the
         batch's buffers is queued, and the upload into them waits for
         it.  On the CPU the batches are slices of the host arrays."""
-        spans = [(s, min(s + self.batch, self.n))
-                 for s in range(0, self.n, self.batch)]
+        spans = [(s, min(s + self.batch, self.n_local))
+                 for s in range(0, self.n_local, self.batch)]
         pm = self._prevmax
         if self.device.type != "cuda":
             for s, e in spans:
@@ -332,11 +389,13 @@ class AlignmentEngine:
         sx = torch.zeros((), dtype=torch.float64, device=dev)
         sy = torch.zeros((), dtype=torch.float64, device=dev)
         nope = torch.zeros((), dtype=torch.int64, device=dev)
-        peak = torch.empty(self.n, dtype=torch.float32, pin_memory=cuda)
+        peak = torch.empty(self.n_local, dtype=torch.float32,
+                           pin_memory=cuda)
         stream = torch.cuda.current_stream(dev) if cuda else None
         for s, e, imgs, prm, pmb, free in self._batches():
             with annotate("engine::batch"):
-                gidx = torch.arange(s, e, device=dev)
+                gidx = torch.arange(self.start + s, self.start + e,
+                                    device=dev)
                 out, pm_new, nope_b = self._step(imgs, refs_t, prm, gidx,
                                                  pmb, mask)
                 sums += out.class_sums
@@ -353,7 +412,4 @@ class AlignmentEngine:
                     free.record(stream)
         if cuda:
             stream.synchronize()
-        return IterationResult(
-            class_sums=sums.cpu().numpy(),
-            counts=counts.cpu().numpy(), peak=peak.numpy().copy(),
-            sx_sum=float(sx), sy_sum=float(sy), nope=int(nope))
+        return self._result(sums, counts, sx, sy, nope, peak.numpy().copy())

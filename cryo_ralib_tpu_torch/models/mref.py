@@ -16,6 +16,15 @@ that the engine keeps when it fits (``parallel/batching.py``) or else
 into pinned host memory, from which the engine streams it in batches
 (``batch_size=`` forces a batch).  The reference update (K small images)
 runs on the host.
+
+Under a ``mesh`` (``parallel/mesh.py``) each rank aligns its block of
+the stack, with global indices; the engine all-reduces the class sums
+and gathers the params; a vanished class is reseeded from the rank that
+holds the drawn particle (every rank draws the same numbers); rank 0
+runs the FSC, the filter and the centering, writes every output file and
+the checkpoint, and broadcasts the new references.  Every rank calls the
+collectives in the same order: only file writes and the reference update
+are guarded by the rank.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ from ..ops.fsc import fsc, write_fsc
 from ..ops.masks import model_circle, normalize_mask
 from ..io.eman_hdf import header_fits, write_hdf_stack
 from ..io.star import write_text_row
+from ..parallel.mesh import (StackShard, barrier, block_owner,
+                             broadcast_refs, shard_range, shard_stack)
 from ..utils.log import RunLogger
 from ..utils.profiling import annotate
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -76,6 +87,7 @@ def mref_ali2d(
     device="cuda",
     sampler: str = "auto",
     batch_size: int | None = None,
+    mesh=None,
 ) -> MrefResult:
     """Multireference-align ``images`` (N, H, W; numpy or tensor) against
     ``refs`` (K, H, W) on ``device`` (the GPU unless ``device="cpu"``).
@@ -92,12 +104,18 @@ def mref_ali2d(
     ``ops.ctf_ops.CtfContext``) and Wiener-restores the references with
     ``snr``.  ``batch_size`` streams the stack from the host in batches
     of that many particles (None: the planner's choice, resident where
-    the stack fits the device).
+    the stack fits the device).  ``mesh`` (a ``ParticleMesh``) runs this
+    call as one rank of a data-parallel group on ``mesh.device``:
+    ``images`` is the whole stack or a ``StackShard`` of the rank's
+    block, every rank returns the same result, and rank 0 alone writes
+    to ``outdir`` and logs.
     """
-    device = resolve_device(device)
-    if outdir:
+    device = resolve_device(device if mesh is None else mesh.device)
+    root = mesh is None or mesh.is_root
+    if outdir and root:
         os.makedirs(outdir, exist_ok=True)
-    log = log or RunLogger(outdir)
+    log = (log or RunLogger(outdir)) if root else RunLogger(None, quiet=True)
+    write_dir = outdir if root else None
     user_func = factory[user_func_name]
     if int(center) > 1:
         raise ValueError(f"--center={int(center)} is not supported "
@@ -132,9 +150,10 @@ def mref_ali2d(
         if ctf_params is None:
             raise ValueError("CTF=True requires ctf_params (at least "
                              "per-particle 'dfu' defocus in A)")
-        ctf_ctx = CtfContext(nx, ctf_params, snr=snr, device=device)
-        if images.shape[0] != ctf_ctx.n:
-            raise ValueError(f"{images.shape[0]} images vs {ctf_ctx.n} CTFs")
+        ctf_ctx = CtfContext(nx, ctf_params, snr=snr, device=device,
+                             mesh=mesh)
+        if n != ctf_ctx.n_total:
+            raise ValueError(f"{n} images vs {ctf_ctx.n_total} CTFs")
         log.add("CTF premultiplication on, snr=%g" % snr)
 
     def prep(x, start):
@@ -143,15 +162,20 @@ def mref_ali2d(
             x = ctf_ctx.premultiply_block(x, start)
         return normalize_mask(x, mask_dev, no_sigma=False)
 
-    batch = plan_batch(n, numref, cfg, device, sampler, "", batch_size,
-                       log=log.add)
-    data = prepare_stack(images, device, batch >= n, prep)
+    local, _gidx = shard_stack(images, mesh)
+    start, stop = shard_range(n, mesh)
+    batch = plan_batch(stop - start, numref, cfg, device, sampler, "",
+                       batch_size, log=log.add,
+                       ranks_on_device=1 if mesh is None
+                       else mesh.ranks_on_device)
+    data = prepare_stack(local, device, batch >= stop - start, prep)
     refi = normalize_mask(torch.as_tensor(np.asarray(refs, np.float32)),
                           mask_host, no_sigma=True).numpy()
 
     rng = _random.Random(rand_seed)
-    engine = AlignmentEngine(data, cfg, n_classes=numref, device=device,
-                             sampler=sampler, batch_size=batch)
+    engine = AlignmentEngine(StackShard(data, start, n), cfg,
+                             n_classes=numref, device=device,
+                             sampler=sampler, batch_size=batch, mesh=mesh)
     if not engine.resident:
         log.add("streaming %d particles in batches of %d"
                 % (n, engine.batch))
@@ -162,6 +186,8 @@ def mref_ali2d(
 
     start_it = 0
     if resume and outdir:
+        # the checkpoint that rank 0 wrote last is complete on every rank
+        barrier(mesh)
         ck = load_checkpoint(outdir, rng)
         if ck is not None:
             start_it, ck_params, refi, _extra = ck
@@ -174,7 +200,8 @@ def mref_ali2d(
             out = engine.iterate(refi)
         sums = out.class_sums                  # (K, 2, H, W)
         counts = out.counts
-        assign = engine.params_np().ref_id.astype(np.int64)
+        params = engine.params_np()
+        assign = params.ref_id.astype(np.int64)
         members = [list(np.nonzero(assign == j)[0]) for j in range(numref)]
 
         # ---- reference update on the host
@@ -189,14 +216,20 @@ def mref_ali2d(
             wiener = ctf_ctx.restore(sums[:, 0] + sums[:, 1], assign)
         for j in range(numref):
             if counts[j] < 4:
-                # vanished class: reseed with a random particle
+                # vanished class: reseed with a random particle, sent by
+                # the rank that holds it
                 pick = rng.randint(0, n - 1)
                 members[j] = [pick]
-                new_refs[j] = data[pick].cpu().numpy()
+                owner = block_owner(pick, n, mesh)
+                new_refs[j] = broadcast_refs(
+                    data[pick - start].cpu().numpy() if start <= pick < stop
+                    else np.zeros_like(new_refs[j]), mesh, src=owner)
                 vanished.append(j)
+            elif not root:
+                continue
             else:
                 cur = fsc(sums[j, 0], sums[j, 1], 1.0)
-                if outdir:
+                if write_dir:
                     write_fsc(os.path.join(outdir, "drm%03d%04d.txt"
                                            % (it, j)), *cur)
                 new_refs[j] = (wiener[j] if ctf_ctx is not None else
@@ -212,19 +245,19 @@ def mref_ali2d(
             ave_fsc /= float(c_fsc)
             frsc = (frsc[0], ave_fsc, frsc[2])
 
-        for j in range(numref):
+        for j in range(numref if root else 0):
             filtered = (user_func([mask, center, new_refs[j], frsc])[0]
                         if frsc is not None else new_refs[j])
             new_refs[j] = normalize_mask(
                 torch.as_tensor(np.asarray(filtered, np.float32)),
                 mask_host, no_sigma=True).numpy()
-        if outdir:
+        if write_dir:
             write_class_averages(os.path.join(outdir, "aqm%03d.hdf" % it),
                                  new_refs, counts, members, log)
-        refi = new_refs
+        refi = broadcast_refs(new_refs, mesh)
 
-        if outdir:
-            save_checkpoint(outdir, it, engine.params_np(), refi, rng=rng)
+        if write_dir:
+            save_checkpoint(outdir, it, params, refi, rng=rng)
         log.add("ITERATION #%3d" % (it + 1))
         for j in range(numref):
             log.add("   group #%3d   number of particles = %7d"
@@ -233,8 +266,8 @@ def mref_ali2d(
             log.add("   reseeded vanished classes: %s" % vanished)
 
     # final params in header convention
-    table = params_table(engine.params)
-    if outdir:
+    table = params_table(engine.params_np())
+    if write_dir:
         write_text_row(table, os.path.join(outdir, "final2Dparams.txt"))
     log.add("Finished mref_ali2d")
     return MrefResult(params=table, assignments=assign, references=refi,

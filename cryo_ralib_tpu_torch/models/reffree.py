@@ -20,6 +20,15 @@ a device tensor that the engine keeps when it fits
 (``parallel/batching.py``) or else into pinned host memory, from which
 the engine streams it in batches (``batch_size=`` forces a batch).  The
 average conditioning (one H x W image per iteration) runs on the host.
+
+Under a ``mesh`` (``parallel/mesh.py``) each rank aligns its block of
+the stack with global indices (the first even/odd sums take their
+parity from them), the engine all-reduces the sums and gathers the
+params, the CTF restoration and the Fourier variance reduce their sums
+over the ranks, and rank 0 conditions the average (FSC, criterion,
+filter, centering), writes every output file and the checkpoint, and
+broadcasts the average and its criterion; the QC runs on the gathered
+tables, on every rank.
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ from ..ops.fsc import fsc_mask, write_fsc
 from ..ops.masks import infomask, model_circle
 from ..io.eman_hdf import write_image
 from ..io.star import write_text_row
+from ..parallel.mesh import (StackShard, all_reduce_sums, barrier,
+                             broadcast_refs, shard_range, shard_stack)
 from ..utils.log import RunLogger
 from ..utils.profiling import annotate
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -87,6 +98,7 @@ def ali2d_base(
     device="cuda",
     sampler: str = "auto",
     batch_size: int | None = None,
+    mesh=None,
 ) -> RefFreeResult:
     """Align ``images`` (N, H, W; numpy or tensor) to their iteratively
     refined global average on ``device`` (the GPU unless
@@ -110,12 +122,15 @@ def ali2d_base(
     stack each iteration, divides the average's spectrum by it and
     writes ``varf.hdf``.  ``sampler`` as in ``mref_ali2d``; SHC and eman2
     run the PyTorch search on either device (``sampler="kernel"`` raises
-    ``ValueError`` there).  ``batch_size`` as in ``mref_ali2d``.
+    ``ValueError`` there).  ``batch_size`` and ``mesh`` as in
+    ``mref_ali2d``.
     """
-    device = resolve_device(device)
-    if outdir:
+    device = resolve_device(device if mesh is None else mesh.device)
+    root = mesh is None or mesh.is_root
+    if outdir and root:
         os.makedirs(outdir, exist_ok=True)
-    log = log or RunLogger(outdir)
+    log = (log or RunLogger(outdir)) if root else RunLogger(None, quiet=True)
+    write_dir = outdir if root else None
     user_func = factory[user_func_name]
     # TF32 would cut the f32 semantics the port is held to
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -155,9 +170,10 @@ def ali2d_base(
         if ctf_params is None:
             raise ValueError("CTF=True requires ctf_params (at least "
                              "per-particle 'dfu' defocus in A)")
-        ctf_ctx = CtfContext(nx, ctf_params, snr=snr, device=device)
-        if images.shape[0] != ctf_ctx.n:
-            raise ValueError(f"{images.shape[0]} images vs {ctf_ctx.n} CTFs")
+        ctf_ctx = CtfContext(nx, ctf_params, snr=snr, device=device,
+                             mesh=mesh)
+        if n != ctf_ctx.n_total:
+            raise ValueError(f"{n} images vs {ctf_ctx.n_total} CTFs")
         log.add("CTF premultiplication on, snr=%g" % snr)
 
     def prep(x, start):
@@ -167,12 +183,18 @@ def ali2d_base(
         mean, _sigma = infomask(x, mask_dev)
         return x - mean[:, None, None]
 
-    batch = plan_batch(n, 1, cfg, device, sampler, random_method,
-                       batch_size, log=log.add)
-    data = prepare_stack(images, device, batch >= n, prep)
-    engine = AlignmentEngine(data, cfg, n_classes=1, device=device,
-                             sampler=sampler, update_ref=False, delta=dst,
-                             random_method=random_method, batch_size=batch)
+    local, _gidx = shard_stack(images, mesh)
+    start, stop = shard_range(n, mesh)
+    batch = plan_batch(stop - start, 1, cfg, device, sampler, random_method,
+                       batch_size, log=log.add,
+                       ranks_on_device=1 if mesh is None
+                       else mesh.ranks_on_device)
+    data = prepare_stack(local, device, batch >= stop - start, prep)
+    engine = AlignmentEngine(StackShard(data, start, n), cfg, n_classes=1,
+                             device=device, sampler=sampler,
+                             update_ref=False, delta=dst,
+                             random_method=random_method, batch_size=batch,
+                             mesh=mesh)
     if dst:
         log.add("Discrete angle used         : %d" % int(dst))
     if not engine.resident:
@@ -190,6 +212,8 @@ def ali2d_base(
 
     start_it = 0
     if resume and outdir:
+        # the checkpoint that rank 0 wrote last is complete on every rank
+        barrier(mesh)
         ck = load_checkpoint(outdir)
         if ck is not None:
             start_it, ck_params, tavg_ck, extra = ck
@@ -205,6 +229,8 @@ def ali2d_base(
             total_iter = start_it
             log.add("resumed from checkpoint at iteration %d" % start_it)
 
+    full = engine.params_np()
+
     def _delta_for(j: int) -> float:
         """--dst schedule: discrete angles every 4th iteration, except
         within the last 10."""
@@ -217,7 +243,7 @@ def ali2d_base(
         # ---- the new average from the previous iteration's sums
         if sums is None:
             # iteration 0: even/odd sums of the raw stack
-            sums = _even_odd_sums(data, device)
+            sums = _even_odd_sums(data, device, start, mesh)
         ave1, ave2 = sums[0, 0], sums[0, 1]
         if ctf_ctx is not None:
             tavg = ctf_ctx.restore((ave1 + ave2)[None])[0]
@@ -227,8 +253,9 @@ def ali2d_base(
         log.add("Iteration #%4d" % total_iter)
         log.add("X range = %5.2f   Y range = %5.2f   Step = %5.2f"
                 % (xr, yr, ts))
-        frsc = fsc_mask(ave1, ave2, mask, 1.0)
-        if outdir:
+        if root:
+            frsc = fsc_mask(ave1, ave2, mask, 1.0)
+        if write_dir:
             write_image(os.path.join(outdir, "aqc.hdf"), tavg, total_iter - 1)
             write_fsc(os.path.join(outdir, "resolution%03d" % total_iter),
                       *frsc)
@@ -239,33 +266,36 @@ def ali2d_base(
         if Fourvar:
             with annotate("reffree::fourvar"):
                 vav, rvar = fourier_variance(data, engine.params,
-                                             mask=mask_dev)
+                                             mask=mask_dev, mesh=mesh)
             tavg = divide_by_variance(tavg, vav)
             result.radial_variances.append(rvar)
-            if outdir:
+            if write_dir:
                 write_image(os.path.join(outdir, "varf.hdf"),
                             variance_map(vav), total_iter - 1)
 
-        # ---- stopping criterion on the unfiltered average
-        a1 = float(np.sum(tavg * tavg * mask))
-        log.add("Criterion %d = %15.8e" % (total_iter, a1))
+        # ---- rank 0: the criterion on the unfiltered average, and the
+        # user function
+        a1 = 0.0
+        if root:
+            a1 = float(np.sum(tavg * tavg * mask))
+            log.add("Criterion %d = %15.8e" % (total_iter, a1))
+            if center == -1:
+                tavg_f, _cs = user_func([mask, 0, tavg, frsc])
+                cs = [float(sx_sum) / n, float(sy_sum) / n]
+                tavg_f = fshift(
+                    torch.as_tensor(np.asarray(tavg_f, np.float32)),
+                    -cs[0], -cs[1]).numpy()
+                log.add("Average center x = %10.3f        Center y = %10.3f"
+                        % (cs[0], cs[1]))
+            else:
+                # after a discrete-angle iteration, centering is off for
+                # one call of the user function
+                c_eff = 0 if _delta_for(it - 1) != 0.0 else center
+                tavg_f, _cs = user_func([mask, c_eff, tavg, frsc])
+            tavg = np.asarray(tavg_f, np.float32)
+        tavg, a1 = _share(tavg, a1, mesh)
         result.criteria.append(a1)
-
-        # ---- user function: tangent filter (+ centering)
-        if center == -1:
-            tavg_f, _cs = user_func([mask, 0, tavg, frsc])
-            cs = [float(sx_sum) / n, float(sy_sum) / n]
-            tavg_f = fshift(torch.as_tensor(np.asarray(tavg_f, np.float32)),
-                            -cs[0], -cs[1]).numpy()
-            log.add("Average center x = %10.3f        Center y = %10.3f"
-                    % (cs[0], cs[1]))
-        else:
-            # after a discrete-angle iteration, centering is off for one
-            # call of the user function
-            c_eff = 0 if _delta_for(it - 1) != 0.0 else center
-            tavg_f, _cs = user_func([mask, c_eff, tavg, frsc])
-        tavg = np.asarray(tavg_f, np.float32)
-        if outdir:
+        if write_dir:
             write_image(os.path.join(outdir, "aqf.hdf"), tavg, total_iter - 1)
         if a1 < a0:
             if auto_stop:
@@ -274,13 +304,14 @@ def ali2d_base(
             a0 = a1
 
         # ---- alignment against the new average
-        old_tab = params_table(engine.params)
+        old_tab = params_table(full)
         delta_it = _delta_for(it)
         if delta_it:
             log.add("Iteration %d uses discrete angles (delta=%g)"
                     % (total_iter, delta_it))
         with annotate("reffree::align_iter"):
             out = engine.iterate(tavg[None], discrete=delta_it != 0.0)
+        full = engine.params_np()
         sums = out.class_sums
         result.class_counts = out.counts
         sx_sum = out.sx_sum
@@ -290,7 +321,7 @@ def ali2d_base(
                     % (out.nope, n))
 
         # ---- QC: pixel error / mirror consistency against the old params
-        new_tab = params_table(engine.params)
+        new_tab = params_table(full)
         consistent = old_tab[:, 3] == new_tab[:, 3]
         errs = pixel_error_2D(
             (old_tab[:, 0], old_tab[:, 1], old_tab[:, 2]),
@@ -301,34 +332,46 @@ def ali2d_base(
             float(errs[consistent].sum() / max(n_cons, 1)))
         log.add("Mirror consistency %6.2f%%, mean pixel error %.4f"
                 % (100.0 * n_cons / n, result.pixel_errors[-1]))
-        if outdir:
-            extra = {"sums": sums, "a0": a0,
-                     "sx_sum": sx_sum, "sy_sum": sy_sum}
-            if random_method == "SHC":
-                extra["previousmax"] = engine.previousmax_np()
-            save_checkpoint(outdir, it, engine.params_np(), tavg[None],
-                            extra=extra)
+        extra = {"sums": sums, "a0": a0, "sx_sum": sx_sum, "sy_sum": sy_sum}
+        if random_method == "SHC":
+            extra["previousmax"] = engine.previousmax_np()
+        if write_dir:
+            save_checkpoint(outdir, it, full, tavg[None], extra=extra)
 
-    if outdir:
+    if write_dir:
         write_image(os.path.join(outdir, "aqfinal.hdf"), tavg, 0)
     result.average = tavg
     result.iterations = total_iter
-    result.params = params_table(engine.params)
-    if outdir:
+    result.params = params_table(full)
+    if write_dir:
         write_text_row(result.params,
                        os.path.join(outdir, "initial2Dparams.txt"))
     log.add("Finished ali2d_base")
     return result
 
 
-def _even_odd_sums(data, device) -> np.ndarray:
+def _share(tavg, a1: float, mesh):
+    """Rank 0's average and criterion on every rank: one float64
+    broadcast (float32 values pass through float64 unchanged)."""
+    if mesh is None:
+        return tavg, a1
+    buf = broadcast_refs(np.append(np.asarray(tavg, np.float64).ravel(), a1),
+                         mesh)
+    return buf[:-1].reshape(tavg.shape).astype(np.float32), float(buf[-1])
+
+
+def _even_odd_sums(data, device, start: int = 0, mesh=None) -> np.ndarray:
     """(1, 2, H, W) sums of the even- and odd-indexed particles of
     ``data`` (on the device or the host), by blocks of ``PREP_BLOCK`` on
-    ``device``, as numpy."""
+    ``device``, as numpy.  ``data`` holds the particles ``start ..``, so
+    the parity is the global index's; under a ``mesh`` the sums are
+    all-reduced over the ranks."""
     n, h, w = data.shape
     acc = torch.zeros((2, h, w), dtype=torch.float32, device=device)
+    even = start % 2   # the slot of local rows 0, 2, 4, ...
     for s in range(0, n, PREP_BLOCK):
         x = torch.as_tensor(data[s:s + PREP_BLOCK], device=device)
-        acc[0] += x[0::2].sum(0)
-        acc[1] += x[1::2].sum(0)
+        acc[even] += x[0::2].sum(0)
+        acc[1 - even] += x[1::2].sum(0)
+    all_reduce_sums(mesh, acc)
     return acc[None].cpu().numpy()

@@ -29,6 +29,8 @@ import math
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_reduce_sums, shard_range
+
 
 def rfft2_freqs(nx: int, apix: float = 1.0) -> np.ndarray:
     """(nx, nx//2+1, 2) spatial-frequency grid (1/A) of the rfft2 layout:
@@ -135,25 +137,37 @@ class CtfContext:
     scalars ``apix``, ``voltage``, ``cs``, ``w``, ``bfactor``).  Only the
     defocus rows are kept; the (batch, H, Fw) CTFs are made per chunk, so
     device memory stays O(batch * H * Fw).
+
+    Under a ``mesh`` (``parallel/mesh.py``) ``ctf_params`` still holds the
+    whole stack's rows, and the context keeps the rank's block: ``n`` is
+    the block's size, ``start`` its first global index and ``n_total``
+    the stack's; ``ctf_chunk`` and ``premultiply_block`` count from the
+    block's start, and ``restore`` all-reduces the per-class ctf^2 sums
+    before the Wiener division.
     """
 
     def __init__(self, nx: int, ctf_params: dict, snr: float = 1.0,
-                 batch: int = 2048, device="cpu"):
+                 batch: int = 2048, device="cpu", mesh=None):
         p = dict(ctf_params)
         dfu = np.atleast_1d(np.asarray(p.pop("dfu"), np.float64))
         dfv = np.atleast_1d(np.asarray(p.pop("dfv", dfu), np.float64))
         dfang = np.atleast_1d(np.asarray(p.pop("dfang", 0.0), np.float64))
         phase = np.atleast_1d(np.asarray(p.pop("phase_shift", 0.0),
                                          np.float64))
-        n = max(dfu.size, dfv.size, dfang.size, phase.size)
-        df = np.stack([np.broadcast_to(a, (n,)) for a in
+        n_total = max(dfu.size, dfv.size, dfang.size, phase.size)
+        df = np.stack([np.broadcast_to(a, (n_total,)) for a in
                        (dfu, dfv, dfang, phase)], axis=1)      # (N, 4)
+        start, stop = shard_range(n_total, mesh)
+        self.mesh = mesh
         self.device = torch.device(device)
-        self.df = torch.as_tensor(df.astype(np.float32), device=self.device)
+        self.df = torch.as_tensor(df[start:stop].astype(np.float32),
+                                  device=self.device)
         self.snr = float(snr)
         self.nx = nx
-        self.n = n
-        self.batch = min(batch, n)
+        self.n = stop - start
+        self.start = start
+        self.n_total = n_total
+        self.batch = max(1, min(batch, self.n))
         self.scalars = dict(apix=p.pop("apix", 1.0),
                             voltage=p.pop("voltage", 300.0),
                             cs=p.pop("cs", 2.7), w=p.pop("w", 0.1),
@@ -198,8 +212,9 @@ class CtfContext:
         """Wiener-restore per-class summed averages.
 
         summed: (K, H, W) summed (even + odd, unnormalised) class images,
-        numpy or tensor; assign: (N,) class ids (None: every particle in
-        class 0).  Returns a (K, H, W) float32 numpy array.
+        numpy or tensor; assign: (N,) class ids of the whole stack (None:
+        every particle in class 0).  Returns a (K, H, W) float32 numpy
+        array.  Under a mesh every rank calls it (a collective).
         """
         summed = torch.as_tensor(np.asarray(summed, np.float32)
                                  if not torch.is_tensor(summed) else summed,
@@ -211,8 +226,13 @@ class CtfContext:
             rid = torch.as_tensor(np.asarray(assign, np.int64)
                                   if not torch.is_tensor(assign) else assign,
                                   device=self.device)
-        ctf2 = None
+            if rid.shape[0] != self.n_total:
+                raise ValueError(f"{rid.shape[0]} class ids for a stack of "
+                                 f"{self.n_total}")
+            rid = rid[self.start:self.start + self.n]
+        ctf2 = torch.zeros((k, self.nx, self.nx // 2 + 1),
+                           dtype=torch.float32, device=self.device)
         for i in range(0, self.n, self.batch):
-            part = class_ctf2_sum(self.ctf_chunk(i), rid[i:i + self.batch], k)
-            ctf2 = part if ctf2 is None else ctf2 + part
+            ctf2 += class_ctf2_sum(self.ctf_chunk(i), rid[i:i + self.batch], k)
+        all_reduce_sums(self.mesh, ctf2)
         return wiener_restore(summed, ctf2, self.snr).cpu().numpy()

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..params import AlignParams
+from ..parallel.mesh import all_reduce_sums
 from .fsc import _rfft2_weights, _shell_index
 from .transform import transform_batch
 
@@ -95,15 +96,17 @@ def variance_map(var):
 
 
 def fourier_variance(data, params: AlignParams, mask=None,
-                     batch: int = 4096):
+                     batch: int = 4096, mesh=None):
     """Chunked variance of a whole stack.
 
     ``data`` (N, H, W) and ``params`` are numpy arrays or tensors on the
     host or on the device; each chunk of ``batch`` particles goes to the
     device of ``mask`` (else of ``data``, else the CPU), where its
     moments are summed in float32, and the chunks add up in float64 on
-    the host.  Returns ``(var (H, F), rvar (H//2+1,))`` as float32
-    numpy arrays.
+    the host.  Under a ``mesh`` ``data`` and ``params`` are the rank's
+    block, and the moments and the count are all-reduced (one float64
+    buffer) before the variance is finalised; every rank calls it.
+    Returns ``(var (H, F), rvar (H//2+1,))`` as float32 numpy arrays.
     """
     device = (mask.device if torch.is_tensor(mask) else
               data.device if torch.is_tensor(data) else "cpu")
@@ -119,6 +122,14 @@ def fourier_variance(data, params: AlignParams, mask=None,
         for a, s in zip(acc, sums):
             a += s.double().cpu().numpy()
         total += float(cnt)
+    if mesh is not None:
+        buf = torch.from_numpy(np.concatenate(
+            [a.ravel() for a in acc] + [np.array([total])]))
+        all_reduce_sums(mesh, buf)
+        buf = buf.numpy()
+        acc = [buf[i * acc[0].size:(i + 1) * acc[0].size].reshape(
+            acc[0].shape) for i in range(3)]
+        total = float(buf[-1])
     var = finalize_variance(acc[0], acc[1], acc[2], total)
     return var.astype(np.float32), radial_variance(var).astype(np.float32)
 

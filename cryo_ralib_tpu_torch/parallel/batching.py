@@ -122,23 +122,26 @@ def step_footprint(batch: int, n_refs: int, cfg, sampler: str = "kernel",
 def plan_batch_size(n: int, n_refs: int, cfg, limit_bytes: int | None = None,
                     occupancy: float = 0.8, device=None,
                     sampler: str = "kernel", random_method: str = "",
-                    log=None) -> int:
+                    log=None, ranks_on_device: int = 1) -> int:
     """The stack whole (``n``) where its resident footprint fits
     ``occupancy * limit``, else the largest power-of-two batch whose
     streamed footprint fits (at least 1).
 
-    ``limit_bytes`` defaults to ``device_memory_bytes(device)``; on a
-    device that is not a CUDA device, with no ``limit_bytes``, the stack
-    is resident.  ``occupancy`` 0.8 leaves a fifth of the card (16 GB of
-    an H100's 80) to what the model does not count: the caching
-    allocator's rounding and split blocks, and the cuFFT plans' and
-    cuBLAS's workspaces.  ``log`` (a callable, e.g. ``print``) gets
-    the plan and its footprint.
+    ``limit_bytes`` defaults to ``device_memory_bytes(device)`` divided
+    by ``ranks_on_device``: under a mesh ``n`` is the rank's block, and
+    the ranks that share a card plan at the same time, each seeing the
+    whole card free.  On a device that is not a CUDA device, with no
+    ``limit_bytes``, the stack is resident.  ``occupancy`` 0.8 leaves a
+    fifth of the card (16 GB of an H100's 80) to what the model does not
+    count: the caching allocator's rounding and split blocks, and the
+    cuFFT plans' and cuBLAS's workspaces.  ``log`` (a callable, e.g.
+    ``print``) gets the plan and its footprint.
     """
     if limit_bytes is None:
         limit_bytes = device_memory_bytes(device)
-    if limit_bytes is None:
-        return n
+        if limit_bytes is None:
+            return n
+        limit_bytes //= max(1, int(ranks_on_device))
     budget = int(limit_bytes * occupancy)
 
     def fits(b, streamed):

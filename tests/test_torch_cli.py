@@ -367,9 +367,6 @@ def test_cli_existing_outdir_exits(tmp_path, stacks, cli):
 UNPORTED = [
     ("mref", ["--sampler=template"], "--sampler"),
     ("mref", ["--sampler=matmul"], "--sampler"),
-    ("mref", ["--devices=2"], "--devices"),
-    ("mref", ["--gpu_devices=0,1"], "--gpu_devices"),
-    ("reffree", ["--gpu_devices=4"], "--gpu_devices"),
 ]
 
 
@@ -387,6 +384,40 @@ def test_cli_unported_flags_exit_2(tmp_path, capsys, cli, argv, flag):
     assert exc.value.code == 2
     assert flag in capsys.readouterr().err
     assert not os.path.exists(out)
+
+
+DEVICES = [
+    ("mref", ["--devices=2"], 2),
+    ("mref", ["--gpu_devices=0,1"], 2),
+    ("reffree", ["--gpu_devices=4"], 4),
+]
+
+
+@pytest.mark.parametrize("cli,argv,want", DEVICES,
+                         ids=[f"{c}{a[0]}" for c, a, _ in DEVICES])
+def test_cli_device_flags_give_the_world_size(capsys, monkeypatch, cli, argv,
+                                              want):
+    """``--devices`` and ``--gpu_devices`` (a count, or card ids that are
+    counted) parse into the number of ranks, as the JAX CLI's
+    ``make_mesh_arg`` does: taken as asked where that many cards are
+    visible, clamped to the visible cards with a logged note where not;
+    0 means every visible card, and one process on the CPU."""
+    from cryo_ralib_tpu_torch.cli.common import world_size
+
+    args = CLIS[cli][0].build_parser().parse_args(["s", "r", "o"][:3 if cli
+                                                   == "mref" else 2] + argv)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    assert world_size(args, "cuda") == want
+    assert "NOTE" not in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert world_size(args, "cuda") == min(want, 2)
+    err = capsys.readouterr().err
+    assert ("NOTE" in err and "2 are visible" in err) == (want > 2)
+    none = CLIS[cli][0].build_parser().parse_args(["s", "r", "o"][:3 if cli
+                                                   == "mref" else 2])
+    assert world_size(none, "cuda") == 2
+    assert world_size(none, "cpu") == 1
+    assert world_size(args, "cpu", n_visible=1) == 1
 
 
 @pytest.mark.parametrize("cli,spec", [("mref", "bdb:refs"),

@@ -141,6 +141,7 @@ def test_import_boundary_covers_every_module_and_chip_smoke():
             "cryo_ralib_tpu_torch.ops.fourvar",
             "cryo_ralib_tpu_torch.io.star",
             "cryo_ralib_tpu_torch.parallel.batching",
+            "cryo_ralib_tpu_torch.parallel.mesh",
             "cryo_ralib_tpu_torch.utils.profiling",
             "cryo_ralib_tpu_torch.utils.oracle",
             "cryo_ralib_tpu_torch.analysis.reduction",
@@ -153,6 +154,7 @@ def test_import_boundary_covers_every_module_and_chip_smoke():
              + sorted(root.parent.glob("examples/torch_*.py"))
              + sorted(root.parent.glob("tools/torch_*.py")))
     assert len(files) > len(names)
+    assert root.parent / "examples" / "torch_06_mesh_scaling.py" in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -1,13 +1,16 @@
 """The port's examples (``examples/torch_02_batch_transform.py``,
-``torch_03_eda.py``, ``torch_08_export_aligned.py``) run end to end on
-the CPU at a small size, with their outputs checked; the export is also
-held to the JAX example's files (tests/test_export_aligned.py's checks,
-and the same aligned stack within ``rot_shift2d``'s 1e-4).
+``torch_03_eda.py``, ``torch_06_mesh_scaling.py``,
+``torch_08_export_aligned.py``) run end to end on the CPU at a small
+size, with their outputs checked; the export is also held to the JAX
+example's files (tests/test_export_aligned.py's checks, and the same
+aligned stack within ``rot_shift2d``'s 1e-4).
 """
 
 import importlib.util
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -46,6 +49,23 @@ def test_eda_example(capsys):
     assert set(pur) == {"twosdr", "twosdr_class", "mpca"}
     assert all(0.0 < v <= 1.0 for v in pur.values())
     assert "alignment purity: 1.000" in capsys.readouterr().out
+
+
+def test_mesh_scaling_example_on_two_cpu_ranks():
+    """Two gloo ranks (processes the example starts, within 120 s): one
+    sharded step whose all-reduced counts cover the stack, and three
+    engine iterations with purity > 0.9 (the example asserts it)."""
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples",
+                                      "torch_06_mesh_scaling.py"),
+         "--device=cpu", "--ranks=2", "--n=64"], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    lines = proc.stdout.splitlines()
+    assert lines[0] == "2 ranks, backend gloo, rank 0 on cpu"
+    counts = json.loads(lines[1].split("counts=")[1].split("],")[0] + "]")
+    assert sum(counts) == 64
+    assert "3 engine iterations: purity=" in lines[2] and lines[-1] == "ok"
 
 
 def test_export_load_params_formats(tmp_path):

@@ -118,8 +118,9 @@ def test_cli_on_the_gpu_needs_no_h5py(cuda_device, tmp_path, monkeypatch):
     write_mrc(refs, tmpl)
     out = str(tmp_path / "out")
     before = fs.fused_search.launches["search"]
+    # one process (the default, 0, is every visible card)
     assert cli_mref.main([stack, refs, out, "--ou=24", "--xr=1", "--ts=1",
-                          "--maxit=2"]) == 0
+                          "--maxit=2", "--devices=1"]) == 0
     assert fs.fused_search.launches["search"] == before + 2
     got, headers = read_hdf_stack(os.path.join(out, "aqm001.hdf"))
     assert got.shape == (4, 64, 64) and np.isfinite(got).all()
