@@ -161,8 +161,31 @@ Phases (any failure raises and the script exits non-zero):
         tensors through the host, so the check is not made there).
      A rank that raises fails the phase (torch.multiprocessing.spawn
      re-raises it) and the run.
+  14. the template engine (sampler="template", ops/template_search.py:
+     the search as bf16 products on the tensor cores), no search-kernel
+     launch on any of its paths:
+     a. template_search on the card against itself on the CPU, 512
+        structured particles with integer and fractional accumulated
+        shifts: at least 99.9% of winners equal, the others' peaks within
+        5e-3 relative; the share equal to the kernel's, a figure (the
+        interpolation differs at fractional accumulated shifts);
+     b. ms per search at N=16384 (CUDA events, mean of 3) at K=8, K=1
+        and K=64, beside the
+        kernel's (phase 5) and the bound (its operations at the bf16
+        tensor-core peak); K=8 at column-chunk targets 2048, 4096 and
+        8192 (winners held to 2048's); K=8 by stage (template build,
+        window, the products alone, column fill and fold);
+     c. mref_ali2d (K=8, maxit=6), reffree A under SHC (4 iterations)
+        and mref under the eman2 rings (3 iterations) through it, each
+        beside its phase-6/10b/10d s/iteration and held by that phase's
+        rules (purity >= 0.9, SHC's nope counts);
+     d. make_mref_device_loop(sampler="template"): purity >= 0.9, then
+        timed as phase 8 times the kernel's loop, each call under sync
+        debug mode "error";
+     e. one template align_step's peak device memory against the
+        planner's model (not below it, not over twice it).
 Every launch counter is set to 0 just before each main-path run (6, 6b,
-7, 8, 9, 10, 11, 12, and 13 in each rank) and read just after it.  The
+7, 8, 9, 10, 11, 12, 14, and 13 in each rank) and read just after it.  The
 last lines are the slice's JSON line (loop rates, stage breakdown, CLI
 times, phase 13), the stage ablation's JSON line, the card, the kernels'
 JSON record (with each instantiation's registers, spill bytes and shared
@@ -1825,6 +1848,297 @@ def mesh_phase(dev, card, tmp, imgs, tmpl, reffree_a, loop_params,
     return row
 
 
+# ---- phase 14: the template engine (sampler="template")
+BF16_PEAK = 989e12   # FLOP/s, H100 SXM tensor cores, dense bf16
+CHUNK_TARGETS = (2048, 4096, 8192)
+
+
+def template_bound(n, cfg, k):
+    """(bound_ms, bound_by) of one template search: the larger of its
+    2 x N x Wpx x C operations (C = mirrors x shifts x K x 256 columns)
+    over the bf16 tensor-core peak and its bytes (the images, the ref
+    spectra and the splat spectra read once, the outputs written once)
+    over the memory rate."""
+    from cryo_ralib_tpu_torch.ops.template_search import (
+        _splat_spectra_bytes, template_geometry)
+
+    _, width, _ = template_geometry(cfg)
+    n_m = 2 if cfg.mirror else 1
+    flops = 2.0 * n * width * width * n_m * cfg.n_shifts * k * cfg.ring_len
+    nbytes = (4 * n * cfg.img_dim ** 2 + 8 * k * cfg.ring_num * F
+              + _splat_spectra_bytes(cfg) + 8 * n + n * 4 * (1 + L + 4))
+    t_op, t_mem = flops / BF16_PEAK, nbytes / HBM_RATE
+    return (1e3 * max(t_op, t_mem),
+            "operations" if t_op >= t_mem else "bytes")
+
+
+def max0(t) -> float:
+    """The largest value of ``t``, 0 for an empty tensor."""
+    return float(t.max()) if t.numel() else 0.0
+
+
+def winners_equal(a, b):
+    """(N,) bool on the host: the particles whose (ref, shift, mirror,
+    angle bin) agree in two results."""
+    same = torch.ones(a.best_ref.shape, dtype=torch.bool)
+    for f in ("best_ref", "best_sidx", "best_mirror", "best_aidx"):
+        same &= getattr(a, f).cpu() == getattr(b, f).cpu()
+    return same
+
+
+def template_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1,
+                   tmpl64, kernel_ms, before) -> dict:
+    """Phase 14: the template engine on the card.  14a the engine on the
+    card against itself on the CPU (and against the kernel, a figure);
+    14b its ms per search at K=8, 1 and 64 beside the kernel's and the
+    bound, and by column-chunk target; 14c
+    mref_ali2d, reffree A under SHC and mref under the eman2 rings
+    through it, beside the phase-6/10 runs (``before``: their
+    s/iteration and phase 6's assignments); 14d the mref loop through it
+    under sync debug mode "error"; 14e the planner's model against one
+    step's peak.  Every template path launches the search kernel 0
+    times."""
+    from cryo_ralib_tpu_torch.config import AlignConfig
+    from cryo_ralib_tpu_torch.models import make_mref_device_loop
+    from cryo_ralib_tpu_torch.models.mref import mref_ali2d
+    from cryo_ralib_tpu_torch.models.reffree import ali2d_base
+    from cryo_ralib_tpu_torch.models.steps import align_step
+    from cryo_ralib_tpu_torch.ops import fused_search as fs
+    from cryo_ralib_tpu_torch.ops import template_search as ts
+    from cryo_ralib_tpu_torch.ops.search import prepare_ref_spectra
+    from cryo_ralib_tpu_torch.parallel.batching import step_footprint
+    from cryo_ralib_tpu_torch.params import AlignParams
+    from cryo_ralib_tpu_torch.utils.log import RunLogger
+    from cryo_ralib_tpu_torch.utils.synthetic import scattered_stack
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "route": ts.product_route(dev)}
+    quiet = dict(log=RunLogger(None, quiet=True))
+    cfg = geometry(HEADLINE)
+    k = tmpl.shape[0]
+    sf = ts.splat_spectra_groups(cfg, dev)
+    log(f"14 template products on the card: route {out['route']!r} "
+        f"(bf16 = torch.mm(bf16, bf16, out_dtype=float32); tf32 = f32 "
+        f"operands holding bf16 values under TF32)")
+
+    # ---- 14a. card against CPU on 512 particles (integer and fractional
+    # accumulated shifts), and against the kernel
+    cfg_c, sub, rfw, prm = make_case(HEADLINE, N_CHECK, "structured", 60,
+                                     dev)
+    t0 = time.perf_counter()
+    got = ts.template_search(sub, rfw, prm, cfg_c, sf=sf)
+    want = ts.template_search(sub.cpu(), rfw.cpu(),
+                              AlignParams(*[f.cpu() for f in prm]), cfg_c)
+    cpu_s = time.perf_counter() - t0
+    same = winners_equal(got, want)
+    rel = ((got.best_val.cpu() - want.best_val).abs()
+           / want.best_val.abs())
+    log(f"14a template card vs CPU, {N_CHECK} particles 90px K={k}: "
+        f"{float(same.float().mean()):.4f} of winners equal, the others' "
+        f"peaks within {max0(rel[~same]):.2e} relative; "
+        f"peaks within {float(rel.max()):.2e} relative (CPU {cpu_s:.1f} s)")
+    check(float(same.float().mean()) >= 0.999,
+          f"14a: {int((~same).sum())} winners differ from the CPU's")
+    check(max0(rel[~same]) <= 5e-3, "14a: tie rule")
+    kern = fs.fused_search(sub, rfw, prm, cfg_c)
+    out["card_vs_cpu"] = float(same.float().mean())
+    out["vs_kernel_n512"] = float(winners_equal(got, kern).float().mean())
+    log(f"14a template vs the kernel (a figure: the window's two-stage "
+        f"bf16 interpolation against the kernel's f32 bilinear samples at "
+        f"fractional accumulated shifts): {out['vs_kernel_n512']:.4f} of "
+        f"winners equal")
+
+    # ---- 14b. ms per search at the main paths' shapes
+    zeros = AlignParams.zeros(N_SLICE, dev)
+    params = acc_params(N_SLICE, 5, dev)
+    rfw8 = prepare_ref_spectra(torch.as_tensor(tmpl, device=dev), cfg)
+    rfw1 = prepare_ref_spectra(torch.as_tensor(tmpl1, device=dev), cfg)
+    rfw64 = prepare_ref_spectra(torch.as_tensor(tmpl64, device=dev), cfg)
+    imgs64 = scattered_stack(tmpl64, N_SLICE, max_shift=2, noise=1.0,
+                             seed=9, device=dev)[0]
+    cases = (("k8", imgs, rfw8, k), ("k1", stack_a, rfw1, 1),
+             ("k64", imgs64, rfw64, K_LARGE))
+    searches = {}
+
+    def time_all():
+        for name, x, r, kk in cases:
+            ms = cuda_ms(lambda: ts.template_search(x, r, params, cfg, sf=sf),
+                         3)
+            bound_ms, bound_by = template_bound(N_SLICE, cfg, kk)
+            kms = kernel_ms[name]
+            searches[name] = {"ms": ms, "kernel_ms": kms,
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "share": bound_ms / ms, "k": kk}
+            log(f"14b template search {name} N={N_SLICE} 90px K={kk}: "
+                f"{ms:.2f} ms (CUDA events, mean of 3), kernel {kms:.2f} "
+                f"ms, bound {bound_ms:.2f} ms ({bound_by}), "
+                f"{100 * bound_ms / ms:.1f}% of it  [{card}]")
+        ref = ts.template_search(imgs, rfw8, params, cfg, sf=sf)
+        for target in CHUNK_TARGETS:
+            ts.COL_CHUNK_TARGET = target
+            try:
+                ms = cuda_ms(lambda: ts.template_search(imgs, rfw8, params,
+                                                        cfg, sf=sf), 3)
+                res = ts.template_search(imgs, rfw8, params, cfg, sf=sf)
+            finally:
+                ts.COL_CHUNK_TARGET = CHUNK_TARGETS[0]
+            diff = ~winners_equal(res, ref)
+            gap = max0(((res.best_val - ref.best_val).abs()
+                        / ref.best_val.abs()).cpu()[diff])
+            searches[f"k8_chunk{target}"] = {"ms": ms,
+                                             "winners_differ": int(
+                                                 diff.sum())}
+            log(f"14b K=8 column chunks of <= {target}: {ms:.2f} ms; "
+                f"{int(diff.sum())} winners differ from 2048's (their "
+                f"peaks within {gap:.2e} relative)  [{card}]")
+            check(float(diff.float().mean()) <= 1e-3 and gap <= 1e-5,
+                  f"14b: the chunk target {target} moved winners")
+        return ref
+
+    ref, _ = main_path("template searches", time_all, NO_LAUNCH)
+
+    def by_stage(mark):
+        ts.build_template_blocks(rfw8, cfg, sf=sf)
+        mark("build")
+        win, cols_fn, c_total, chunk, route = ts._search_operands(
+            imgs, rfw8, params, cfg, sf)
+        mark("window_and_build")
+        cols = cols_fn(0)
+        with ts._product_switches(route):
+            for _ in range(c_total // chunk):
+                ts._scores(win, cols, route)
+        mark("products")
+        ts._online_argmax(win, cols_fn, c_total, chunk, cfg.ring_len, route)
+        mark("products_and_fold")
+
+    st = events_ms(by_stage)
+    stages = {"template_build": st["build"],
+              "window": st["window_and_build"] - st["build"],
+              "products": st["products"],
+              "column_fill_and_fold": st["products_and_fold"]
+              - st["products"]}
+    searches["k8_stages"] = stages
+    log(f"14b template search K=8 by stage (CUDA events, mean of 3): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items())
+        + f"  [{card}]")
+    kern = fs.fused_search(imgs, rfw8, params, cfg)
+    out["vs_kernel_n16384"] = float(winners_equal(ref, kern).float().mean())
+    log(f"14b template vs the kernel at N={N_SLICE} K={k}: "
+        f"{out['vs_kernel_n16384']:.4f} of winners equal (a figure)")
+    out["searches"] = searches
+    del imgs64, ref, kern
+
+    # ---- 14c. the drivers through the template engine
+    res, seconds = main_path("mref K=8 template", lambda: mref_ali2d(
+        imgs, tmpl, ou=HEADLINE["ou"], xr=HEADLINE["xr"], yr=HEADLINE["xr"],
+        ts=1, maxit=MAXIT, device=dev, sampler="template", **quiet),
+        NO_LAUNCH)
+    check(bool(np.isfinite(res.params).all()
+               and np.isfinite(res.references).all()), "14c mref: NaN")
+    check(int(res.class_counts.sum()) == N_SLICE, "14c mref: counts")
+    pur = purity(res.assignments, cls, k)
+    agree = float((res.assignments == before["mref_assign"]).mean())
+    out["mref"] = mode_line(
+        "14c mref template", f"mref_ali2d(sampler='template') K={k}",
+        seconds, MAXIT, card, f"; phase 6 (kernel) "
+        f"{before['mref_s_it']:.4f} s/iteration; purity {pur:.4f}; "
+        f"assignments equal to phase 6's {agree:.4f}")
+    out["mref"].update(purity=pur, agree_phase6=agree)
+    check(pur >= 0.9, f"14c mref purity {pur}")
+
+    n_shc = 4
+    lines = ListLogger()
+    res, seconds = main_path("reffree SHC template", lambda: ali2d_base(
+        stack_a, maxit=n_shc, random_method="SHC", sampler="template",
+        ou=HEADLINE["ou"], xr=HEADLINE["xr"], yr=HEADLINE["xr"], ts=1.0,
+        center=-1, device=dev, log=lines), NO_LAUNCH)
+    check(bool(np.isfinite(res.params).all()
+               and np.isfinite(res.average).all()), "14c SHC: NaN")
+    nope = [int(m.split()[1]) for m in lines.lines if m.startswith("SHC:")]
+    check(len(nope) == n_shc and all(0 <= v <= N_SLICE for v in nope)
+          and nope[0] == 0, f"14c SHC nope counts {nope}")
+    out["reffree_shc"] = mode_line(
+        "14c reffree SHC template", "ali2d_base(random_method='SHC', "
+        "sampler='template')", seconds, n_shc, card,
+        f"; phase 10b (PyTorch search) {before['shc_s_it']:.4f} "
+        f"s/iteration; nope {nope}")
+    out["reffree_shc"]["nope"] = nope
+
+    n_em = 3
+    cfg_e = AlignConfig(img_dim=HEADLINE["nx"], ring_num=HEADLINE["ou"],
+                        ring_scheme="eman2", shift_rng_x=HEADLINE["xr"],
+                        shift_rng_y=HEADLINE["xr"])
+    res, seconds = main_path("mref eman2 template", lambda: mref_ali2d(
+        imgs, tmpl, ou=HEADLINE["ou"], xr=HEADLINE["xr"], yr=HEADLINE["xr"],
+        ts=1, maxit=n_em, ring_scheme="eman2", sampler="template",
+        device=dev, **quiet), NO_LAUNCH)
+    check(bool(np.isfinite(res.params).all()
+               and np.isfinite(res.references).all()), "14c eman2: NaN")
+    check(int(res.class_counts.sum()) == N_SLICE, "14c eman2: counts")
+    pur = purity(res.assignments, cls, k)
+    out["mref_eman2"] = mode_line(
+        "14c mref eman2 template", f"mref_ali2d(ring_scheme='eman2', "
+        f"sampler='template') K={k}, maxrin {cfg_e.ring_len}", seconds, n_em,
+        card, f"; phase 10d (PyTorch search) {before['eman2_s_it']:.4f} "
+        f"s/iteration; purity {pur:.4f}")
+    out["mref_eman2"]["purity"] = pur
+    check(pur >= 0.9, f"14c eman2 purity {pur}")
+
+    # ---- 14d. the mref loop through the template engine, no host sync
+    gidx = torch.arange(N_SLICE, device=dev)
+    valid = torch.ones(N_SLICE, device=dev)
+    refs0 = torch.as_tensor(tmpl, device=dev)
+    loop = make_mref_device_loop(cfg, MAXIT, k, np.full(MAXIT, 0.25),
+                                 device=dev, sampler="template")
+    (p_loop, refs_loop), _ = main_path(
+        "mref loop template", lambda: loop(imgs, refs0, zeros, gidx, valid),
+        NO_LAUNCH)
+    loop_checks("14d mref loop template", p_loop, refs_loop, k, cls)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop(imgs, refs0, zeros, gidx, valid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["mref_loop"] = loop_line("14d mref loop template K=8",
+                                 float(np.median(times)), MAXIT,
+                                 before["mref_s_it"], card)
+    out["mref_loop"]["kernel_loop_s_per_iteration"] = before["loop_s_it"]
+    log(f"14d the kernel's mref loop (phase 8): {before['loop_s_it']:.4f} "
+        f"s/iteration")
+
+    # ---- 14e. the planner's model against one template step's peak
+    align_step(imgs, refs0, zeros, gidx, None, cfg, n_classes=k,
+               sampler="template", sf=sf)
+    torch.cuda.synchronize()
+    held = (imgs.nbytes + refs0.nbytes + gidx.nbytes
+            + sum(f.nbytes for f in zeros)
+            + sum(t.nbytes for t in sf))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    align_step(imgs, refs0, zeros, gidx, None, cfg, n_classes=k,
+               sampler="template", sf=sf)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base + held
+    model = step_footprint(N_SLICE, k, cfg, sampler="template").total
+    out["footprint"] = {"peak_bytes": peak, "model_bytes": model}
+    log(f"14e template align_step N={N_SLICE} K={k}: peak "
+        f"{peak / 2**30:.3f} GiB (with its images, refs, params and splat "
+        f"spectra), the planner's model {model / 2**30:.3f} GiB (ratio "
+        f"{model / peak:.3f})  [{card}]")
+    check(model >= peak, f"14e: the model {model} is below the peak {peak}")
+    check(model <= 2 * peak, f"14e: the model {model} is over twice the "
+          f"peak {peak}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14: {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -2260,6 +2574,17 @@ def main():
     slice_json["mesh"] = mesh_phase(dev, card, cli_tmp.name, imgs, tmpl,
                                     reffree_a, p_loop, launches)
     cli_tmp.cleanup()
+
+    # ---- 14. the template engine: no search-kernel launch on its paths
+    modes = slice_json["modes"]
+    slice_json["template"] = template_phase(
+        dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1, tmpl64,
+        {"k8": times["search"][0], "k1": times["search_k1"][0],
+         "k64": times["search_k64"][0]},
+        {"mref_s_it": mref_s_it, "mref_assign": mref_assign,
+         "shc_s_it": modes["reffree_shc"]["s_per_iteration"],
+         "eman2_s_it": modes["mref_eman2"]["s_per_iteration"],
+         "loop_s_it": slice_json["mref_loop"]["s_per_iteration"]})
     del imgs, stack_a
 
     shapes = {   # entry -> (timing key, K, mirror channels, mask)

@@ -14,15 +14,19 @@ one rank is started here, one worker process per card
 (``torch.multiprocessing.spawn``, meeting through a file store in a
 temporary directory).  Each rank reads its block of the stack;
 rank 0 checks and writes the output directory and the log, writes the
-headers back, and its exit status is the run's.  The TPU engines
-``--sampler=template/matmul`` are not ported and exit with status 2 and
-a message naming the flag before any stack is read.
+headers back, and its exit status is the run's.  The TPU engine
+``--sampler=matmul`` is not ported (on the card it would compute the
+plain search's bilinear samples as dense tent products) and exits with
+status 2 and a message naming it before any stack is read.
 Stacks are ``.hdf``, ``.mrc(s)`` or EMAN2 ``bdb:`` containers (read and
-written back through the system's ``libdb``, ``io/bdb.py``).  ``--sampler``: ``auto`` and ``fused`` run the CUDA search
-kernel on the GPU, ``gather`` its plain PyTorch version (the JAX
-``gather`` engine's f32 semantics); ``--random_method=SHC`` and
-``--ring_scheme=eman2`` have no kernel and run the PyTorch search under
-``auto`` (``fused`` is refused there).
+written back through the system's ``libdb``, ``io/bdb.py``).
+``--sampler``: ``auto`` and ``fused`` run the CUDA search kernel on the
+GPU, ``gather`` its plain PyTorch version (the JAX ``gather`` engine's
+f32 semantics), ``template`` the template engine (the search as bf16
+matrix products, ``ops/template_search.py``; standard and eman2 rings,
+SHC; refused under SCF and outside its geometry gate);
+``--random_method=SHC`` and ``--ring_scheme=eman2`` have no kernel and
+run the PyTorch search under ``auto`` (``fused`` is refused there).
 """
 
 from __future__ import annotations
@@ -33,8 +37,10 @@ import sys
 
 import numpy as np
 
-# --sampler -> the port's search: kernel on a CUDA device, plain version
-SAMPLERS = {"auto": "auto", "fused": "kernel", "gather": "plain"}
+# --sampler -> the port's search: kernel on a CUDA device, plain version,
+# template engine
+SAMPLERS = {"auto": "auto", "fused": "kernel", "gather": "plain",
+            "template": "template"}
 
 
 def _intish(s: str) -> int:
@@ -115,8 +121,9 @@ def add_common_flags(p: argparse.ArgumentParser, reffree: bool = False):
     p.add_argument("--sampler", default="auto",
                    choices=["auto", "fused", "template", "matmul", "gather"],
                    help="search engine: auto and fused = the CUDA search "
-                        "kernel, gather = its plain PyTorch version; "
-                        "template and matmul are TPU engines")
+                        "kernel, gather = its plain PyTorch version, "
+                        "template = the search as bf16 matrix products; "
+                        "matmul is a TPU engine, not ported")
     p.add_argument("--ring_scheme", default="cuda",
                    choices=["cuda", "eman2"],
                    help="polar ring convention: cuda = uniform 256-sample "
@@ -238,16 +245,36 @@ def launch(run, args, device) -> int:
 
     with tempfile.TemporaryDirectory(prefix="cryo_ralib_ranks_") as tmp:
         store = "file://" + os.path.join(tmp, "store")
+        ctx = mp.spawn(_spawned_rank, args=(run, args, str(device), n, store),
+                       nprocs=n, join=False)
         try:
-            mp.spawn(_spawned_rank, args=(run, args, str(device), n, store),
-                     nprocs=n, join=True)
+            while not ctx.join():
+                pass
         except mp.ProcessExitedException as err:
             print(f"ERROR: {err}", file=sys.stderr)
+            _report_other_ranks(ctx, err.error_index)
             return err.exit_code or 1
         except mp.ProcessRaisedException as err:
             print(f"ERROR: a rank failed:\n{err}", file=sys.stderr)
+            _report_other_ranks(ctx, err.error_index)
             return 1
     return 0
+
+
+def _report_other_ranks(ctx, first: int):
+    """Print the tracebacks of the ranks that raised besides the one
+    ``torch.multiprocessing.spawn`` reported: when a rank raises and
+    leaves, its peers' collectives fail too, and the spawn reports
+    whichever process it sees end first, which under load can be such a
+    peer and not the rank that started it.  The tracebacks are the
+    pickled strings the workers' wrapper wrote (one file per rank)."""
+    import pickle
+
+    for rank, path in enumerate(ctx.error_files):
+        if rank != first and os.access(path, os.R_OK):
+            with open(path, "rb") as fh:
+                trace = pickle.load(fh)
+            print(f"ERROR: rank {rank} failed too:\n{trace}", file=sys.stderr)
 
 
 def _spawned_rank(rank, run, args, device, n, store):
@@ -302,7 +329,7 @@ def reject_unported(args):
     problems = []
     if args.sampler not in SAMPLERS:
         problems.append(f"--sampler={args.sampler} (a TPU engine; use auto, "
-                        "fused or gather)")
+                        "fused, gather or template)")
     if problems:
         print("ERROR: not ported yet to the PyTorch/CUDA package:\n  "
               + "\n  ".join(problems), file=sys.stderr)

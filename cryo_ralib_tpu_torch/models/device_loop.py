@@ -17,7 +17,10 @@ The search is the hand-written CUDA kernel on a CUDA device
 (``sampler="auto"`` or ``"kernel"``; mode "H" included) and its plain
 PyTorch version with ``"plain"`` or on the CPU; a ``cfg`` with
 ``ring_scheme="eman2"`` runs the eman2 PyTorch search on either device;
-the class sums are the bilinear ``transform_batch`` + ``class_sum_oe``,
+``sampler="template"`` runs the template engine
+(``ops/template_search.py``) for either ring scheme, its splat spectra
+built once when the loop is built, as the JAX loops hoist them; the
+class sums are the bilinear ``transform_batch`` + ``class_sum_oe``,
 the JAX loops' ``gather`` branch.
 In the multireference loop a class with fewer than 4 members keeps its
 previous reference, where ``mref_ali2d`` reseeds it from a random
@@ -45,6 +48,7 @@ from ..ops.eman_search import eman_tables
 from ..ops.filters import device_freq_grid, filt_tanl_dyn
 from ..ops.fused_search import kernel_tables
 from ..ops.search import search_tables
+from ..ops.template_search import splat_spectra_groups
 from .engine import resolve_device
 from .steps import align_step, resolve_sampler
 
@@ -60,9 +64,10 @@ def _schedule(values, n_iter: int, default: float, device) -> torch.Tensor:
 
 def _build(cfg: AlignConfig, n_iter: int, cutoffs, falloffs, device,
            sampler: str, n_refs: int = 1, mesh=None):
-    """Device (the mesh's where there is one), sampler and the (n_iter,)
-    cutoff / falloff schedules on the device, with the search's tables
-    copied there."""
+    """Device (the mesh's where there is one), sampler, the (n_iter,)
+    cutoff / falloff schedules on the device and the template engine's
+    splat spectra (None for the other searches), with the search's
+    tables copied there."""
     device = resolve_device(device if mesh is None else mesh.device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -73,8 +78,9 @@ def _build(cfg: AlignConfig, n_iter: int, cutoffs, falloffs, device,
         eman_tables(cfg, device)
     elif sampler == "kernel" and device.type == "cuda":
         kernel_tables(cfg, device)
+    sf = splat_spectra_groups(cfg, device) if sampler == "template" else None
     return (device, sampler, _schedule(cutoffs, n_iter, 0.0, device),
-            _schedule(falloffs, n_iter, 0.1, device))
+            _schedule(falloffs, n_iter, 0.1, device), sf)
 
 
 def _reduce(mesh, sums, counts=None):
@@ -99,8 +105,8 @@ def make_device_loop(cfg: AlignConfig, n_iter: int, cutoffs, falloffs=None,
         (<= 0 leaves that iteration's average unfiltered).
       falloffs: per-iteration falloffs (default 0.1).
       device: where the loop runs, the GPU unless ``device="cpu"``.
-      sampler: "auto" (the kernel on CUDA, plain on the CPU), "kernel" or
-        "plain".
+      sampler: "auto" (the kernel on CUDA, plain on the CPU), "kernel",
+        "plain" or "template".
       mesh: a ``ParticleMesh``: the loop runs on ``mesh.device`` on the
         rank's block, and the sums are all-reduced every iteration.
 
@@ -110,8 +116,8 @@ def make_device_loop(cfg: AlignConfig, n_iter: int, cutoffs, falloffs=None,
     (under a mesh, the rank's block of each; the average is the whole
     stack's, on every rank).
     """
-    device, sampler, cut, fall = _build(cfg, n_iter, cutoffs, falloffs,
-                                        device, sampler, mesh=mesh)
+    device, sampler, cut, fall, sf = _build(cfg, n_iter, cutoffs, falloffs,
+                                            device, sampler, mesh=mesh)
 
     def run(images, avg0, params: AlignParams, gidx, valid):
         avg = torch.as_tensor(avg0, dtype=torch.float32, device=device)
@@ -119,7 +125,7 @@ def make_device_loop(cfg: AlignConfig, n_iter: int, cutoffs, falloffs=None,
         for i in range(n_iter):
             out = align_step(images, filt_tanl_dyn(avg, cut[i], fall[i])[None],
                              params, gidx, valid, cfg, n_classes=1,
-                             update_ref=False, sampler=sampler)
+                             update_ref=False, sampler=sampler, sf=sf)
             params = out.params
             sums = _reduce(mesh, out.class_sums)[0]
             avg = (sums[0, 0] + sums[0, 1]) / n_total
@@ -137,15 +143,15 @@ def make_mref_device_loop(cfg: AlignConfig, n_iter: int, n_classes: int,
 
     Returns ``run(images, refs0, params, gidx, valid) -> (params, refs)``.
     """
-    device, sampler, cut, fall = _build(cfg, n_iter, cutoffs, falloffs,
-                                        device, sampler, n_classes, mesh)
+    device, sampler, cut, fall, sf = _build(cfg, n_iter, cutoffs, falloffs,
+                                            device, sampler, n_classes, mesh)
 
     def run(images, refs0, params: AlignParams, gidx, valid):
         refs = torch.as_tensor(refs0, dtype=torch.float32, device=device)
         for i in range(n_iter):
             out = align_step(images, filt_tanl_dyn(refs, cut[i], fall[i]),
                              params, gidx, valid, cfg, n_classes=n_classes,
-                             sampler=sampler)
+                             sampler=sampler, sf=sf)
             params = out.params
             sums, counts = _reduce(mesh, out.class_sums, out.counts)
             new_refs = ((sums[:, 0] + sums[:, 1])

@@ -37,6 +37,7 @@ import torch
 from ..config import AlignConfig
 from ..params import AlignParams, params_from_numpy
 from ..ops.search import PREVIOUSMAX_INIT, delta_angle_mask
+from ..ops.template_search import splat_spectra_groups
 from ..parallel.batching import plan_batch_size
 from ..parallel.mesh import (all_reduce_sums, gather_params, gather_rows,
                              shard_range, shard_stack)
@@ -169,8 +170,12 @@ class AlignmentEngine:
                              "standard search, not random_method=%r"
                              % random_method)
         # fail at construction where the first iteration would
-        resolve_sampler(sampler, self.device, cfg, random_method,
-                        n_refs=n_classes)
+        search = resolve_sampler(sampler, self.device, cfg, random_method,
+                                 n_refs=n_classes)
+        # the template engine's splat spectra depend on cfg only: built
+        # once per engine, as the JAX engine hoists them out of its step
+        self._sf = (splat_spectra_groups(cfg, self.device)
+                    if search == "template" else None)
         if random_method and cfg.ring_scheme != "cuda":
             raise ValueError(f"random_method={random_method!r} runs the "
                              "standard ring scheme only (ring_scheme='cuda')")
@@ -274,16 +279,16 @@ class AlignmentEngine:
     def _step(self, imgs, refs, params, gidx, prevmax, mask):
         """One step on a batch: (StepOutput, new previousmax, nope)."""
         kw = dict(n_classes=self.n_classes, sampler=self.sampler)
-        if self.random_method == "SHC":
-            shc = align_step_shc(imgs, refs, params, gidx, None, prevmax,
-                                 self.cfg, **kw)
-            return shc.step, shc.previousmax, shc.nope
         if self.random_method == "SCF":
             return (align_step_scf(imgs, refs, params, gidx, None, self.cfg,
                                    **kw), None, None)
+        if self.random_method == "SHC":
+            shc = align_step_shc(imgs, refs, params, gidx, None, prevmax,
+                                 self.cfg, sf=self._sf, **kw)
+            return shc.step, shc.previousmax, shc.nope
         return (align_step(imgs, refs, params, gidx, None, self.cfg,
-                           update_ref=self.update_ref, angle_mask=mask, **kw),
-                None, None)
+                           update_ref=self.update_ref, angle_mask=mask,
+                           sf=self._sf, **kw), None, None)
 
     def iterate(self, refs: np.ndarray,
                 discrete: bool = False) -> IterationResult:

@@ -121,8 +121,10 @@ def ali2d_base(
     ``snr``.  ``Fourvar`` computes the 2-D Fourier variance of the aligned
     stack each iteration, divides the average's spectrum by it and
     writes ``varf.hdf``.  ``sampler`` as in ``mref_ali2d``; SHC and eman2
-    run the PyTorch search on either device (``sampler="kernel"`` raises
-    ``ValueError`` there).  ``batch_size`` and ``mesh`` as in
+    run the PyTorch search on either device under "auto"
+    (``sampler="kernel"`` raises ``ValueError`` there), and the template
+    engine with ``sampler="template"`` in every mode but SCF, where it
+    raises ``ValueError`` as in the JAX package.  ``batch_size`` and ``mesh`` as in
     ``mref_ali2d``.
     """
     device = resolve_device(device if mesh is None else mesh.device)

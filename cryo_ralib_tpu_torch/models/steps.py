@@ -12,14 +12,19 @@ Which search runs (``resolve_sampler``): the hand-written CUDA kernel
 takes the standard search on uniform 256-sample rings, full or half
 (mode "F" or "H"); the SHC pick and the eman2 ring scheme have no
 kernel, as the JAX package has no Pallas kernel for them, and run the
-PyTorch search on either device, and so do the per-particle-reference
-search (``per_particle_ref``) and a geometry outside the
-kernel's gate (``ops/fused_search.py::kernel_gate``: other ring lengths,
-a block larger than the device's shared memory, the int32 priority
-bound), as the JAX package's "auto" leaves the Pallas kernel there.
-Asking for the kernel there raises ``ValueError``; the rule is decided
-from the geometry before any launch, and nothing falls back from a
-kernel that fails to build or launch to the plain search.
+PyTorch search on either device under "auto", and so do the
+per-particle-reference search (``per_particle_ref``) and a geometry
+outside the kernel's gate (``ops/fused_search.py::kernel_gate``: other
+ring lengths, a block larger than the device's shared memory, the int32
+priority bound), as the JAX package's "auto" leaves the Pallas kernel
+there.  Asking for the kernel there raises ``ValueError``; the rule is
+decided from the geometry before any launch, and nothing falls back from
+a kernel that fails to build or launch to the plain search.
+``sampler="template"`` runs the template engine
+(``ops/template_search.py``: the search as bf16 matrix products) for the
+standard and the eman2 rings and for SHC, where ``template_supported``
+admits the geometry, and raises ``ValueError`` elsewhere (SCF has no
+template variant, as in JAX); "auto" never picks it.
 
 The end of every step (``_finish_step``) transforms and class-sums the
 particles in blocks of ``ops/transform.py::transform_block`` particles,
@@ -43,6 +48,8 @@ from ..ops.fused_search import fused_search, kernel_gate, search_plain
 from ..ops.scf import scf_align, zero_shift_cfg
 from ..ops.search import (decode_params, prepare_ref_spectra,
                           rotational_shift_search_shc)
+from ..ops.template_search import (template_search, template_search_shc,
+                                   template_supported)
 from ..ops.transform import transform_batch, transform_block
 
 _log = logging.getLogger(__name__)
@@ -72,8 +79,8 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
                     random_method: str = "", n_refs: int = 1,
                     smem_limit: int | None = None,
                     per_particle_ref: bool = False) -> str:
-    """The search a step runs: "kernel" (the CUDA kernel) or "plain" (the
-    PyTorch search).
+    """The search a step runs: "kernel" (the CUDA kernel), "plain" (the
+    PyTorch search) or "template" (the template engine).
 
     "auto" is the kernel for CUDA tensors and plain for CPU tensors,
     except where there is no kernel: the SHC pick
@@ -83,10 +90,27 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
     outside ``kernel_gate`` (``n_refs`` references of ``cfg``'s box;
     ``smem_limit`` defaults to the device's) run plain, which is logged.
     "kernel" asked for there raises ``ValueError`` naming the rule.
+    "template" is taken only as asked, on either device, and raises
+    ``ValueError`` under SCF, for ``per_particle_ref`` and outside
+    ``template_supported`` (``n_refs`` references), as the JAX package's
+    steps raise.
     """
-    if sampler not in ("auto", "kernel", "plain"):
-        raise ValueError(f"sampler must be 'auto', 'kernel' or 'plain', "
-                         f"not {sampler!r}")
+    if sampler not in ("auto", "kernel", "plain", "template"):
+        raise ValueError(f"sampler must be 'auto', 'kernel', 'plain' or "
+                         f"'template', not {sampler!r}")
+    if sampler == "template":
+        if random_method == "SCF":
+            raise ValueError("sampler='template' has no SCF variant (as in "
+                             "the JAX package) — use sampler='auto'")
+        if per_particle_ref:
+            raise ValueError("sampler='template' searches every reference "
+                             "(no per_particle_ref)")
+        if cfg is not None and not template_supported(cfg, n_refs):
+            raise ValueError(
+                "sampler='template' on a configuration outside the template "
+                "engine's geometry gate (ops.template_search."
+                "template_supported) — use sampler='auto'")
+        return "template"
     no_kernel = None
     if random_method == "SHC":
         no_kernel = "random_method='SHC' (the kernel has no SHC pick)"
@@ -116,7 +140,7 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
 
 def align_step(images, refs, params: AlignParams, global_index, valid,
                cfg: AlignConfig, *, n_classes: int, update_ref: bool = True,
-               sampler: str = "auto", angle_mask=None) -> StepOutput:
+               sampler: str = "auto", angle_mask=None, sf=None) -> StepOutput:
     """One alignment iteration over a resident stack.
 
     Args:
@@ -129,25 +153,32 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
       n_classes: K.
       update_ref: False keeps every particle's ref_id.
       sampler: "kernel" = the CUDA search kernel (CUDA tensors only),
-        "plain" = its PyTorch version, "auto" = kernel on CUDA, plain on
-        the CPU.
+        "plain" = its PyTorch version, "template" = the template engine,
+        "auto" = kernel on CUDA, plain on the CPU.
       angle_mask: optional (L,) float32 additive angle mask on the
         device of ``images`` (``delta_angle_mask``).
+      sf: the template engine's splat spectra
+        (``ops/template_search.py::splat_spectra_groups``), built once by
+        callers that step repeatedly; None builds them here.  Read by the
+        template engine only.
 
     ``cfg.ring_scheme == "eman2"`` runs the variable-length Numrinit
     rings of ``ops/eman_search.py`` (the PyTorch search on either
-    device); ``cfg.mode == "H"`` searches half rings, through the kernel
-    on a CUDA tensor like mode "F".
+    device, or the template engine); ``cfg.mode == "H"`` searches half
+    rings, through the kernel on a CUDA tensor like mode "F".
     """
     sampler = resolve_sampler(sampler, images.device, cfg,
                               n_refs=refs.shape[0])
     if cfg.ring_scheme == "eman2":
-        result = rotational_shift_search_eman(
-            images, prepare_ref_spectra_eman(refs, cfg), params, cfg,
-            angle_mask=angle_mask)
+        ref_fw = prepare_ref_spectra_eman(refs, cfg)
+        search = rotational_shift_search_eman
     else:
         ref_fw = prepare_ref_spectra(refs, cfg)
         search = fused_search if sampler == "kernel" else search_plain
+    if sampler == "template":
+        result = template_search(images, ref_fw, params, cfg, sf=sf,
+                                 angle_mask=angle_mask)
+    else:
         result = search(images, ref_fw, params, cfg, angle_mask=angle_mask)
     new_params = decode_params(result, params, cfg, update_ref=update_ref,
                                refine=angle_mask is None)
@@ -203,21 +234,28 @@ class ShcStepOutput(NamedTuple):
 
 def align_step_shc(images, refs, params: AlignParams, global_index, valid,
                    previousmax, cfg: AlignConfig, *, n_classes: int,
-                   sampler: str = "auto") -> ShcStepOutput:
+                   sampler: str = "auto", sf=None) -> ShcStepOutput:
     """One SHC (stochastic hill climbing) iteration,
     ``random_method="SHC"``: each particle takes the first candidate
     above its ``previousmax`` rather than the global argmax; a particle
     with none keeps its params and its ``previousmax`` and counts in
     ``nope``.  The search is the PyTorch one on either device
-    (``resolve_sampler``); ``sampler="kernel"`` raises ``ValueError``.
+    (``resolve_sampler``), or ``template_search_shc`` with
+    ``sampler="template"`` (``sf`` as in ``align_step``);
+    ``sampler="kernel"`` raises ``ValueError``.
     """
     if cfg.ring_scheme != "cuda":
         raise ValueError("random_method='SHC' runs the standard ring "
                          "scheme only (ring_scheme='cuda')")
-    resolve_sampler(sampler, images.device, cfg, random_method="SHC")
+    sampler = resolve_sampler(sampler, images.device, cfg,
+                              random_method="SHC", n_refs=refs.shape[0])
     ref_fw = prepare_ref_spectra(refs, cfg)
-    result, found = rotational_shift_search_shc(images, ref_fw, params, cfg,
-                                                previousmax)
+    if sampler == "template":
+        result, found = template_search_shc(images, ref_fw, params, cfg,
+                                            previousmax, sf=sf)
+    else:
+        result, found = rotational_shift_search_shc(images, ref_fw, params,
+                                                    cfg, previousmax)
     decoded = decode_params(result, params, cfg, update_ref=True)
     new_params = AlignParams(*[torch.where(found, new, old)
                                for new, old in zip(decoded, params)])
@@ -236,13 +274,15 @@ def align_step_scf(images, refs, params: AlignParams, global_index, valid,
     one cross-correlation map per 180-degree candidate
     (``ops/scf.py::scf_align``).  SCF aligns absolutely: ``params`` is not
     composed in.  The rotation stage is a standard K=1 search at zero
-    shift, so on a CUDA tensor it launches the kernel.
+    shift, so on a CUDA tensor it launches the kernel;
+    ``sampler="template"`` raises ``ValueError``, as in the JAX package.
     """
     if cfg.ring_scheme != "cuda":
         raise ValueError("random_method='SCF' runs the standard ring "
                          "scheme only (ring_scheme='cuda')")
     new_params, peak = scf_align(
         images, refs[0], cfg,
-        sampler=resolve_sampler(sampler, images.device, zero_shift_cfg(cfg)))
+        sampler=resolve_sampler(sampler, images.device, zero_shift_cfg(cfg),
+                                random_method="SCF"))
     return _finish_step(images, new_params, peak, global_index, valid,
                         n_classes)

@@ -25,7 +25,11 @@ What one step allocates, per batch of B particles of H x W pixels:
   kernel's decode (a few (B, 7) gathers); for the PyTorch search (SHC,
   the eman2 rings, "auto" outside the kernel's gate) its polar samples
   at ~100 B each (``ops/search.py::PLAIN_SAMPLE_BUDGET``); for SCF the
-  scf images (one stack size) besides the rotation search.
+  scf images (one stack size) besides the rotation search; for the
+  template engine (``template_search_bytes``) its bf16 window, its
+  template blocks and the largest of its window's translate, its
+  template build and one column chunk's product and fold.  Its splat
+  spectra stay on the device between steps and count with the tables.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ import torch
 
 from ..ops.fused_search import RING_LEN
 from ..ops.search import PLAIN_SAMPLE_BUDGET, plain_shift_chunk
+from ..ops.template_search import (WINDOW_BLOCK, _col_chunk, _padded,
+                                   _splat_spectra_bytes,
+                                   _template_blocks_bytes, template_geometry)
 from ..ops.transform import TRANSFORM_BYTES_PER_PIXEL, transform_block
 
 F32 = 4
@@ -82,14 +89,49 @@ class StepFootprint:
                 + max(self.search, self.transform))
 
 
+def template_search_bytes(batch: int, n_refs: int, cfg) -> int:
+    """Device bytes of one streamed ``template_search`` on ``batch``
+    particles, the hoisted splat spectra aside: the (B, Wp) bf16 window
+    and the padded template blocks, plus the largest of three phases
+    that do not overlap:
+
+    * the window's translate, on a block of ``WINDOW_BLOCK`` particles:
+      two f32 tent stacks (width x H), the image rounded through bf16
+      (6 B a pixel), the mid product and its rounding (width x W,
+      10 B), the window in f32;
+    * the template build: per channel and ref the complex angle spectra
+      (F bins) and three f32 copies of the L angle templates (the
+      inverse FFT, its flip and the transposed stack), each Wpx pixels;
+    * a column chunk: its bf16 columns, the (B, chunk) f32 scores and
+      the f32 columns where the route takes f32 operands, the f32
+      window, and five (B, L) f32 rows of the fold.
+    """
+    _, width, _ = template_geometry(cfg)
+    h = w = cfg.img_dim
+    wpx = width * width
+    wp = _padded(wpx)
+    n_chan = 2 if cfg.mirror else 1
+    ring_len = cfg.ring_len
+    blk = min(batch, WINDOW_BLOCK)
+    translate = blk * (2 * width * h * F32 + h * w * 6 + width * w * 10
+                       + wpx * F32)
+    build = n_chan * n_refs * wpx * ((ring_len // 2 + 1) * 8
+                                     + 3 * ring_len * F32)
+    chunk = _col_chunk(n_chan * cfg.n_shifts * n_refs * ring_len, ring_len)
+    scan = (chunk * wp * (2 + F32) + batch * chunk * F32
+            + 5 * batch * ring_len * F32)
+    return (batch * wp * 2 + _template_blocks_bytes(cfg, n_refs)
+            + max(translate, build, scan))
+
+
 def step_footprint(batch: int, n_refs: int, cfg, sampler: str = "kernel",
                    random_method: str = "",
                    streamed: bool = False) -> StepFootprint:
     """The device memory of one ``align_step`` (``align_step_shc`` /
     ``align_step_scf`` under ``random_method``) on ``batch`` particles
     against ``n_refs`` references; ``sampler`` is the search that runs
-    ("kernel" or "plain", ``resolve_sampler``); ``streamed`` charges the
-    second image buffer and the engine's accumulator."""
+    ("kernel", "plain" or "template", ``resolve_sampler``); ``streamed``
+    charges the second image buffer and the engine's accumulator."""
     h = w = cfg.img_dim
     img = h * w * F32
     q = cfg.ring_num * cfg.ring_len
@@ -103,7 +145,10 @@ def step_footprint(batch: int, n_refs: int, cfg, sampler: str = "kernel",
     tables = (n_refs * (img + q * F32 + 2 * cfg.ring_num * 129 * 8)
               + q * 2 * F32 + cfg.n_shifts * 2 * F32 + RING_LEN * 2 * 8
               + cfg.ring_num * 8)
-    if sampler == "plain" or random_method == "SHC":
+    if sampler == "template":
+        tables += _splat_spectra_bytes(cfg)
+        search = template_search_bytes(batch, n_refs, cfg)
+    elif sampler == "plain" or random_method == "SHC":
         if cfg.ring_scheme == "eman2":
             samples = min(PLAIN_SAMPLE_BUDGET, batch * q)
         else:

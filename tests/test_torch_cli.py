@@ -365,8 +365,8 @@ def test_cli_existing_outdir_exits(tmp_path, stacks, cli):
 
 
 UNPORTED = [
-    ("mref", ["--sampler=template"], "--sampler"),
-    ("mref", ["--sampler=matmul"], "--sampler"),
+    ("mref", ["--sampler=matmul"], "--sampler=matmul"),
+    ("reffree", ["--sampler=matmul"], "--sampler=matmul"),
 ]
 
 

@@ -139,6 +139,8 @@ def test_import_boundary_covers_every_module_and_chip_smoke():
             "cryo_ralib_tpu_torch.ops.eman_search",
             "cryo_ralib_tpu_torch.ops.ctf_ops",
             "cryo_ralib_tpu_torch.ops.fourvar",
+            "cryo_ralib_tpu_torch.ops.template_search",
+            "cryo_ralib_tpu_torch.ops.polar_mm",
             "cryo_ralib_tpu_torch.io.star",
             "cryo_ralib_tpu_torch.parallel.batching",
             "cryo_ralib_tpu_torch.parallel.mesh",
@@ -155,6 +157,7 @@ def test_import_boundary_covers_every_module_and_chip_smoke():
              + sorted(root.parent.glob("tools/torch_*.py")))
     assert len(files) > len(names)
     assert root.parent / "examples" / "torch_06_mesh_scaling.py" in files
+    assert root.parent / "examples" / "torch_07_ring_schemes.py" in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

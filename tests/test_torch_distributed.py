@@ -165,6 +165,13 @@ for mode, batch in (("resident", None), ("streamed", 4)):
                                    random_method="SHC", batch_size=batch,
                                    **dict(REFFREE, maxit=2)))
 
+# the template engine on the rank's block
+keep("mref_template", mref_ali2d(imgs, base, device="cpu", mesh=mesh,
+                                 log=quiet, sampler="template", **MREF))
+keep("shc_template", ali2d_base(imgs1, device="cpu", mesh=mesh, log=quiet,
+                                random_method="SHC", sampler="template",
+                                **dict(REFFREE, maxit=2)))
+
 # SHC, one step: K references, and K=1
 for tag, stack, refs, pm in (("shc_step", imgs, base, "shc_pm"),
                              ("shc_step1", imgs1, imgs1.mean(0)[None],
@@ -432,6 +439,32 @@ def test_streamed_matches_resident_on_two_ranks(ranks):
                                   got["mref_assignments"])
 
 
+@pytest.mark.parametrize("case", ["mref_template", "shc_template"])
+def test_template_engine_on_two_ranks_matches_single_process(ranks, case):
+    """``sampler="template"`` under a mesh: each rank runs the template
+    engine on its block and the collectives are the other engines'; the
+    result is one process's (the JAX package's counterpart builds a dp
+    mesh, tests/test_template.py:243-303).  Angles and header shifts
+    within 1e-2: a rank's block is a matrix product of another shape,
+    summed in another order on the CPU, and the bf16 rows of a flat peak
+    turn such rounding into more than 1e-3 degree
+    (tests/test_torch_template.py)."""
+    outs, inp = ranks
+    quiet = RunLogger(None, quiet=True)
+    if case == "mref_template":
+        want = mref_ali2d(inp["imgs"], inp["base"], device="cpu", log=quiet,
+                          sampler="template", **MREF)
+        np.testing.assert_array_equal(outs[0][case + "_assignments"],
+                                      want.assignments)
+    else:
+        want = ali2d_base(inp["imgs1"], device="cpu", log=quiet,
+                          random_method="SHC", sampler="template",
+                          **dict(REFFREE, maxit=2))
+    _assert_tables_match(outs[0][case + "_params"], want.params, tol=1e-2)
+    np.testing.assert_array_equal(outs[1][case + "_params"],
+                                  outs[0][case + "_params"])
+
+
 def test_shc_step_matches_jax_mesh_and_single_process(ranks):
     """One SHC step from thresholds 10% off the peaks.  K=3 against JAX
     ``make_align_step_shc`` on a mesh of 4: winners, shifts and ``nope``
@@ -645,6 +678,29 @@ def test_a_failing_rank_fails_the_launcher(tmp_path):
         text=True, timeout=RANK_TIMEOUT)
     assert proc.returncode == 1, proc.stdout + proc.stderr
     assert "rank 1 fails" in proc.stderr
+
+
+LINGERING = FAILING.replace(
+    '        raise RuntimeError("rank 1 fails")',
+    '        import atexit, time\n'
+    '        atexit.register(time.sleep, 5)   # exits after rank 0\n'
+    '        raise RuntimeError("rank 1 fails")')
+
+
+def test_launcher_names_the_rank_that_failed_first(tmp_path):
+    """As above, with rank 1 leaving only after rank 0, whose collective
+    failed on the vanished peer: the launcher sees rank 0 end first and
+    still names rank 1's error (it prints every rank's traceback)."""
+    assert LINGERING != FAILING
+    script = tmp_path / "lingering.py"
+    script.write_text(LINGERING)
+    proc = subprocess.run(
+        [sys.executable, str(script), "s.mrcs", "r.mrcs",
+         str(tmp_path / "out"), "--devices=2"], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=RANK_TIMEOUT)
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    assert "rank 1 fails" in proc.stderr, proc.stderr
 
 
 DYING = r"""

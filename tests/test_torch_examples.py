@@ -1,7 +1,7 @@
 """The port's examples (``examples/torch_02_batch_transform.py``,
 ``torch_03_eda.py``, ``torch_06_mesh_scaling.py``,
-``torch_08_export_aligned.py``) run end to end on the CPU at a small
-size, with their outputs checked; the export is also held to the JAX
+``torch_07_ring_schemes.py``, ``torch_08_export_aligned.py``) run end
+to end on the CPU at a small size, with their outputs checked; the export is also held to the JAX
 example's files (tests/test_export_aligned.py's checks, and the same
 aligned stack within ``rot_shift2d``'s 1e-4).
 """
@@ -49,6 +49,19 @@ def test_eda_example(capsys):
     assert set(pur) == {"twosdr", "twosdr_class", "mpca"}
     assert all(0.0 < v <= 1.0 for v in pur.values())
     assert "alignment purity: 1.000" in capsys.readouterr().out
+
+
+def test_ring_schemes_example(capsys):
+    """Both ring schemes, the eman2 one through the PyTorch search and
+    through the template engine, recover the classes (the example
+    asserts their agreement)."""
+    res = _example("torch_07_ring_schemes").main(["--device=cpu",
+                                                  "--n=24"])
+    text = capsys.readouterr().out
+    assert "maxrin = 128" in text and text.rstrip().endswith("OK")
+    assert set(res) == {"cuda", "eman2", "eman2 template"}
+    for r in res.values():
+        assert r.params.shape == (24, 4) and np.isfinite(r.params).all()
 
 
 def test_mesh_scaling_example_on_two_cpu_ranks():
@@ -153,6 +166,7 @@ def test_export_main_on_files(tmp_path, capsys):
 def test_examples_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name, argv in (("torch_02_batch_transform", ["--n=4", "--nx=32"]),
-                       ("torch_03_eda", ["--n=6"])):
+                       ("torch_03_eda", ["--n=6"]),
+                       ("torch_07_ring_schemes", ["--n=6"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             _example(name).main(argv)

@@ -210,6 +210,11 @@ RESOLVE = [
     ("kernel", "cuda", "eman2", "", ValueError),
     ("kernel", "cpu", "eman2", "", ValueError),
     ("fused", "cuda", "cuda", "", ValueError),
+    ("template", "cuda", "cuda", "", "template"),
+    ("template", "cpu", "cuda", "", "template"),
+    ("template", "cuda", "cuda", "SHC", "template"),
+    ("template", "cuda", "eman2", "", "template"),
+    ("template", "cuda", "cuda", "SCF", ValueError),
 ]
 
 
