@@ -184,8 +184,33 @@ Phases (any failure raises and the script exits non-zero):
         debug mode "error";
      e. one template align_step's peak device memory against the
         planner's model (not below it, not over twice it).
+  15. the FFT-shear warp and the matmul sampler (sampler="matmul":
+     the polar samples as bf16 tent products), at 16384 x 90 px, K=8, no
+     search-kernel launch on any of their paths:
+     a. the FFT-shear class sums (class_sum_transform_mm, bf16 DFTs: the
+        template and matmul steps' sums) beside the bilinear
+        transform_batch + class_sum_oe, ms (CUDA events, mean of 3) and
+        peak device memory (the shear's against the planner's model); the
+        card against the CPU port on 512 particles (within 5e-3 of the
+        largest sum);
+     b. rot_shift2d(engine="shear") beside quadri in ms; card against CPU
+        on 512 (1e-4);
+     c. fourier_variance by the shear and the exact engine in ms, and the
+        s/iteration of phase 10f (Fourvar) and 14c (template mref), whose
+        variance and sums now run through the shear;
+     d. the matmul search at K=8, 1 and 64 in ms, beside the kernel's
+        (phase 5) and the template engine's (14b), with two bounds: the
+        search's own (the kernel rows') and the formulation's (its
+        products' operations at the bf16 peak against the bytes of its
+        bf16 intermediate); the card's winners against the CPU port's on
+        512 particles (14a's rule);
+     e. mref_ali2d (K=8), reffree A, SHC and SCF (ali2d_base) and mref
+        under the eman2 rings through sampler="matmul", 2 iterations
+        each, beside phases 6, 7, 10b, 10c and 10d (purity >= 0.9);
+     f. one matmul align_step's peak against the planner's model (not
+        below it, not over twice it).
 Every launch counter is set to 0 just before each main-path run (6, 6b,
-7, 8, 9, 10, 11, 12, 14, and 13 in each rank) and read just after it.  The
+7, 8, 9, 10, 11, 12, 14, 15, and 13 in each rank) and read just after it.  The
 last lines are the slice's JSON line (loop rates, stage breakdown, CLI
 times, phase 13), the stage ablation's JSON line, the card, the kernels'
 JSON record (with each instantiation's registers, spill bytes and shared
@@ -2139,6 +2164,271 @@ def template_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1,
     return out
 
 
+# ---- phase 15: the FFT-shear warp and the matmul sampler
+def matmul_bound(n, cfg, k):
+    """(bound_ms, bound_by, flops, nbytes) of the matmul sampler's
+    formulation of one search: its products' operations, for every dy of
+    the grid the y contraction 2 x N x Q x H x W and the x contraction
+    2 x N x Q x W x n_dx (Q = rings x 256 sample points), over the bf16
+    tensor-core peak, against the bytes of its bf16 intermediate ``t``
+    (N x Q x W per dy, written once) over the memory rate."""
+    n_dy, n_dx = len(cfg.shift_y_vals), len(cfg.shift_x_vals)
+    q, h = cfg.ring_num * cfg.ring_len, cfg.img_dim
+    flops = float(n_dy * (2 * n * q * h * h + 2 * n * q * h * n_dx))
+    nbytes = float(n_dy * n * q * h * 2)
+    t_op, t_mem = flops / BF16_PEAK, nbytes / HBM_RATE
+    return (1e3 * max(t_op, t_mem),
+            "operations" if t_op >= t_mem else "bytes", flops, nbytes)
+
+
+def rel_max(got, want) -> float:
+    """Largest difference over the largest value of ``want`` (host)."""
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def step_peak(fn, held) -> int:
+    """Peak device bytes of one call of ``fn`` (after a warm-up call),
+    plus ``held``, the bytes of its inputs."""
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base + held
+
+
+def matmul_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1,
+                 tmpl64, before) -> dict:
+    """Phase 15: the FFT-shear warp and the matmul sampler on the card.
+    15a the FFT-shear class sums beside the bilinear ones, and the card
+    against the CPU port; 15b rot_shift2d(engine="shear") beside quadri;
+    15c the Fourier variance by both engines, and the drivers' figures
+    that now run through the shear (``before``); 15d the matmul search at
+    K=8, 1 and 64 with its two bounds, and the card's winners against the
+    CPU's; 15e the drivers through sampler="matmul"; 15f a matmul step's
+    peak against the planner's model.  No path launches the search
+    kernel."""
+    from cryo_ralib_tpu_torch.config import AlignConfig
+    from cryo_ralib_tpu_torch.models.mref import mref_ali2d
+    from cryo_ralib_tpu_torch.models.reffree import ali2d_base
+    from cryo_ralib_tpu_torch.models.steps import _finish_step, align_step
+    from cryo_ralib_tpu_torch.ops import search as srch
+    from cryo_ralib_tpu_torch.ops.classavg import class_sum_transform_mm
+    from cryo_ralib_tpu_torch.ops.fourvar import fourier_variance
+    from cryo_ralib_tpu_torch.ops.masks import model_circle
+    from cryo_ralib_tpu_torch.ops.polar_mm import product_route
+    from cryo_ralib_tpu_torch.ops.transform import rot_shift2d
+    from cryo_ralib_tpu_torch.parallel.batching import (shear_sum_bytes,
+                                                        step_footprint)
+    from cryo_ralib_tpu_torch.params import AlignParams, params_from_numpy
+    from cryo_ralib_tpu_torch.utils.log import RunLogger
+    from cryo_ralib_tpu_torch.utils.synthetic import scattered_stack
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "route": product_route(dev)}
+    quiet = dict(log=RunLogger(None, quiet=True))
+    cfg = geometry(HEADLINE)
+    k, n = tmpl.shape[0], N_SLICE
+    rng = np.random.default_rng(15)
+    acc = np.array([0.0, 1.0, -1.0, 0.5, -0.25, 0.75], np.float32)
+    prm = params_from_numpy({
+        "angle": rng.uniform(0, 360, n).astype(np.float32),
+        "shift_x": rng.choice(acc, n), "shift_y": rng.choice(acc, n),
+        "mirror": rng.integers(0, 2, n).astype(np.int32),
+        "ref_id": rng.integers(0, k, n).astype(np.int32)}, dev)
+    gidx = torch.arange(n, device=dev)
+    peak = torch.zeros(n, device=dev)
+    cpu = AlignParams(*[f[:N_CHECK].cpu() for f in prm])
+    sub = imgs[:N_CHECK].contiguous()
+
+    # ---- 15a. the FFT-shear class sums beside the bilinear ones
+    def sums_of(shear):
+        return lambda: _finish_step(imgs, prm, peak, gidx, None, k, shear)
+
+    shear_ms, bilinear_ms = cuda_ms(sums_of(True), 3), cuda_ms(sums_of(False),
+                                                               3)
+    held = imgs.nbytes + gidx.nbytes + sum(f.nbytes for f in prm)
+    shear_peak = step_peak(sums_of(True), held)
+    bilinear_peak = step_peak(sums_of(False), held)
+    model = shear_sum_bytes(n, k, HEADLINE["nx"]) + held
+    got, counts = class_sum_transform_mm(sub, AlignParams(
+        *[f[:N_CHECK] for f in prm]), k, fast=True)
+    want, want_c = class_sum_transform_mm(sub.cpu(), cpu, k, fast=True)
+    sums_err = rel_max(got, want)
+    out["class_sums"] = {
+        "shear_ms": shear_ms, "bilinear_ms": bilinear_ms,
+        "shear_peak_bytes": shear_peak, "bilinear_peak_bytes": bilinear_peak,
+        "shear_model_bytes": model, "card_vs_cpu_n512": sums_err}
+    log(f"15a class sums N={n} 90px K={k} by blocks: FFT shear "
+        f"(class_sum_transform_mm, bf16 DFTs) {shear_ms:.2f} ms, peak "
+        f"{shear_peak / 2**30:.3f} GiB (model {model / 2**30:.3f}); "
+        f"bilinear transform_batch + class_sum_oe {bilinear_ms:.2f} ms, peak "
+        f"{bilinear_peak / 2**30:.3f} GiB (CUDA events, mean of 3); card vs "
+        f"CPU on {N_CHECK}: {sums_err:.2e} of the largest sum  [{card}]")
+    check(bool(torch.equal(counts.cpu(), want_c)), "15a: counts")
+    check(sums_err <= 5e-3, f"15a: class sums card vs CPU {sums_err}")
+    check(shear_peak <= model <= 2 * shear_peak,
+          f"15a: shear sums model {model} against peak {shear_peak}")
+
+    # ---- 15b. rot_shift2d through the FFT shear beside quadri
+    args = (prm.angle, prm.shift_x, prm.shift_y, prm.mirror)
+    rs_shear = cuda_ms(lambda: rot_shift2d(imgs, *args, engine="shear"), 3)
+    rs_quadri = cuda_ms(lambda: rot_shift2d(imgs, *args), 3)
+    rs_err = rel_max(
+        rot_shift2d(sub, *[a[:N_CHECK] for a in args], engine="shear"),
+        rot_shift2d(sub.cpu(), *[a[:N_CHECK].cpu() for a in args],
+                    engine="shear"))
+    out["rot_shift2d"] = {"shear_ms": rs_shear, "quadri_ms": rs_quadri,
+                          "card_vs_cpu_n512": rs_err}
+    log(f"15b rot_shift2d N={n} 90px: shear (f32 FFTs) {rs_shear:.2f} ms, "
+        f"quadri {rs_quadri:.2f} ms (CUDA events, mean of 3); shear card vs "
+        f"CPU on {N_CHECK}: {rs_err:.2e} of the largest value  [{card}]")
+    check(rs_err <= 1e-4, f"15b: rot_shift2d shear card vs CPU {rs_err}")
+
+    # ---- 15c. the Fourier variance by both engines; the figures of the
+    # drivers whose sums or variance now run through the shear
+    mask = torch.as_tensor(model_circle(HEADLINE["ou"], HEADLINE["nx"]),
+                           dtype=torch.float32, device=dev)
+    fv = {e: cuda_ms(lambda: fourier_variance(stack_a, prm, mask=mask,
+                                              engine=e), 3)
+          for e in ("shear", "exact")}
+    out["fourier_variance_ms"] = fv
+    out["drivers_through_shear"] = {
+        "fourvar_s_per_iteration": before["fourvar_s_it"],
+        "template_mref_s_per_iteration": before["template_mref_s_it"]}
+    log(f"15c fourier_variance N={n} 90px: shear (bf16 DFTs, the default) "
+        f"{fv['shear']:.2f} ms, exact (bilinear) {fv['exact']:.2f} ms (CUDA "
+        f"events, mean of 3); through the shear in this run: ali2d_base("
+        f"Fourvar=True) {before['fourvar_s_it']:.4f} s/iteration (10f), "
+        f"mref_ali2d(sampler='template') {before['template_mref_s_it']:.4f} "
+        f"s/iteration (14c)  [{card}]")
+
+    # ---- 15d. the matmul search: ms, two bounds, card against CPU
+    acc_prm = acc_params(n, 5, dev)
+    sub_prm = AlignParams(*[f[:N_CHECK] for f in acc_prm])
+    rfw8 = srch.prepare_ref_spectra(torch.as_tensor(tmpl, device=dev), cfg)
+    got = srch.rotational_shift_search_mm(sub, rfw8, sub_prm, cfg)
+    t0 = time.perf_counter()
+    want = srch.rotational_shift_search_mm(
+        sub.cpu(), rfw8.cpu(), AlignParams(*[f.cpu() for f in sub_prm]), cfg)
+    cpu_s = time.perf_counter() - t0
+    same = winners_equal(got, want)
+    gap = ((got.best_val.cpu() - want.best_val).abs() / want.best_val.abs())
+    out["search_card_vs_cpu"] = float(same.float().mean())
+    log(f"15d matmul search card vs CPU, {N_CHECK} particles 90px K={k}: "
+        f"{float(same.float().mean()):.4f} of winners equal, the others' "
+        f"peaks within {max0(gap[~same]):.2e} relative; peaks within "
+        f"{float(gap.max()):.2e} (CPU {cpu_s:.1f} s)")
+    check(float(same.float().mean()) >= 0.999,
+          f"15d: {int((~same).sum())} winners differ from the CPU's")
+    check(max0(gap[~same]) <= 5e-3, "15d: tie rule")
+    imgs64 = scattered_stack(tmpl64, n, max_shift=2, noise=1.0, seed=9,
+                             device=dev)[0]
+    cases = (("k8", imgs, tmpl), ("k1", stack_a, tmpl1),
+             ("k64", imgs64, tmpl64))
+    searches = {}
+
+    def time_all():
+        for name, x, t in cases:
+            rfw = srch.prepare_ref_spectra(torch.as_tensor(t, device=dev),
+                                           cfg)
+            kk = t.shape[0]
+            ms = cuda_ms(lambda: srch.rotational_shift_search_mm(
+                x, rfw, acc_prm, cfg), 2 if kk > 8 else 3)
+            own_ms, own_by = search_bound(n, HEADLINE["nx"], HEADLINE["ou"],
+                                          cfg.n_shifts, kk, 2)
+            f_ms, f_by, flops, nbytes = matmul_bound(n, cfg, kk)
+            searches[name] = {
+                "ms": ms, "k": kk, "block": srch.mm_block(n, kk, cfg),
+                "search_bound_ms": own_ms, "search_bound_by": own_by,
+                "search_share": own_ms / ms, "formulation_bound_ms": f_ms,
+                "formulation_bound_by": f_by, "formulation_share": f_ms / ms,
+                "product_flops": flops, "t_bytes": nbytes,
+                "kernel_ms": before["kernel_ms"][name],
+                "template_ms": before["template_ms"][name]}
+            log(f"15d matmul search {name} N={n} 90px K={kk} (blocks of "
+                f"{searches[name]['block']}): {ms:.2f} ms (CUDA events); "
+                f"the search's bound {own_ms:.3f} ms ({own_by}, "
+                f"{100 * own_ms / ms:.2f}%); the formulation's bound "
+                f"{f_ms:.2f} ms ({f_by}: {flops / 1e12:.2f} TFLOP of products"
+                f" at 989 TFLOP/s against {nbytes / 1e9:.1f} GB of bf16 t at "
+                f"3.35 TB/s, {100 * f_ms / ms:.1f}%); kernel "
+                f"{before['kernel_ms'][name]:.2f} ms, template "
+                f"{before['template_ms'][name]:.2f} ms  [{card}]")
+
+    main_path("matmul searches", time_all, NO_LAUNCH)
+    out["searches"] = searches
+    del imgs64
+
+    # ---- 15e. the drivers through the matmul sampler
+    n_it = 2
+    mm_kw = dict(ou=HEADLINE["ou"], xr=HEADLINE["xr"], yr=HEADLINE["xr"],
+                 device=dev, sampler="matmul")
+    res, seconds = main_path("mref K=8 matmul", lambda: mref_ali2d(
+        imgs, tmpl, ts=1, maxit=n_it, **mm_kw, **quiet), NO_LAUNCH)
+    check(bool(np.isfinite(res.params).all()
+               and np.isfinite(res.references).all()), "15e mref: NaN")
+    check(int(res.class_counts.sum()) == n, "15e mref: counts")
+    pur = purity(res.assignments, cls, k)
+    out["mref"] = mode_line(
+        "15e mref matmul", f"mref_ali2d(sampler='matmul') K={k}", seconds,
+        n_it, card, f"; phase 6 (kernel) {before['mref_s_it']:.4f} "
+        f"s/iteration; purity {pur:.4f}")
+    check(pur >= 0.9, f"15e mref purity {pur}")
+    runs = (("reffree_a", "reffree A", dict(center=-1, dst=DST), "phase 7",
+             "reffree_a_s_it"),
+            ("reffree_shc", "reffree SHC", dict(center=-1,
+                                                random_method="SHC"),
+             "phase 10b", "shc_s_it"),
+            ("reffree_scf", "reffree SCF", dict(center=-1,
+                                                random_method="SCF"),
+             "phase 10c", "scf_s_it"))
+    for key, label, kw, where, bkey in runs:
+        res, seconds = main_path(f"{label} matmul", lambda: ali2d_base(
+            stack_a, ts=1.0, maxit=n_it, **mm_kw, **kw, **quiet), NO_LAUNCH)
+        check(bool(np.isfinite(res.params).all()
+                   and np.isfinite(res.average).all()), f"15e {label}: NaN")
+        out[key] = mode_line(
+            f"15e {label} matmul", f"ali2d_base({kw}, sampler='matmul')",
+            seconds, n_it, card, f"; {where} {before[bkey]:.4f} "
+            f"s/iteration")
+    cfg_e = AlignConfig(img_dim=HEADLINE["nx"], ring_num=HEADLINE["ou"],
+                        ring_scheme="eman2", shift_rng_x=HEADLINE["xr"],
+                        shift_rng_y=HEADLINE["xr"])
+    res, seconds = main_path("mref eman2 matmul", lambda: mref_ali2d(
+        imgs, tmpl, ts=1, maxit=n_it, ring_scheme="eman2", **mm_kw,
+        **quiet), NO_LAUNCH)
+    check(int(res.class_counts.sum()) == n, "15e eman2: counts")
+    pur = purity(res.assignments, cls, k)
+    out["mref_eman2"] = mode_line(
+        "15e mref eman2 matmul", f"mref_ali2d(ring_scheme='eman2', "
+        f"sampler='matmul') K={k}, maxrin {cfg_e.ring_len}", seconds, n_it,
+        card, f"; phase 10d {before['eman2_s_it']:.4f} s/iteration; purity "
+        f"{pur:.4f}")
+    check(pur >= 0.9, f"15e eman2 purity {pur}")
+
+    # ---- 15f. a matmul step's peak against the planner's model
+    refs0 = torch.as_tensor(tmpl, device=dev)
+    zeros = AlignParams.zeros(n, dev)
+    held = (imgs.nbytes + refs0.nbytes + gidx.nbytes
+            + sum(f.nbytes for f in zeros))
+    step_p = step_peak(lambda: align_step(imgs, refs0, zeros, gidx, None,
+                                          cfg, n_classes=k,
+                                          sampler="matmul"), held)
+    model = step_footprint(n, k, cfg, sampler="matmul").total
+    out["footprint"] = {"peak_bytes": step_p, "model_bytes": model}
+    log(f"15f matmul align_step N={n} K={k}: peak {step_p / 2**30:.3f} GiB "
+        f"(with its images, refs and params), the planner's model "
+        f"{model / 2**30:.3f} GiB (ratio {model / step_p:.3f})  [{card}]")
+    check(step_p <= model <= 2 * step_p,
+          f"15f: the model {model} against the peak {step_p}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15: {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -2500,6 +2790,7 @@ def main():
             check(res.criteria[-1] >= 0.5 * res.criteria[0],
                   f"{label}: criterion fell to {res.criteria[-1]}")
             stack_a, mir_a, reffree_a = stack, mir, res
+            reffree_a_s_it = seconds / maxit
         del stack
 
     slice_json = {"card": card, "n": N_SLICE}
@@ -2585,6 +2876,23 @@ def main():
          "shc_s_it": modes["reffree_shc"]["s_per_iteration"],
          "eman2_s_it": modes["mref_eman2"]["s_per_iteration"],
          "loop_s_it": slice_json["mref_loop"]["s_per_iteration"]})
+
+    # ---- 15. the FFT shear and the matmul sampler: no search-kernel
+    # launch on their paths
+    tmpl_searches = slice_json["template"]["searches"]
+    slice_json["matmul"] = matmul_phase(
+        dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1, tmpl64,
+        {"mref_s_it": mref_s_it, "reffree_a_s_it": reffree_a_s_it,
+         "shc_s_it": modes["reffree_shc"]["s_per_iteration"],
+         "scf_s_it": modes["reffree_scf"]["s_per_iteration"],
+         "eman2_s_it": modes["mref_eman2"]["s_per_iteration"],
+         "fourvar_s_it": modes["reffree_fourvar"]["s_per_iteration"],
+         "template_mref_s_it":
+             slice_json["template"]["mref"]["s_per_iteration"],
+         "kernel_ms": {"k8": times["search"][0], "k1": times["search_k1"][0],
+                       "k64": times["search_k64"][0]},
+         "template_ms": {key: tmpl_searches[key]["ms"]
+                         for key in ("k8", "k1", "k64")}})
     del imgs, stack_a
 
     shapes = {   # entry -> (timing key, K, mirror channels, mask)

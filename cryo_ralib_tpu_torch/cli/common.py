@@ -14,17 +14,17 @@ one rank is started here, one worker process per card
 (``torch.multiprocessing.spawn``, meeting through a file store in a
 temporary directory).  Each rank reads its block of the stack;
 rank 0 checks and writes the output directory and the log, writes the
-headers back, and its exit status is the run's.  The TPU engine
-``--sampler=matmul`` is not ported (on the card it would compute the
-plain search's bilinear samples as dense tent products) and exits with
-status 2 and a message naming it before any stack is read.
+headers back, and its exit status is the run's.
 Stacks are ``.hdf``, ``.mrc(s)`` or EMAN2 ``bdb:`` containers (read and
 written back through the system's ``libdb``, ``io/bdb.py``).
 ``--sampler``: ``auto`` and ``fused`` run the CUDA search kernel on the
 GPU, ``gather`` its plain PyTorch version (the JAX ``gather`` engine's
 f32 semantics), ``template`` the template engine (the search as bf16
 matrix products, ``ops/template_search.py``; standard and eman2 rings,
-SHC; refused under SCF and outside its geometry gate);
+SHC; refused under SCF and outside its geometry gate), ``matmul`` the
+matmul sampler (the polar samples as bf16 tent products,
+``ops/polar_mm.py``; every mode); ``template`` and ``matmul`` sum the
+classes by the FFT shear, as the JAX CLI does with them;
 ``--random_method=SHC`` and ``--ring_scheme=eman2`` have no kernel and
 run the PyTorch search under ``auto`` (``fused`` is refused there).
 """
@@ -38,9 +38,9 @@ import sys
 import numpy as np
 
 # --sampler -> the port's search: kernel on a CUDA device, plain version,
-# template engine
+# template engine, matmul sampler
 SAMPLERS = {"auto": "auto", "fused": "kernel", "gather": "plain",
-            "template": "template"}
+            "template": "template", "matmul": "matmul"}
 
 
 def _intish(s: str) -> int:
@@ -122,8 +122,8 @@ def add_common_flags(p: argparse.ArgumentParser, reffree: bool = False):
                    choices=["auto", "fused", "template", "matmul", "gather"],
                    help="search engine: auto and fused = the CUDA search "
                         "kernel, gather = its plain PyTorch version, "
-                        "template = the search as bf16 matrix products; "
-                        "matmul is a TPU engine, not ported")
+                        "template = the search as bf16 matrix products, "
+                        "matmul = the polar samples as bf16 tent products")
     p.add_argument("--ring_scheme", default="cuda",
                    choices=["cuda", "eman2"],
                    help="polar ring convention: cuda = uniform 256-sample "
@@ -321,19 +321,6 @@ def rank_log(outdir: str, mesh):
         log.add(f"{mesh.world_size} ranks, backend {mesh.backend}, rank 0 "
                 f"on {mesh.device}")
     return log
-
-
-def reject_unported(args):
-    """Exit 2, naming each flag, on what the port does not do; runs
-    before any stack is read."""
-    problems = []
-    if args.sampler not in SAMPLERS:
-        problems.append(f"--sampler={args.sampler} (a TPU engine; use auto, "
-                        "fused, gather or template)")
-    if problems:
-        print("ERROR: not ported yet to the PyTorch/CUDA package:\n  "
-              + "\n  ".join(problems), file=sys.stderr)
-        raise SystemExit(2)
 
 
 def load_ctf_params(args, n: int) -> dict | None:

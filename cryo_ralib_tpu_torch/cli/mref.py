@@ -18,7 +18,7 @@ import argparse
 
 from .common import (SAMPLERS, add_common_flags, cli_device, launch,
                      load_ctf_params, load_mask, load_stack, print_device_info,
-                     rank_log, reject_unported, writeback_headers)
+                     rank_log, writeback_headers)
 
 
 def build_parser():
@@ -42,7 +42,6 @@ def main(argv=None, device="cuda"):
     if args.gpu_info:
         print_device_info()
         return 0
-    reject_unported(args)
     return launch(run, args, cli_device(device))
 
 

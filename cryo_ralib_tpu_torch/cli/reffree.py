@@ -18,7 +18,7 @@ import argparse
 
 from .common import (SAMPLERS, add_common_flags, cli_device, launch,
                      load_ctf_params, load_mask, load_stack, print_device_info,
-                     rank_log, reject_unported, validate_reffree_flags,
+                     rank_log, validate_reffree_flags,
                      writeback_headers)
 
 
@@ -43,7 +43,6 @@ def main(argv=None, device="cuda"):
         print_device_info()
         return 0
     validate_reffree_flags(args)
-    reject_unported(args)
     return launch(run, args, cli_device(device))
 
 

@@ -19,16 +19,17 @@ PyTorch version with ``"plain"`` or on the CPU; a ``cfg`` with
 ``ring_scheme="eman2"`` runs the eman2 PyTorch search on either device;
 ``sampler="template"`` runs the template engine
 (``ops/template_search.py``) for either ring scheme, its splat spectra
-built once when the loop is built, as the JAX loops hoist them; the
-class sums are the bilinear ``transform_batch`` + ``class_sum_oe``,
-the JAX loops' ``gather`` branch.
+built once when the loop is built, as the JAX loops hoist them, and
+``sampler="matmul"`` the matmul sampler; those two sum their classes by
+the FFT shear (``class_sum_transform_mm``), the others by the bilinear
+``transform_batch`` + ``class_sum_oe``, as the JAX loops do.
 In the multireference loop a class with fewer than 4 members keeps its
 previous reference, where ``mref_ali2d`` reseeds it from a random
 particle: the host RNG has no place in the loop.
 
 Under a ``mesh`` (``parallel/mesh.py``) each rank runs the loop on its
 block of particles with their global indices, and every iteration
-all-reduces its sums (one float32 buffer: the class sums, and in the
+all-reduces its sums (one float64 buffer: the class sums, and in the
 multireference loop the counts) before the average or the references
 are rebuilt, so every rank carries the same references.  Under NCCL
 the all-reduce is queued on the device like the rest of the body, and
@@ -44,13 +45,15 @@ import torch
 from ..config import AlignConfig
 from ..params import AlignParams
 from ..parallel.mesh import all_reduce_sums, gather_params, shard_stack
-from ..ops.eman_search import eman_tables
+from ..ops.eman_search import eman_mm_tables, eman_tables
 from ..ops.filters import device_freq_grid, filt_tanl_dyn
 from ..ops.fused_search import kernel_tables
+from ..ops.polar_mm import polar_tables, product_route
 from ..ops.search import search_tables
 from ..ops.template_search import splat_spectra_groups
+from ..ops.transform import dft_tables, shear_pad
 from .engine import resolve_device
-from .steps import align_step, resolve_sampler
+from .steps import SHEAR_SUMS, align_step, resolve_sampler
 
 
 def _schedule(values, n_iter: int, default: float, device) -> torch.Tensor:
@@ -78,14 +81,20 @@ def _build(cfg: AlignConfig, n_iter: int, cutoffs, falloffs, device,
         eman_tables(cfg, device)
     elif sampler == "kernel" and device.type == "cuda":
         kernel_tables(cfg, device)
+    if sampler in SHEAR_SUMS:
+        dft_tables(shear_pad(cfg.img_dim), device)
+        product_route(device)
+    if sampler == "matmul":
+        (eman_mm_tables if cfg.ring_scheme == "eman2"
+         else polar_tables)(cfg, device)
     sf = splat_spectra_groups(cfg, device) if sampler == "template" else None
     return (device, sampler, _schedule(cutoffs, n_iter, 0.0, device),
             _schedule(falloffs, n_iter, 0.1, device), sf)
 
 
 def _reduce(mesh, sums, counts=None):
-    """The class sums (and counts) summed over the ranks, in one float32
-    all-reduce (counts below 2**24 are exact in float32)."""
+    """The class sums (and counts) summed over the ranks, in one float64
+    all-reduce."""
     if mesh is None:
         return sums, counts
     if counts is None:
@@ -97,7 +106,8 @@ def _reduce(mesh, sums, counts=None):
 
 
 def make_device_loop(cfg: AlignConfig, n_iter: int, cutoffs, falloffs=None,
-                     device="cuda", sampler: str = "auto", mesh=None):
+                     device="cuda", sampler: str = "auto", mesh=None,
+                     fast: bool = True):
     """Build the ``n_iter``-iteration reference-free loop.
 
     Args:
@@ -106,9 +116,11 @@ def make_device_loop(cfg: AlignConfig, n_iter: int, cutoffs, falloffs=None,
       falloffs: per-iteration falloffs (default 0.1).
       device: where the loop runs, the GPU unless ``device="cpu"``.
       sampler: "auto" (the kernel on CUDA, plain on the CPU), "kernel",
-        "plain" or "template".
+        "plain", "template" or "matmul".
       mesh: a ``ParticleMesh``: the loop runs on ``mesh.device`` on the
         rank's block, and the sums are all-reduced every iteration.
+      fast: the JAX package's bf16 products of the matmul sampler and
+        the FFT-shear class sums (``align_step``).
 
     Returns ``run(images, avg0, params, gidx, valid) -> (params, avg)``:
     images (N, H, W), avg0 (H, W), params ``AlignParams``, gidx (N,)
@@ -125,10 +137,11 @@ def make_device_loop(cfg: AlignConfig, n_iter: int, cutoffs, falloffs=None,
         for i in range(n_iter):
             out = align_step(images, filt_tanl_dyn(avg, cut[i], fall[i])[None],
                              params, gidx, valid, cfg, n_classes=1,
-                             update_ref=False, sampler=sampler, sf=sf)
+                             update_ref=False, sampler=sampler, fast=fast,
+                             sf=sf)
             params = out.params
             sums = _reduce(mesh, out.class_sums)[0]
-            avg = (sums[0, 0] + sums[0, 1]) / n_total
+            avg = ((sums[0, 0] + sums[0, 1]) / n_total).float()
         return params, avg
 
     return run
@@ -136,7 +149,8 @@ def make_device_loop(cfg: AlignConfig, n_iter: int, cutoffs, falloffs=None,
 
 def make_mref_device_loop(cfg: AlignConfig, n_iter: int, n_classes: int,
                           cutoffs, falloffs=None, device="cuda",
-                          sampler: str = "auto", mesh=None):
+                          sampler: str = "auto", mesh=None,
+                          fast: bool = True):
     """Multireference ``make_device_loop``: K references stay on the
     device and are rebuilt from the class sums every iteration (under a
     ``mesh``, the sums and counts all-reduced first).
@@ -151,11 +165,11 @@ def make_mref_device_loop(cfg: AlignConfig, n_iter: int, n_classes: int,
         for i in range(n_iter):
             out = align_step(images, filt_tanl_dyn(refs, cut[i], fall[i]),
                              params, gidx, valid, cfg, n_classes=n_classes,
-                             sampler=sampler, sf=sf)
+                             sampler=sampler, fast=fast, sf=sf)
             params = out.params
             sums, counts = _reduce(mesh, out.class_sums, out.counts)
             new_refs = ((sums[:, 0] + sums[:, 1])
-                        / counts.clamp(min=1).float()[:, None, None])
+                        / counts.clamp(min=1)[:, None, None]).float()
             refs = torch.where((counts < 4)[:, None, None], refs, new_refs)
         return params, refs
 

@@ -22,8 +22,8 @@ give the same results:
 Under a ``mesh`` (``parallel/mesh.py::ParticleMesh``) the engine holds
 only the rank's block of particles, resident or streamed, with their
 global indices; ``iterate`` all-reduces the class sums (one float32
-buffer) and the counts, centering sums and SHC's ``nope`` (one float64
-buffer) once per iteration, and ``params_np`` / ``previousmax_np``
+buffer) and the counts, centering sums and SHC's ``nope`` (another
+float64 buffer) once per iteration, and ``params_np`` / ``previousmax_np``
 gather every rank's block to the whole stack.
 """
 
@@ -310,8 +310,10 @@ class AlignmentEngine:
 
     def _result(self, sums, counts, sx, sy, nope, peak) -> IterationResult:
         """The iteration's result on the host, the sums all-reduced over
-        the mesh: one float32 buffer of class sums and one float64 buffer
-        of the counts, the centering sums and ``nope``."""
+        the mesh: one float64 buffer of class sums (``ops/classavg.py``:
+        the same sums for any split of the stack, rounded to float32 once
+        they are whole) and one of the counts, the centering sums and
+        ``nope``."""
         scalars = torch.cat([
             counts.to(torch.float64),
             torch.stack([torch.as_tensor(v, device=counts.device).to(
@@ -321,7 +323,7 @@ class AlignmentEngine:
         scalars = scalars.cpu().numpy()
         k = self.n_classes
         return IterationResult(
-            class_sums=sums.cpu().numpy(),
+            class_sums=sums.float().cpu().numpy(),
             counts=np.rint(scalars[:k]).astype(np.int64), peak=peak,
             sx_sum=float(scalars[k]), sy_sum=float(scalars[k + 1]),
             nope=int(round(scalars[k + 2])))
@@ -389,7 +391,7 @@ class AlignmentEngine:
         dev, k = self.device, self.n_classes
         _, h, w = self._host.shape
         cuda = dev.type == "cuda"
-        sums = torch.zeros((k, 2, h, w), dtype=torch.float32, device=dev)
+        sums = torch.zeros((k, 2, h, w), dtype=torch.float64, device=dev)
         counts = torch.zeros(k, dtype=torch.int64, device=dev)
         sx = torch.zeros((), dtype=torch.float64, device=dev)
         sy = torch.zeros((), dtype=torch.float64, device=dev)

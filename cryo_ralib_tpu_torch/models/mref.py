@@ -96,9 +96,11 @@ def mref_ali2d(
     means ``nx//2 - 2``; ``maxit=0`` means 10 iterations; ``center`` is
     -1 or 0 (none) or 1 (center each reference).  ``sampler`` picks the
     search: "auto" (the CUDA kernel on a CUDA device, the plain version
-    on the CPU), "kernel", "plain" or "template" (the template engine,
-    ``ops/template_search.py``, with every flag here: the eman2 rings,
-    CTF, a mesh).  ``ring_scheme="eman2"`` searches
+    on the CPU), "kernel", "plain", "template" (the template engine,
+    ``ops/template_search.py``) or "matmul" (the matmul sampler,
+    ``ops/search.py::rotational_shift_search_mm``); the last two take
+    every flag here (the eman2 rings, CTF, a mesh) and sum the classes by
+    the FFT shear, as the JAX package does.  ``ring_scheme="eman2"`` searches
     the variable-length Numrinit rings with ``ringwe`` weights, through
     the PyTorch search on either device (``sampler="kernel"`` raises
     ``ValueError`` there).  ``CTF=True`` premultiplies the particles by

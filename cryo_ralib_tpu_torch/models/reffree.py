@@ -119,10 +119,12 @@ def ali2d_base(
     (``ctf_params``: ``dfu`` per particle at least, see
     ``ops.ctf_ops.CtfContext``) and Wiener-restores the average with
     ``snr``.  ``Fourvar`` computes the 2-D Fourier variance of the aligned
-    stack each iteration, divides the average's spectrum by it and
-    writes ``varf.hdf``.  ``sampler`` as in ``mref_ali2d``; SHC and eman2
+    stack each iteration (the FFT-shear engine with bf16 DFTs, as
+    ``ali2d_base_tpu``'s ``fourier_variance`` defaults), divides the
+    average's spectrum by it and writes ``varf.hdf``.  ``sampler`` as in ``mref_ali2d``; SHC and eman2
     run the PyTorch search on either device under "auto"
-    (``sampler="kernel"`` raises ``ValueError`` there), and the template
+    (``sampler="kernel"`` raises ``ValueError`` there), the matmul
+    sampler with ``sampler="matmul"`` in every mode, and the template
     engine with ``sampler="template"`` in every mode but SCF, where it
     raises ``ValueError`` as in the JAX package.  ``batch_size`` and ``mesh`` as in
     ``mref_ali2d``.
@@ -244,8 +246,19 @@ def ali2d_base(
         total_iter += 1
         # ---- the new average from the previous iteration's sums
         if sums is None:
-            # iteration 0: even/odd sums of the raw stack
-            sums = _even_odd_sums(data, device, start, mesh)
+            # iteration 0: even/odd sums of the raw stack; where every
+            # rank holds the whole stack (an array, and no CTF, whose
+            # context keeps the rank's rows), each sums all of it, so
+            # that the ranks start from one process's average bit for
+            # bit (partial f32 sums, all-reduced, round otherwise, and
+            # the template engine's bf16 references turn last bits
+            # into angles)
+            if (mesh is not None and mesh.world_size > 1
+                    and not isinstance(images, StackShard)
+                    and ctf_ctx is None):
+                sums = _even_odd_sums(images, device, prep=prep)
+            else:
+                sums = _even_odd_sums(data, device, start, mesh)
         ave1, ave2 = sums[0, 0], sums[0, 1]
         if ctf_ctx is not None:
             tavg = ctf_ctx.restore((ave1 + ave2)[None])[0]
@@ -362,17 +375,22 @@ def _share(tavg, a1: float, mesh):
     return buf[:-1].reshape(tavg.shape).astype(np.float32), float(buf[-1])
 
 
-def _even_odd_sums(data, device, start: int = 0, mesh=None) -> np.ndarray:
-    """(1, 2, H, W) sums of the even- and odd-indexed particles of
-    ``data`` (on the device or the host), by blocks of ``PREP_BLOCK`` on
-    ``device``, as numpy.  ``data`` holds the particles ``start ..``, so
-    the parity is the global index's; under a ``mesh`` the sums are
-    all-reduced over the ranks."""
+def _even_odd_sums(data, device, start: int = 0, mesh=None,
+                   prep=None) -> np.ndarray:
+    """(1, 2, H, W) float32 sums of the even- and odd-indexed particles
+    of ``data`` (on the device or the host), by blocks of ``PREP_BLOCK``
+    on ``device``, as numpy; ``prep(x, start)``, where given,
+    preprocesses each block first.  ``data`` holds the particles
+    ``start ..``, so the parity is the global index's; under a ``mesh``
+    the sums are all-reduced over the ranks."""
     n, h, w = data.shape
     acc = torch.zeros((2, h, w), dtype=torch.float32, device=device)
     even = start % 2   # the slot of local rows 0, 2, 4, ...
     for s in range(0, n, PREP_BLOCK):
-        x = torch.as_tensor(data[s:s + PREP_BLOCK], device=device)
+        x = torch.as_tensor(data[s:s + PREP_BLOCK], dtype=torch.float32,
+                            device=device)
+        if prep is not None:
+            x = prep(x, start + s)
         acc[even] += x[0::2].sum(0)
         acc[1 - even] += x[1::2].sum(0)
     all_reduce_sums(mesh, acc)

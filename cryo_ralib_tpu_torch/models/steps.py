@@ -24,12 +24,21 @@ a kernel that fails to build or launch to the plain search.
 (``ops/template_search.py``: the search as bf16 matrix products) for the
 standard and the eman2 rings and for SHC, where ``template_supported``
 admits the geometry, and raises ``ValueError`` elsewhere (SCF has no
-template variant, as in JAX); "auto" never picks it.
+template variant, as in JAX); ``sampler="matmul"`` runs the matmul
+sampler (the polar samples as tent products, ``ops/polar_mm.py``) in
+every mode.  "auto" never picks either.
 
 The end of every step (``_finish_step``) transforms and class-sums the
-particles in blocks of ``ops/transform.py::transform_block`` particles,
-adding the blocks' sums on the device: the bilinear transform holds ~28
-stack sizes of temporaries, so its peak no longer grows with the stack.
+particles.  Under "template" and "matmul" it is the JAX package's
+``class_sum_transform_mm`` (the FFT shear, bf16 DFTs with ``fast``, the
+sums taken on the spectra), as the JAX steps sum for those samplers.
+Under "kernel" and "plain" it is the bilinear ``transform_batch`` +
+``class_sum_oe``, the JAX package's ``gather`` step, which is the port's
+semantic target; the JAX ``fused`` step, which "kernel" stands for,
+sums by the FFT shear instead: the one place where a port's sampler sums
+otherwise than its JAX counterpart.  Both go in blocks of particles
+(``transform_block``, ``shear_block``), adding the blocks' sums on the
+device, so the peak does not grow with the stack.
 """
 
 from __future__ import annotations
@@ -41,18 +50,23 @@ import torch
 
 from ..config import AlignConfig
 from ..params import AlignParams, gpu_params_to_align2d
-from ..ops.classavg import class_sum_oe
+from ..ops.classavg import class_sum_oe, class_sum_transform_mm
 from ..ops.eman_search import (prepare_ref_spectra_eman,
                                rotational_shift_search_eman)
 from ..ops.fused_search import fused_search, kernel_gate, search_plain
 from ..ops.scf import scf_align, zero_shift_cfg
 from ..ops.search import (decode_params, prepare_ref_spectra,
-                          rotational_shift_search_shc)
+                          rotational_shift_search_mm,
+                          rotational_shift_search_shc,
+                          rotational_shift_search_shc_mm)
 from ..ops.template_search import (template_search, template_search_shc,
                                    template_supported)
 from ..ops.transform import transform_batch, transform_block
 
 _log = logging.getLogger(__name__)
+
+# the samplers whose steps sum their classes by the FFT shear
+SHEAR_SUMS = ("template", "matmul")
 
 
 class StepOutput(NamedTuple):
@@ -65,10 +79,12 @@ class StepOutput(NamedTuple):
 
 
 def _header_shift_sums(params: AlignParams, valid):
-    """Decoded header shifts summed, x with the mirror-aware sign."""
+    """Decoded header shifts summed in f64 (the same sums for any split
+    of the stack, as the class sums), x with the mirror-aware sign."""
     sx, sy = gpu_params_to_align2d(params.angle, params.shift_x,
                                    params.shift_y)
-    sgn = torch.where(params.mirror == 1, -1.0, 1.0)
+    sx, sy = sx.double(), sy.double()
+    sgn = torch.where(params.mirror == 1, -1.0, 1.0).double()
     if valid is not None:
         sgn = sgn * valid
         sy = sy * valid
@@ -80,7 +96,8 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
                     smem_limit: int | None = None,
                     per_particle_ref: bool = False) -> str:
     """The search a step runs: "kernel" (the CUDA kernel), "plain" (the
-    PyTorch search) or "template" (the template engine).
+    PyTorch search), "template" (the template engine) or "matmul" (the
+    matmul sampler).
 
     "auto" is the kernel for CUDA tensors and plain for CPU tensors,
     except where there is no kernel: the SHC pick
@@ -93,11 +110,14 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
     "template" is taken only as asked, on either device, and raises
     ``ValueError`` under SCF, for ``per_particle_ref`` and outside
     ``template_supported`` (``n_refs`` references), as the JAX package's
-    steps raise.
+    steps raise.  "matmul" is taken only as asked, in every mode and on
+    either device (the JAX package's matmul sampler has no gate).
     """
-    if sampler not in ("auto", "kernel", "plain", "template"):
-        raise ValueError(f"sampler must be 'auto', 'kernel', 'plain' or "
-                         f"'template', not {sampler!r}")
+    if sampler not in ("auto", "kernel", "plain", "template", "matmul"):
+        raise ValueError(f"sampler must be 'auto', 'kernel', 'plain', "
+                         f"'template' or 'matmul', not {sampler!r}")
+    if sampler == "matmul":
+        return "matmul"
     if sampler == "template":
         if random_method == "SCF":
             raise ValueError("sampler='template' has no SCF variant (as in "
@@ -140,7 +160,8 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
 
 def align_step(images, refs, params: AlignParams, global_index, valid,
                cfg: AlignConfig, *, n_classes: int, update_ref: bool = True,
-               sampler: str = "auto", angle_mask=None, sf=None) -> StepOutput:
+               sampler: str = "auto", fast: bool = True, angle_mask=None,
+               sf=None) -> StepOutput:
     """One alignment iteration over a resident stack.
 
     Args:
@@ -154,7 +175,10 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
       update_ref: False keeps every particle's ref_id.
       sampler: "kernel" = the CUDA search kernel (CUDA tensors only),
         "plain" = its PyTorch version, "template" = the template engine,
-        "auto" = kernel on CUDA, plain on the CPU.
+        "matmul" = the matmul sampler, "auto" = kernel on CUDA, plain on
+        the CPU.
+      fast: bf16 products with f32 sums in the matmul sampler and in the
+        FFT-shear class sums (the JAX package's ``fast``).
       angle_mask: optional (L,) float32 additive angle mask on the
         device of ``images`` (``delta_angle_mask``).
       sf: the template engine's splat spectra
@@ -164,38 +188,51 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
 
     ``cfg.ring_scheme == "eman2"`` runs the variable-length Numrinit
     rings of ``ops/eman_search.py`` (the PyTorch search on either
-    device, or the template engine); ``cfg.mode == "H"`` searches half
+    device, its matmul sampler, or the template engine);
+    ``cfg.mode == "H"`` searches half
     rings, through the kernel on a CUDA tensor like mode "F".
     """
     sampler = resolve_sampler(sampler, images.device, cfg,
                               n_refs=refs.shape[0])
-    if cfg.ring_scheme == "eman2":
-        ref_fw = prepare_ref_spectra_eman(refs, cfg)
-        search = rotational_shift_search_eman
-    else:
-        ref_fw = prepare_ref_spectra(refs, cfg)
-        search = fused_search if sampler == "kernel" else search_plain
+    eman2 = cfg.ring_scheme == "eman2"
+    ref_fw = (prepare_ref_spectra_eman(refs, cfg) if eman2
+              else prepare_ref_spectra(refs, cfg))
     if sampler == "template":
         result = template_search(images, ref_fw, params, cfg, sf=sf,
                                  angle_mask=angle_mask)
+    elif eman2:
+        result = rotational_shift_search_eman(
+            images, ref_fw, params, cfg, angle_mask=angle_mask,
+            sampler="matmul" if sampler == "matmul" else "plain", fast=fast)
+    elif sampler == "matmul":
+        result = rotational_shift_search_mm(images, ref_fw, params, cfg,
+                                            fast=fast, angle_mask=angle_mask)
     else:
+        search = fused_search if sampler == "kernel" else search_plain
         result = search(images, ref_fw, params, cfg, angle_mask=angle_mask)
     new_params = decode_params(result, params, cfg, update_ref=update_ref,
                                refine=angle_mask is None)
     return _finish_step(images, new_params, result.best_val, global_index,
-                        valid, n_classes)
+                        valid, n_classes, sampler in SHEAR_SUMS, fast)
 
 
 def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
-                 n_classes: int) -> StepOutput:
+                 n_classes: int, shear: bool = False,
+                 fast: bool = True) -> StepOutput:
     """Transform by the new params, sum the classes even/odd, and the
-    centering sums: the end of every kind of step.  The transform and the
-    class sums go in blocks of ``transform_block`` particles, whose sums
-    add up on the device."""
+    centering sums: the end of every kind of step.  ``shear`` sums by the
+    FFT shear (``class_sum_transform_mm``, bf16 DFTs with ``fast``), else
+    by the bilinear transform; either goes in blocks of particles whose
+    sums add up on the device."""
     n, h, w = images.shape
-    block = transform_block(h, w)
     if global_index is None:
         global_index = torch.arange(n, device=images.device)
+    if shear:
+        sums, counts = class_sum_transform_mm(
+            images, new_params, n_classes, global_index=global_index,
+            valid=valid, fast=fast)
+        return _step_output(new_params, sums, counts, peak, valid)
+    block = transform_block(h, w)
     sums = counts = None
     for start in range(0, max(n, 1), block):
         sl = slice(start, start + block)
@@ -209,6 +246,13 @@ def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
         else:
             sums += s_b
             counts += c_b
+    return _step_output(new_params, sums, counts, peak, valid)
+
+
+def _step_output(new_params: AlignParams, sums, counts, peak,
+                 valid) -> StepOutput:
+    """The step's output with its centering sums; the peaks of padding
+    particles zeroed."""
     sx_sum, sy_sum = _header_shift_sums(new_params, valid)
     if valid is not None:
         peak = torch.where(valid > 0, peak, 0.0)
@@ -234,15 +278,17 @@ class ShcStepOutput(NamedTuple):
 
 def align_step_shc(images, refs, params: AlignParams, global_index, valid,
                    previousmax, cfg: AlignConfig, *, n_classes: int,
-                   sampler: str = "auto", sf=None) -> ShcStepOutput:
+                   sampler: str = "auto", fast: bool = True,
+                   sf=None) -> ShcStepOutput:
     """One SHC (stochastic hill climbing) iteration,
     ``random_method="SHC"``: each particle takes the first candidate
     above its ``previousmax`` rather than the global argmax; a particle
     with none keeps its params and its ``previousmax`` and counts in
     ``nope``.  The search is the PyTorch one on either device
     (``resolve_sampler``), or ``template_search_shc`` with
-    ``sampler="template"`` (``sf`` as in ``align_step``);
-    ``sampler="kernel"`` raises ``ValueError``.
+    ``sampler="template"`` (``sf`` as in ``align_step``), or
+    ``rotational_shift_search_shc_mm`` with ``sampler="matmul"`` (``fast``
+    as in ``align_step``); ``sampler="kernel"`` raises ``ValueError``.
     """
     if cfg.ring_scheme != "cuda":
         raise ValueError("random_method='SHC' runs the standard ring "
@@ -253,6 +299,9 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
     if sampler == "template":
         result, found = template_search_shc(images, ref_fw, params, cfg,
                                             previousmax, sf=sf)
+    elif sampler == "matmul":
+        result, found = rotational_shift_search_shc_mm(
+            images, ref_fw, params, cfg, previousmax, fast=fast)
     else:
         result, found = rotational_shift_search_shc(images, ref_fw, params,
                                                     cfg, previousmax)
@@ -261,28 +310,30 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
                                for new, old in zip(decoded, params)])
     new_prevmax = torch.where(found, result.best_val, previousmax)
     step = _finish_step(images, new_params, new_prevmax, global_index, valid,
-                        n_classes)
+                        n_classes, sampler in SHEAR_SUMS, fast)
     missed = ~found if valid is None else (~found) & (valid > 0)
     return ShcStepOutput(step, new_prevmax, missed.sum())
 
 
 def align_step_scf(images, refs, params: AlignParams, global_index, valid,
                    cfg: AlignConfig, *, n_classes: int,
-                   sampler: str = "auto") -> StepOutput:
+                   sampler: str = "auto", fast: bool = True) -> StepOutput:
     """One SCF (self-correlation) iteration, ``random_method="SCF"``:
     rotation from the shift-invariant scf ring spectra, translation from
     one cross-correlation map per 180-degree candidate
     (``ops/scf.py::scf_align``).  SCF aligns absolutely: ``params`` is not
     composed in.  The rotation stage is a standard K=1 search at zero
     shift, so on a CUDA tensor it launches the kernel;
+    ``sampler="matmul"`` runs both stages and the class sums as the JAX
+    package's matmul step (``fast`` as in ``align_step``);
     ``sampler="template"`` raises ``ValueError``, as in the JAX package.
     """
     if cfg.ring_scheme != "cuda":
         raise ValueError("random_method='SCF' runs the standard ring "
                          "scheme only (ring_scheme='cuda')")
-    new_params, peak = scf_align(
-        images, refs[0], cfg,
-        sampler=resolve_sampler(sampler, images.device, zero_shift_cfg(cfg),
-                                random_method="SCF"))
+    sampler = resolve_sampler(sampler, images.device, zero_shift_cfg(cfg),
+                              random_method="SCF")
+    new_params, peak = scf_align(images, refs[0], cfg, sampler=sampler,
+                                 fast=fast)
     return _finish_step(images, new_params, peak, global_index, valid,
-                        n_classes)
+                        n_classes, sampler in SHEAR_SUMS, fast)

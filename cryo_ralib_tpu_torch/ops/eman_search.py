@@ -4,9 +4,10 @@
 Counterpart of ``cryo_ralib_tpu/ops/eman_search.py``, the engine of
 ``AlignConfig(ring_scheme="eman2")``: rings of ``Numrinit(first_ring,
 last_ring, rstep)`` with ``ringwe`` weights in place of the uniform
-256-sample rings.  This is the JAX package's gather formulation only
-(bilinear reads with the accumulated shift folded into the centre); its
-tent-matmul tables are a TPU device and have no counterpart here.
+256-sample rings.  Both of the JAX package's samplers: "plain" (its
+"gather": bilinear reads with the accumulated shift folded into the
+centre) and "matmul" (the stack translated by its accumulated shifts,
+then constant tent products per ring group, ``ops/polar_mm.py``).
 
 Rings are grouped by their (power-of-two) length, a Numrinit plan having
 only ~log2(maxrin) distinct lengths, and each group runs the standard
@@ -33,8 +34,9 @@ from ..config import AlignConfig
 from ..params import AlignParams
 from .ccf import ring_spectra
 from .polar import polar_resample
+from .polar_mm import polar_group_mm, tent_rows, translate_bilinear_mm
 from .search import (PLAIN_SAMPLE_BUDGET, SearchResult, _update_best,
-                     empty_result)
+                     by_blocks, empty_result, mm_block)
 
 
 def eman_groups(cfg: AlignConfig):
@@ -93,6 +95,25 @@ def eman_tables(cfg: AlignConfig, device: torch.device) -> EmanTables:
                         device=device))
 
 
+@lru_cache(maxsize=16)
+def eman_mm_tables(cfg: AlignConfig, device: torch.device):
+    """The matmul sampler's constant tents per ring group, on ``device``
+    once per (cfg, device): ((wy (n_dy, Q_g, H), wx (n_dx, Q_g, W)), ...)
+    in ``eman_groups`` order (the JAX package's ``_group_tables``)."""
+    h = w = cfg.img_dim
+    out = []
+    for _ln, _idx, coords in eman_groups(cfg):
+        py = coords[..., 1].reshape(-1)
+        px = coords[..., 0].reshape(-1)
+        wy = np.stack([tent_rows(h // 2 + py + dy, h)
+                       for dy in cfg.shift_y_vals])
+        wx = np.stack([tent_rows(w // 2 + px + dx, w)
+                       for dx in cfg.shift_x_vals])
+        out.append((torch.as_tensor(wy, device=device),
+                    torch.as_tensor(wx, device=device)))
+    return tuple(out)
+
+
 def prepare_ref_spectra_eman(refs, cfg: AlignConfig):
     """References (K, H, W) -> per-group weighted ring spectra
     ((K, R_g, L_g/2+1) complex64, ...) in ``eman_groups`` order, the
@@ -104,47 +125,68 @@ def prepare_ref_spectra_eman(refs, cfg: AlignConfig):
 
 
 def rotational_shift_search_eman(images, ref_fwg, params: AlignParams,
-                                 cfg: AlignConfig,
-                                 angle_mask=None) -> SearchResult:
+                                 cfg: AlignConfig, angle_mask=None,
+                                 sampler: str = "plain",
+                                 fast: bool = True) -> SearchResult:
     """Full (mirror x shift x ref x angle) search under the eman2 ring
     scheme; the same ``SearchResult`` and priority order as the standard
     search.  ``ref_fwg`` comes from ``prepare_ref_spectra_eman``.
+    ``sampler`` "plain" samples by bilinear reads, "matmul" by tent
+    products (``polar_group_mm``, bf16 operands and f32 sums with
+    ``fast``) on the stack translated by its accumulated shifts.
 
     The loop walks the grid's dy values with every dx candidate per step,
     so a step's global shift indices are ``arange(n_dx) * n_dy + yi``
     (x-major, the order of ``cfg.shifts``), not a contiguous range.  A
-    stack whose samples for one step exceed ``PLAIN_SAMPLE_BUDGET`` is
-    searched in blocks of particles.
+    stack whose samples for one step exceed ``PLAIN_SAMPLE_BUDGET``
+    ("plain") or ``MM_SEARCH_BUDGET`` ("matmul") is searched in blocks
+    of particles.
     """
+    if sampler not in ("plain", "matmul"):
+        raise ValueError(f"sampler must be 'plain' or 'matmul', not "
+                         f"{sampler!r}")
     n = images.shape[0]
     dev = images.device
     groups, dxs, dys, x_major = eman_tables(cfg, dev)
     n_dx, n_dy = dxs.shape[0], dys.shape[0]
+    k_dim = ref_fwg[0].shape[0]
     if angle_mask is not None:
         angle_mask = torch.as_tensor(angle_mask, dtype=torch.float32,
                                      device=dev)
-    per_particle = n_dx * max(c.shape[0] * c.shape[1] for _l, c, _w in groups)
-    block = max(1, PLAIN_SAMPLE_BUDGET // per_particle)
+    samples = sum(c.shape[0] * c.shape[1] for _l, c, _w in groups)
+    if sampler == "matmul":
+        block = mm_block(n, k_dim, cfg, samples)
+    else:
+        per_particle = n_dx * max(c.shape[0] * c.shape[1]
+                                  for _l, c, _w in groups)
+        block = max(1, PLAIN_SAMPLE_BUDGET // per_particle)
     if n > block:
-        parts = [rotational_shift_search_eman(
-            images[i:i + block], ref_fwg,
-            AlignParams(*[f[i:i + block] for f in params]), cfg, angle_mask)
-            for i in range(0, n, block)]
-        return SearchResult(*[torch.cat(f) for f in zip(*parts)])
+        return by_blocks(
+            lambda x, p: rotational_shift_search_eman(
+                x, ref_fwg, p, cfg, angle_mask, sampler, fast),
+            block, images, params)
     maxrin = cfg.ring_len
     n_f = maxrin // 2 + 1
-    k_dim = ref_fwg[0].shape[0]
     n_mirr = 2 if cfg.mirror else 1
 
+    if sampler == "matmul":
+        img_t = translate_bilinear_mm(images, params.shift_x, params.shift_y)
+        tents = eman_mm_tables(cfg, dev)
     best = empty_result(n, maxrin, dev)
     sx = params.shift_x[:, None] + dxs[None, :]
     for yi in range(n_dy):
         sy = (params.shift_y[:, None] + dys[yi]).expand(n, n_dx)
         spec = torch.zeros((n, n_mirr, n_dx, k_dim, n_f),
                            dtype=torch.complex64, device=dev)
-        for (ln, coords, _w), rfw in zip(groups, ref_fwg):
+        for g, ((ln, coords, _w), rfw) in enumerate(zip(groups, ref_fwg)):
             f_g = ln // 2 + 1
-            sbj_f = ring_spectra(polar_resample(images, coords, sx, sy))
+            if sampler == "matmul":
+                wy, wx = tents[g]
+                pol = polar_group_mm(img_t, wy[yi], wx, coords.shape[0], ln,
+                                     fast=fast)
+            else:
+                pol = polar_resample(images, coords, sx, sy)
+            sbj_f = ring_spectra(pol)
             # Crosrng_ms accumulation: this group's harmonics land in the
             # low bins of the shared maxrin spectrum
             spec[:, 0, ..., :f_g] += torch.einsum(

@@ -9,11 +9,13 @@ sum, and finalise the unbiased sample variance
     var_k = (sum_i |f_ik|^2 - |sum_i f_ik|^2 / n) / (n - 1).
 
 ``ali2d_base`` divides the average's spectrum by it and writes the
-variance image as ``varf.hdf``.  The particles are aligned by the bilinear
-``transform_batch`` (the JAX package's ``engine="exact"``; its default
-FFT-shear engine is a TPU approximation with no counterpart here), and
-the transforms are ``torch.fft.rfft2``.  The division of the average and
-the radial profile are (H, W)-sized host work.
+variance image as ``varf.hdf``.  The particles are aligned as the JAX
+package aligns them: by default (``engine="shear"``, ``fast=True``, what
+its ``ali2d_base_tpu`` calls on every backend) by the FFT shear of
+``ops/transform.py::transform_batch_mm`` with its bf16 DFTs, or with
+``engine="exact"`` by the bilinear ``transform_batch``.  The spectra are
+``torch.fft.rfft2`` (JAX: f32 matmul DFTs).  The division of the average
+and the radial profile are (H, W)-sized host work.
 """
 
 from __future__ import annotations
@@ -24,10 +26,11 @@ import torch
 from ..params import AlignParams
 from ..parallel.mesh import all_reduce_sums
 from .fsc import _rfft2_weights, _shell_index
-from .transform import transform_batch
+from .transform import transform_batch, transform_batch_mm
 
 
-def fourier_moments(images, params: AlignParams, mask=None, valid=None):
+def fourier_moments(images, params: AlignParams, mask=None, valid=None,
+                    engine: str = "shear", fast: bool = True):
     """Spectral moments of the aligned batch.
 
     Args:
@@ -35,22 +38,36 @@ def fourier_moments(images, params: AlignParams, mask=None, valid=None):
       params: AlignParams with (N,) fields.
       mask: optional (H, W) real-space mask, applied after interpolation.
       valid: optional (N,) 0/1 weights.
+      engine: "shear" (``transform_batch_mm``, with ``fast``) or "exact"
+        (the bilinear ``transform_batch``).
     Returns:
-      (sum_re, sum_im, sum_sq, n): (H, F) float32 x 3 and the count (a
-      0-dim tensor).
+      (sum_re, sum_im, sum_sq, n): (H, F) float64 x 3 (summed over the
+      particles in f64, the JAX package's in f32) and the count (a 0-dim
+      tensor).
     """
-    t = transform_batch(images, params)
+    if engine == "shear":
+        t = transform_batch_mm(images, params, fast=fast)
+    elif engine == "exact":
+        t = transform_batch(images, params)
+    else:
+        raise ValueError(f"engine must be 'shear' or 'exact', not {engine!r}")
     if mask is not None:
         t = t * torch.as_tensor(mask, dtype=t.dtype, device=t.device)[None]
     f = torch.fft.rfft2(t)                                  # (N, H, F)
-    re, im = f.real, f.imag
+    # summed over the particles in f64: the variance is a difference of
+    # two large sums, so an f32 sum's order (a chunk, a rank's block)
+    # would move its smallest bins
+    re, im = f.real.double(), f.imag.double()
     sq = re * re + im * im
     if valid is None:
         n = torch.tensor(float(images.shape[0]), device=images.device)
-        return re.sum(0), im.sum(0), sq.sum(0), n
-    w = torch.as_tensor(valid, dtype=torch.float32,
-                        device=images.device)[:, None, None]
-    return (re * w).sum(0), (im * w).sum(0), (sq * w).sum(0), w.sum()
+        sums = re.sum(0), im.sum(0), sq.sum(0)
+    else:
+        w = torch.as_tensor(valid, dtype=torch.float64,
+                            device=images.device)[:, None, None]
+        sums = (re * w).sum(0), (im * w).sum(0), (sq * w).sum(0)
+        n = w.sum()
+    return (*sums, n)
 
 
 def finalize_variance(sum_re, sum_im, sum_sq, n):
@@ -96,13 +113,15 @@ def variance_map(var):
 
 
 def fourier_variance(data, params: AlignParams, mask=None,
-                     batch: int = 4096, mesh=None):
-    """Chunked variance of a whole stack.
+                     batch: int = 4096, mesh=None, engine: str = "shear",
+                     fast: bool = True):
+    """Chunked variance of a whole stack (``engine`` and ``fast`` as in
+    ``fourier_moments``).
 
     ``data`` (N, H, W) and ``params`` are numpy arrays or tensors on the
     host or on the device; each chunk of ``batch`` particles goes to the
     device of ``mask`` (else of ``data``, else the CPU), where its
-    moments are summed in float32, and the chunks add up in float64 on
+    moments are summed in float64, and the chunks add up in float64 on
     the host.  Under a ``mesh`` ``data`` and ``params`` are the rank's
     block, and the moments and the count are all-reduced (one float64
     buffer) before the variance is finalised; every rank calls it.
@@ -118,7 +137,8 @@ def fourier_variance(data, params: AlignParams, mask=None,
         imgs = torch.as_tensor(data[sl], dtype=torch.float32, device=device)
         part = AlignParams(*[torch.as_tensor(f[sl], device=device)
                              for f in params])
-        *sums, cnt = fourier_moments(imgs, part, mask=mask)
+        *sums, cnt = fourier_moments(imgs, part, mask=mask, engine=engine,
+                                     fast=fast)
         for a, s in zip(acc, sums):
             a += s.double().cpu().numpy()
         total += float(cnt)

@@ -1,35 +1,127 @@
-"""Bilinear tents as matrices: the helpers the template engine needs
-(PyTorch).
+"""Bilinear sampling as matrix products (PyTorch).
 
-Counterpart of three functions of ``cryo_ralib_tpu/ops/polar_mm.py``:
-``tent_rows`` (numpy constant tent rows, clamp-to-edge), the traced
-per-particle tents ``_tent_rows_traced`` and ``translate_window_mm``, the
-template engine's accumulated-shift translate fused with the extraction
-of its central window.  Bilinear sampling of a separable coordinate
-offset is exactly a pair of tent (two nonzeros per row) contractions, so
-the window is two small batched products.
+Counterpart of ``cryo_ralib_tpu/ops/polar_mm.py``.  Bilinear sampling of
+a separable coordinate offset is exactly a pair of tent (two nonzeros per
+row) contractions:
 
-The rest of the JAX module (``PolarTables``, ``polar_group_mm``,
-``polar_resample_mm``, ``translate_bilinear_mm``) stays unported: it is
-the TPU's way round a missing gather unit (the ``matmul`` sampler), and
-on the card the port samples with the bilinear gather of ``ops/polar.py``
-or inside the search kernel.
+    sample(img, y + py, x + px) = sum_{j,i} tent(y + py - j) tent(x + px - i) img[j, i]
 
-Rounding points, the JAX engine's (its ``fast=True``): the image and the tents
-are rounded to bf16, the first product keeps its f32 sum rounded to bf16,
-and the second product's f32 sum is the window.  The products are taken
-in f32 on operands that hold bf16 values: a product of two bf16 values
-is exact in f32, so this is the JAX package's bf16 x bf16 -> f32
-contraction up to summation order, on either device, whatever the TF32
-switches say.  For integer shifts the tents are one-hot and the window is
-the bf16 cast of the exact one.
+so polar resampling on a known shift grid becomes products with constant
+tent matrices: for every distinct grid dy a matrix ``Wy[dy] : (Q, H)``
+over the Q = ring_num x ring_len sample points, and likewise
+``Wx[dx] : (Q, W)`` (``PolarTables``, ``build_polar_tables``).  One dy
+group of candidates is one product ``T = Wy[dy] @ img`` followed by a
+multiply-reduce against every ``Wx[dx]`` (``polar_group_mm``): the
+``matmul`` sampler's search (``ops/search.py::rotational_shift_search_mm``).
+The per-particle accumulated shifts go in first, as a bilinear translate
+made of two tent products (``translate_bilinear_mm``), exactly the
+one-stage bilinear sample for integer shifts.  The template engine's
+window (``translate_window_mm``) is the same translate fused with the
+extraction of its central window.
+
+Rounding points, the JAX package's ``fast=True``: the operands of every
+product are rounded to bf16 and the sums are f32; ``polar_group_mm``
+rounds its intermediate ``T`` to bf16 between its two contractions, and
+``translate_window_mm`` its first product.  A product of two bf16 values
+is exact in f32 (and in TF32), so these are the JAX package's bf16 x bf16
+-> f32 contractions up to summation order, on either device:
+
+* on a CUDA device a 2-D product runs ``torch.mm(bf16, bf16,
+  out_dtype=torch.float32)`` where the installed PyTorch has it
+  (``product_route`` "bf16"), else f32 operands holding bf16 values
+  under TF32 ("tf32");
+* a batched product, and every product on the CPU ("f32"), takes f32
+  operands holding bf16 values (``_bf16_values``), under TF32 on a CUDA
+  device.
+
+``fast=False`` is the JAX package's ``Precision.HIGHEST``: f32 operands
+with TF32 off (``_product_switches("f32")``).  For integer shifts the
+tents are one-hot and a fast translate is the bf16 cast of the exact one.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
+from dataclasses import dataclass
+from functools import lru_cache
+
 import numpy as np
 import torch
 
+_log = logging.getLogger(__name__)
+
+
+# -- the products ------------------------------------------------------
+
+@lru_cache(maxsize=8)
+def product_route(device: torch.device) -> str:
+    """How a bf16 product runs on ``device``: "bf16" (CUDA,
+    ``torch.mm(bf16, bf16, out_dtype=torch.float32)``), "tf32" (CUDA
+    without that overload: f32 operands holding bf16 values under TF32)
+    or "f32" (the CPU: f32 operands holding bf16 values).  Decided once
+    per device by one small product, and logged."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "f32"
+    a = torch.zeros((8, 8), dtype=torch.bfloat16, device=device)
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+        route = "bf16"
+    except (TypeError, NotImplementedError) as exc:
+        # a missing overload raises one of these; any other error (a
+        # fault, no memory) is not read as one
+        _log.warning("bf16 products: torch.mm has no bf16 -> f32 "
+                     "overload here (%s); the products run on the "
+                     "slower tf32 route", exc)
+        route = "tf32"
+    _log.info("bf16 products on %s: %s", device, route)
+    return route
+
+
+@contextlib.contextmanager
+def _product_switches(route: str):
+    """The cuBLAS switches of the port's own products, restored after:
+    TF32 on for the "tf32" route (f32 operands holding bf16 values), off
+    for "f32" (full f32 products), bf16 reduced-precision reductions off
+    for the "bf16" route."""
+    mm = torch.backends.cuda.matmul
+    old = (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction)
+    try:
+        if route == "tf32":
+            mm.allow_tf32 = True
+        elif route == "f32":
+            mm.allow_tf32 = False
+        elif route == "bf16":
+            mm.allow_bf16_reduced_precision_reduction = False
+        yield
+    finally:
+        mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = old
+
+
+def _bf16_values(x):
+    """``x`` rounded to bf16 and held in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def mm_bf16(a, b, route: str):
+    """(M, K) x (K, N) -> (M, N) f32: both operands rounded to bf16, the
+    sums f32, on ``route`` (``product_route``)."""
+    with _product_switches(route):
+        if route == "bf16":
+            return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                            out_dtype=torch.float32)
+        return torch.mm(_bf16_values(a), _bf16_values(b))
+
+
+def _held_route(device) -> str:
+    """The switches of a product on f32 operands that hold bf16 values:
+    TF32 on a CUDA device (the same products, exact either way), none
+    on the CPU."""
+    return "tf32" if torch.device(device).type == "cuda" else "f32"
+
+
+# -- constant tents ----------------------------------------------------
 
 def tent_rows(coords: np.ndarray, size: int) -> np.ndarray:
     """Constant bilinear-weight rows: (Q,) float coords -> (Q, size).
@@ -47,6 +139,67 @@ def tent_rows(coords: np.ndarray, size: int) -> np.ndarray:
     np.add.at(rows, (np.arange(len(v)), j1), f)
     return rows.astype(np.float32)
 
+
+@dataclass(frozen=True)
+class PolarTables:
+    """Constant sampling matrices of one ``AlignConfig`` (numpy).
+
+    Attributes:
+      wy: (n_dy, Q, H) tent weights of ``cy + ring_y[q] + dy``.
+      wx: (n_dx, Q, W) tent weights of ``cx + ring_x[q] + dx``.
+      ring_num, ring_len: polar grid shape (Q = ring_num * ring_len).
+    """
+
+    wy: np.ndarray
+    wx: np.ndarray
+    ring_num: int
+    ring_len: int
+
+    @property
+    def n_dy(self) -> int:
+        return self.wy.shape[0]
+
+    @property
+    def n_dx(self) -> int:
+        return self.wx.shape[0]
+
+
+def build_polar_tables(cfg, x_window: tuple[int, int] | None = None
+                       ) -> PolarTables:
+    """``PolarTables`` of an AlignConfig (numpy, host side).
+
+    ``x_window=(x0, width)`` builds the x tents relative to the column
+    window [x0, x0 + width) of the image; the caller guarantees that
+    every sample stays inside the window, where windowed tents equal the
+    full-width ones.
+    """
+    coords = cfg.polar_coords  # (R, L, 2), [..., 0] = x offset, [..., 1] = y
+    h = w = cfg.img_dim
+    cx = w // 2
+    cy = h // 2
+    px = coords[..., 0].reshape(-1)
+    py = coords[..., 1].reshape(-1)
+    wy = np.stack([tent_rows(cy + py + dy, h) for dy in cfg.shift_y_vals])
+    if x_window is not None:
+        x0, width = x_window
+        wx = np.stack([tent_rows(cx - x0 + px + dx, width)
+                       for dx in cfg.shift_x_vals])
+    else:
+        wx = np.stack([tent_rows(cx + px + dx, w) for dx in cfg.shift_x_vals])
+    return PolarTables(wy=wy, wx=wx, ring_num=cfg.ring_num,
+                       ring_len=cfg.ring_len)
+
+
+@lru_cache(maxsize=16)
+def polar_tables(cfg, device: torch.device):
+    """``build_polar_tables(cfg)``'s (wy, wx) on ``device``, copied there
+    once per (cfg, device) (a device loop reads them with no copy)."""
+    t = build_polar_tables(cfg)
+    return (torch.as_tensor(t.wy, device=device),
+            torch.as_tensor(t.wx, device=device))
+
+
+# -- per-particle tents ------------------------------------------------
 
 def _tent_rows_traced(shift, size: int, dtype, offset: int = 0,
                       out_size: int | None = None):
@@ -70,9 +223,23 @@ def _tent_rows_traced(shift, size: int, dtype, offset: int = 0,
     return m.to(dtype)
 
 
-def _bf16_values(x):
-    """``x`` rounded to bf16 and held in f32."""
-    return x.to(torch.bfloat16).to(torch.float32)
+def translate_bilinear_mm(images, shift_x, shift_y, fast: bool = False):
+    """``out[y, x] = bilinear(img, y + shift_y, x + shift_x)`` for each
+    image, as two tent products: exact (a row and column permutation)
+    for integer shifts.  ``fast=False`` (the default, as in JAX) takes
+    full f32 products; ``fast=True`` rounds the image, the tents and the
+    first product to bf16 (the module docstring)."""
+    _n, h, w = images.shape
+    ty = _tent_rows_traced(shift_y, h, torch.float32)   # (N, H, H)
+    tx = _tent_rows_traced(shift_x, w, torch.float32)   # (N, W, W)
+    x = images.to(torch.float32)
+    if not fast:
+        with _product_switches("f32"):
+            return torch.bmm(torch.bmm(ty, x), tx.transpose(1, 2))
+    ty, tx = _bf16_values(ty), _bf16_values(tx)
+    with _product_switches(_held_route(images.device)):
+        out = _bf16_values(torch.bmm(ty, _bf16_values(x)))
+        return torch.bmm(out, tx.transpose(1, 2))
 
 
 def translate_window_mm(images, shift_x, shift_y, lo: int, width: int):
@@ -81,9 +248,9 @@ def translate_window_mm(images, shift_x, shift_y, lo: int, width: int):
     lo + b + shift_x_n)`` for a, b in [0, width), as two tent products
     that only produce the window's rows and columns.
 
-    It rounds where the JAX engine does (the module docstring); its
-    (N, width, width) f32 result holds the f32 sums of the second
-    product, which the engine rounds to bf16.
+    It rounds where the JAX engine does (``fast=True``, the module
+    docstring); its (N, width, width) f32 result holds the f32 sums of
+    the second product, which the engine rounds to bf16.
     """
     _n, h, w = images.shape
     ty = _tent_rows_traced(shift_y, h, torch.float32, offset=lo,
@@ -93,3 +260,58 @@ def translate_window_mm(images, shift_x, shift_y, lo: int, width: int):
     ty, tx = _bf16_values(ty), _bf16_values(tx)
     out = _bf16_values(torch.bmm(ty, _bf16_values(images.to(torch.float32))))
     return torch.bmm(out, tx.transpose(1, 2))       # (N, width, width)
+
+
+# -- polar sampling ----------------------------------------------------
+
+def polar_group_mm(img_t, wy_slice, wx_all, ring_num: int, ring_len: int,
+                   fast: bool = False):
+    """Sample one dy group of shift candidates for a whole batch.
+
+    Args:
+      img_t: (N, H, W) pre-translated images.
+      wy_slice: (Q, H) tent matrix of this dy.
+      wx_all: (n_dx, Q, W) tent matrices of every dx.
+      fast: bf16 operands with f32 sums, the intermediate ``T`` rounded
+        to bf16 between the two contractions (the JAX package's
+        ``fast=True``); False = full f32.
+
+    Returns:
+      (N, n_dx, ring_num, ring_len) float32 polar stacks.
+
+    The y contraction is one 2-D product ``Wy (Q, H) @ img (H, N*W)``,
+    whose (Q, N, W) result feeds the x contraction as a product batched
+    over the Q sample points, ``T[q] (N, W) @ Wx[:, q]^T (W, n_dx)``.
+    """
+    n, h, w = img_t.shape
+    q = wy_slice.shape[0]
+    n_dx = wx_all.shape[0]
+    x = img_t.to(torch.float32).permute(1, 0, 2).reshape(h, n * w)
+    if fast:
+        t = mm_bf16(wy_slice, x, product_route(img_t.device))
+        t = _bf16_values(t).view(q, n, w)
+        with _product_switches(_held_route(img_t.device)):
+            pol = torch.bmm(t, _bf16_values(wx_all).permute(1, 2, 0))
+    else:
+        with _product_switches("f32"):
+            t = torch.mm(wy_slice, x).view(q, n, w)
+            pol = torch.bmm(t, wx_all.permute(1, 2, 0))
+    # (Q, N, n_dx) -> (N, n_dx, Q)
+    return pol.permute(1, 2, 0).reshape(n, n_dx, ring_num, ring_len)
+
+
+def polar_resample_mm(images, cfg):
+    """Zero-shift polar resampling as full f32 tent products: the
+    bilinear gather's values (the JAX package samples its references
+    so)."""
+    coords = cfg.polar_coords
+    h = w = cfg.img_dim
+    dev = images.device
+    wy = torch.as_tensor(tent_rows(h // 2 + coords[..., 1].reshape(-1), h),
+                         device=dev)
+    wx = torch.as_tensor(tent_rows(w // 2 + coords[..., 0].reshape(-1), w),
+                         device=dev)
+    with _product_switches("f32"):
+        t = torch.einsum("nhw,qh->nqw", images.to(torch.float32), wy)
+    pol = (t * wx[None]).sum(-1)
+    return pol.reshape(images.shape[0], cfg.ring_num, cfg.ring_len)

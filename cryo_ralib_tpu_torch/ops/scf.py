@@ -5,7 +5,10 @@ Counterpart of ``cryo_ralib_tpu/ops/scf.py``.  Rotation is found on the
 translation, so it decouples from the shift search; the translation then
 comes from one 2-D cross-correlation per rotation candidate.  The JAX
 package does its transforms as matmul DFTs (a TPU workaround); here they
-are ``torch.fft.rfft2`` / ``irfft2``.
+are ``torch.fft.rfft2`` / ``irfft2``.  The ``matmul`` sampler runs both
+stages as the JAX package's does: the rotation search through
+``rotational_shift_search_mm`` and the inverse-transformed references
+through the FFT shear (``transform_batch_mm``), bf16 with ``fast``.
 
 * scf: ``irfft2(|rfft2(img)|)``, rolled so that the (always largest) DC
   peak sits at the centre.
@@ -34,8 +37,9 @@ import torch
 from ..config import AlignConfig
 from ..params import AlignParams
 from .fused_search import fused_search, search_plain
-from .search import SearchResult, decode_params, prepare_ref_spectra
-from .transform import transform_batch, transform_block
+from .search import (SearchResult, decode_params, prepare_ref_spectra,
+                     rotational_shift_search_mm)
+from .transform import transform_batch, transform_batch_mm, transform_block
 
 
 def scf_batch(images):
@@ -50,15 +54,18 @@ def zero_shift_cfg(cfg: AlignConfig) -> AlignConfig:
     return dataclasses.replace(cfg, shift_rng_x=0.0, shift_rng_y=0.0)
 
 
-def scf_align(images, ref, cfg: AlignConfig, sampler: str = "plain"):
+def scf_align(images, ref, cfg: AlignConfig, sampler: str = "plain",
+              fast: bool = True):
     """SCF alignment of a batch against one reference.
 
     Args:
       images: (N, H, W) particles.  ref: (H, W) current average.
       cfg: AlignConfig with mode="H" (``ali2d_base`` forces it); its
         shift ranges give the integer translation window.
-      sampler: the rotation stage's search, "kernel" (CUDA tensors) or
-        "plain".
+      sampler: the rotation stage's search, "kernel" (CUDA tensors),
+        "plain" or "matmul" (which also inverse-transforms the reference
+        by the FFT shear).
+      fast: the matmul sampler's bf16 products (JAX's ``fast``).
     Returns:
       (AlignParams, peak (N,)): ref_id 0, shifts clamped to
       ``cfg.shift_limit`` like the standard decode.
@@ -77,8 +84,11 @@ def scf_align(images, ref, cfg: AlignConfig, sampler: str = "plain"):
     for start in range(0, n, block):
         sci[start:start + block] = scf_batch(images[start:start + block])
     ref_fw = prepare_ref_spectra(scf_batch(ref[None]), cfg0)
-    search = fused_search if sampler == "kernel" else search_plain
-    res = search(sci, ref_fw, zeros, cfg0)
+    if sampler == "matmul":
+        res = rotational_shift_search_mm(sci, ref_fw, zeros, cfg0, fast=fast)
+    else:
+        search = fused_search if sampler == "kernel" else search_plain
+        res = search(sci, ref_fw, zeros, cfg0)
     del sci
     dec = decode_params(res, zeros, cfg0, update_ref=False)
     ang = dec.angle % 360.0
@@ -102,7 +112,9 @@ def scf_align(images, ref, cfg: AlignConfig, sampler: str = "plain"):
             mir = mirror[sl]
             inv = AlignParams(torch.where(mir == 1, c, -c), zeros_f[sl],
                               zeros_f[sl], mir, zeros.ref_id[sl])
-            invref = transform_batch(ref[None].expand(m, h, w), inv)
+            ref_b = ref[None].expand(m, h, w)
+            invref = (transform_batch_mm(ref_b, inv, fast=fast)
+                      if sampler == "matmul" else transform_batch(ref_b, inv))
             # score(s) = sum_z invref(z) img(z + s) = irfft2(conj(IR) * I)(s)
             cc = torch.fft.irfft2(torch.fft.rfft2(invref).conj() * img_f,
                                   s=(h, w))

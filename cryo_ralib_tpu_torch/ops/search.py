@@ -3,8 +3,11 @@
 Counterpart of ``cryo_ralib_tpu/ops/search.py``: reference spectra, the
 plain search (``rotational_shift_search``, the f32 twin of the
 hand-written kernel in ``ops/fused_search.py``), its stochastic
-hill-climbing variant (``rotational_shift_search_shc``), the ``--dst``
-discrete-angle mask and ``decode_params``.
+hill-climbing variant (``rotational_shift_search_shc``), the matmul
+sampler's searches (``rotational_shift_search_mm``,
+``rotational_shift_search_shc_mm``: the polar samples as tent products,
+``ops/polar_mm.py``), the ``--dst`` discrete-angle mask and
+``decode_params``.
 
 The search keeps a running per-particle best over chunks of the shift
 grid, so it never holds the whole (N, 2, S, K, L) ccf table.  Winners
@@ -27,6 +30,7 @@ from ..params import AlignParams
 from .ccf import (ccf_rows, ccf_spectra, ccf_spectra_per_particle_ref,
                   ring_spectra, weight_ring_spectra)
 from .polar import polar_resample
+from .polar_mm import polar_group_mm, polar_tables, translate_bilinear_mm
 
 _NEG_INF = -3.0e38
 
@@ -299,6 +303,137 @@ def rotational_shift_search_shc(images, ref_fw, params: AlignParams,
         rows = ccf_rows(orig_f, mirr_f if cfg.mirror else None, cfg.ring_len)
         gs = torch.arange(s0, s0 + grid.shape[0], device=dev)
         carry = _shc_fold(carry, rows, gs, s_total, previousmax)
+    result, best_prio = carry
+    return result, best_prio < _SHC_BIG
+
+
+# Device memory one pass of a matmul-sampler search may hold: the
+# samples of one dy group for a block of particles (``mm_block``)
+MM_SEARCH_BUDGET = 4 * 2**30
+
+
+def mm_search_bytes(batch: int, n_refs: int, cfg: AlignConfig,
+                    q: int | None = None) -> int:
+    """Device bytes of one dy group of the matmul sampler on ``batch``
+    particles: the y contraction's (Q, N, W) result in f32, its bf16
+    rounding and the f32 copy that the x contraction reads (10 B a
+    sample point and pixel column), the (N, n_dx, Q) polar samples twice
+    and their ring spectra, the image's copies, and the ccf rows with
+    the fold's copies.  ``q`` is the sample points of one shift
+    (default ``ring_num * ring_len``; the eman2 rings pass theirs)."""
+    h = w = cfg.img_dim
+    if q is None:
+        q = cfg.ring_num * cfg.ring_len
+    n_dx = len(cfg.shift_x_vals)
+    n_mirr = 2 if cfg.mirror else 1
+    per = (q * w * 10 + 3 * n_dx * q * 4 + h * w * 10
+           + 3 * n_mirr * n_dx * n_refs * cfg.ring_len * 4
+           + 2 * n_mirr * n_dx * n_refs * (cfg.ring_len // 2 + 1) * 8)
+    return batch * per
+
+
+def mm_block(n: int, n_refs: int, cfg: AlignConfig,
+             q: int | None = None) -> int:
+    """Particles per block of a matmul-sampler search: as many as keep
+    ``mm_search_bytes`` inside ``MM_SEARCH_BUDGET``, at least 1."""
+    per = mm_search_bytes(1, n_refs, cfg, q)
+    return max(1, min(n, MM_SEARCH_BUDGET // per))
+
+
+def by_blocks(search, block: int, images, params: AlignParams, *extra):
+    """``search(images, params, *extra)`` on blocks of ``block``
+    particles (``extra``: (N,) tensors, sliced too), the per-particle
+    outputs concatenated: a ``SearchResult``, or ``(SearchResult,
+    found)``."""
+    parts = []
+    for i in range(0, images.shape[0], block):
+        sl = slice(i, i + block)
+        parts.append(search(images[sl], AlignParams(*[f[sl] for f in params]),
+                            *[e[sl] for e in extra]))
+    if isinstance(parts[0], SearchResult):
+        return SearchResult(*[torch.cat(f) for f in zip(*parts)])
+    results, found = zip(*parts)
+    return (SearchResult(*[torch.cat(f) for f in zip(*results)]),
+            torch.cat(found))
+
+
+def rotational_shift_search_mm(images, ref_fw, params: AlignParams,
+                               cfg: AlignConfig, per_particle_ref: bool = False,
+                               fast: bool = True,
+                               angle_mask=None) -> SearchResult:
+    """The search of ``rotational_shift_search`` through the matmul
+    sampler (``sampler="matmul"``): the stack is bilinear-translated by
+    each particle's accumulated shift (``translate_bilinear_mm``, f32,
+    exact for integer shifts), then every dy of the grid samples all its
+    dx candidates with constant tent products (``polar_group_mm``, bf16
+    operands and f32 sums with ``fast``), and the ring-DFT ccf rows fold
+    into the running best with their x-major global shift indices
+    ``arange(n_dx) * n_dy + yi``: the same priority order and first-seen
+    rule as the plain search.  A stack whose group would exceed
+    ``MM_SEARCH_BUDGET`` goes by blocks of particles (``mm_block``).
+    ``per_particle_ref`` and ``angle_mask`` as in the plain search."""
+    n = images.shape[0]
+    n_refs = 1 if per_particle_ref else ref_fw.shape[0]
+    block = mm_block(n, n_refs, cfg)
+    if n > block:
+        return by_blocks(
+            lambda x, p: rotational_shift_search_mm(
+                x, ref_fw, p, cfg, per_particle_ref, fast, angle_mask),
+            block, images, params)
+    dev = images.device
+    wy, wx = polar_tables(cfg, dev)
+    n_dy, n_dx = wy.shape[0], wx.shape[0]
+    x_major = torch.arange(n_dx, device=dev) * n_dy
+    if angle_mask is not None:
+        angle_mask = torch.as_tensor(angle_mask, dtype=torch.float32,
+                                     device=dev)
+    img_t = translate_bilinear_mm(images, params.shift_x, params.shift_y)
+    best = empty_result(n, cfg.ring_len, dev)
+    for yi in range(n_dy):
+        polar = polar_group_mm(img_t, wy[yi], wx, cfg.ring_num,
+                               cfg.ring_len, fast=fast)
+        orig_f, mirr_f = _ccf(ring_spectra(polar), ref_fw, params,
+                              per_particle_ref)
+        rows = ccf_rows(orig_f, mirr_f if cfg.mirror else None,
+                        cfg.ring_len)
+        if angle_mask is not None:
+            rows = rows + angle_mask
+        best = _update_best(best, rows, x_major + yi, n_dx * n_dy, n_refs)
+    return best
+
+
+def rotational_shift_search_shc_mm(images, ref_fw, params: AlignParams,
+                                   cfg: AlignConfig, previousmax,
+                                   per_particle_ref: bool = False,
+                                   fast: bool = True):
+    """The SHC pick of ``rotational_shift_search_shc`` through the matmul
+    sampler of ``rotational_shift_search_mm``: the pick is a running min
+    over global priorities, so the dy order does not matter.  Returns
+    ``(SearchResult, found)``."""
+    n = images.shape[0]
+    n_refs = 1 if per_particle_ref else ref_fw.shape[0]
+    block = mm_block(n, n_refs, cfg)
+    if n > block:
+        return by_blocks(
+            lambda x, p, pm: rotational_shift_search_shc_mm(
+                x, ref_fw, p, cfg, pm, per_particle_ref, fast),
+            block, images, params, previousmax)
+    dev = images.device
+    wy, wx = polar_tables(cfg, dev)
+    n_dy, n_dx = wy.shape[0], wx.shape[0]
+    x_major = torch.arange(n_dx, device=dev) * n_dy
+    img_t = translate_bilinear_mm(images, params.shift_x, params.shift_y)
+    carry = (empty_result(n, cfg.ring_len, dev),
+             torch.full((n,), _SHC_BIG, dtype=torch.int64, device=dev))
+    for yi in range(n_dy):
+        polar = polar_group_mm(img_t, wy[yi], wx, cfg.ring_num,
+                               cfg.ring_len, fast=fast)
+        orig_f, mirr_f = _ccf(ring_spectra(polar), ref_fw, params,
+                              per_particle_ref)
+        rows = ccf_rows(orig_f, mirr_f if cfg.mirror else None,
+                        cfg.ring_len)
+        carry = _shc_fold(carry, rows, x_major + yi, n_dx * n_dy,
+                          previousmax)
     result, best_prio = carry
     return result, best_prio < _SHC_BIG
 

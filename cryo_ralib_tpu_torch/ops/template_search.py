@@ -34,7 +34,9 @@ f32 scores.  On a CUDA device the search product is
 ``torch.mm(bf16, bf16, out_dtype=torch.float32)`` where the installed
 PyTorch has it, else the same product on f32 operands that hold the bf16
 values under TF32 (every bf16 value is exact in TF32 and every product
-exact in f32); on the CPU f32 operands that hold bf16 values.  The TF32
+exact in f32); on the CPU the exact products summed in f64 and rounded
+once, so that a particle's scores do not depend on its batch or rank
+(``_scores``).  The TF32
 switch is set only around the engine's own products and restored.  No
 product returns bf16 scores.  The pixel axis of both operands is padded
 with zeros to a multiple of 8 (81 x 81 = 6561 at the headline), which is
@@ -57,20 +59,17 @@ the JAX package leaves them to XLA's ``dot_general``.
 
 from __future__ import annotations
 
-import contextlib
-import logging
 import math
-from functools import lru_cache
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .eman_search import eman_groups
-from .polar_mm import tent_rows, translate_window_mm
+from .polar_mm import (_product_switches, product_route, tent_rows,
+                       translate_window_mm)
 from .search import _NEG_INF, SearchResult
 
-_log = logging.getLogger(__name__)
 
 # The JAX engine's gate, kept so that both packages admit the same
 # geometries: a soft budget for the padded template blocks (sized for a
@@ -391,54 +390,17 @@ def _col_chunk(c_total: int, ring_len: int) -> int:
 
 # -- the products ------------------------------------------------------
 
-@lru_cache(maxsize=8)
-def product_route(device: torch.device) -> str:
-    """How the search product runs on ``device``: "bf16" (CUDA,
-    ``torch.mm(bf16, bf16, out_dtype=torch.float32)``), "tf32" (CUDA
-    without that overload: f32 operands holding bf16 values under TF32)
-    or "f32" (the CPU: f32 operands holding bf16 values).  Decided once
-    per device by one small product, and logged."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return "f32"
-    a = torch.zeros((8, 8), dtype=torch.bfloat16, device=device)
-    try:
-        torch.mm(a, a, out_dtype=torch.float32)
-        route = "bf16"
-    except (TypeError, NotImplementedError) as exc:
-        # a missing overload raises one of these; any other error (a
-        # fault, no memory) is not read as one
-        _log.warning("template products: torch.mm has no bf16 -> f32 "
-                     "overload here (%s); the products run on the "
-                     "slower tf32 route", exc)
-        route = "tf32"
-    _log.info("template products on %s: %s", device, route)
-    return route
-
-
-@contextlib.contextmanager
-def _product_switches(route: str):
-    """The cuBLAS switches of the engine's own products, restored after:
-    TF32 on for the "tf32" route, bf16 reduced-precision reductions off
-    for the "bf16" route."""
-    mm = torch.backends.cuda.matmul
-    old = (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction)
-    try:
-        if route == "tf32":
-            mm.allow_tf32 = True
-        elif route == "bf16":
-            mm.allow_bf16_reduced_precision_reduction = False
-        yield
-    finally:
-        mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = old
-
-
 def _scores(win, cols, route: str):
     """(N, Wp) window x (chunk, Wp) bf16 columns -> (N, chunk) f32
     scores with f32 sums.  ``win`` is bf16 on the "bf16" route and f32
-    holding bf16 values otherwise."""
+    holding bf16 values otherwise.  On the CPU the exact products are
+    summed in f64 and rounded once: a BLAS's f32 sum of a row follows
+    the product's shape, so a stack split over ranks would otherwise
+    score its particles otherwise than one process."""
     if route == "bf16":
         return torch.mm(win, cols.t(), out_dtype=torch.float32)
+    if win.device.type == "cpu":
+        return torch.mm(win.double(), cols.double().t()).float()
     return torch.mm(win, cols.to(torch.float32).t())
 
 

@@ -17,7 +17,10 @@ What one step allocates, per batch of B particles of H x W pixels:
   and the centering sums' temporaries (``PER_PARTICLE_BYTES``);
 * the transform block of ``_finish_step``: ``transform_block`` particles
   at ``TRANSFORM_BYTES_PER_PIXEL`` each pixel, the same for any batch
-  larger than the block;
+  larger than the block; for the template engine and the matmul sampler,
+  whose steps sum by the FFT shear (``class_sum_transform_mm``),
+  ``shear_block`` particles at ``SHEAR_BYTES_PER_PIXEL`` each padded
+  pixel and the (4K, P, F) spectral slot sums;
 * the class sums: the (K, 2, H, W) accumulator and one block's sums,
   and the engine's iteration accumulator when streaming;
 * the references and the cached polar, shift and kernel tables;
@@ -29,7 +32,10 @@ What one step allocates, per batch of B particles of H x W pixels:
   template engine (``template_search_bytes``) its bf16 window, its
   template blocks and the largest of its window's translate, its
   template build and one column chunk's product and fold.  Its splat
-  spectra stay on the device between steps and count with the tables.
+  spectra stay on the device between steps and count with the tables;
+  for the matmul sampler one dy group of a block of particles
+  (``ops/search.py::mm_search_bytes``, blocks of ``mm_block``), the
+  block's translate and the outputs of every block.
 """
 
 from __future__ import annotations
@@ -38,12 +44,16 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops.eman_search import eman_groups
 from ..ops.fused_search import RING_LEN
-from ..ops.search import PLAIN_SAMPLE_BUDGET, plain_shift_chunk
+from ..ops.search import (PLAIN_SAMPLE_BUDGET, mm_block, mm_search_bytes,
+                          plain_shift_chunk)
 from ..ops.template_search import (WINDOW_BLOCK, _col_chunk, _padded,
                                    _splat_spectra_bytes,
                                    _template_blocks_bytes, template_geometry)
-from ..ops.transform import TRANSFORM_BYTES_PER_PIXEL, transform_block
+from ..ops.transform import (SHEAR_BYTES_PER_PIXEL,
+                             TRANSFORM_BYTES_PER_PIXEL, shear_block,
+                             shear_pad, transform_block)
 
 F32 = 4
 # kernel outputs (value, 256-angle row, four int32 indices), params in and
@@ -124,14 +134,41 @@ def template_search_bytes(batch: int, n_refs: int, cfg) -> int:
             + max(translate, build, scan))
 
 
+def matmul_search_bytes(batch: int, n_refs: int, cfg) -> int:
+    """Device bytes of one ``rotational_shift_search_mm`` (or the eman2
+    matmul search) on ``batch`` particles: one dy group of a block
+    (``mm_search_bytes``), the block's translate (its two tent stacks,
+    the mid product and the result, f32) and the (batch, L) rows and
+    five scalars of every block's result, twice (the blocks and their
+    concatenation)."""
+    h = w = cfg.img_dim
+    q = (sum(c.shape[0] * c.shape[1] for _l, _i, c in eman_groups(cfg))
+         if cfg.ring_scheme == "eman2" else None)
+    blk = mm_block(batch, n_refs, cfg, q)
+    return (mm_search_bytes(blk, n_refs, cfg, q)
+            + blk * (h * h + w * w + 2 * h * w) * F32
+            + 2 * batch * (cfg.ring_len + 5) * F32)
+
+
+def shear_sum_bytes(batch: int, n_refs: int, h: int) -> int:
+    """Device bytes of ``class_sum_transform_mm`` on ``batch`` particles:
+    one block's FFT-shear temporaries and the (4K, P, F) complex slot
+    sums with their inverse DFT."""
+    pad = shear_pad(h)
+    blk = min(shear_block(h), batch)
+    return (blk * SHEAR_BYTES_PER_PIXEL * pad * pad
+            + 2 * 4 * n_refs * pad * (pad // 2 + 1) * 2 * F32)
+
+
 def step_footprint(batch: int, n_refs: int, cfg, sampler: str = "kernel",
                    random_method: str = "",
                    streamed: bool = False) -> StepFootprint:
     """The device memory of one ``align_step`` (``align_step_shc`` /
     ``align_step_scf`` under ``random_method``) on ``batch`` particles
     against ``n_refs`` references; ``sampler`` is the search that runs
-    ("kernel", "plain" or "template", ``resolve_sampler``); ``streamed``
-    charges the second image buffer and the engine's accumulator."""
+    ("kernel", "plain", "template" or "matmul", ``resolve_sampler``);
+    ``streamed`` charges the second image buffer and the engine's
+    accumulator."""
     h = w = cfg.img_dim
     img = h * w * F32
     q = cfg.ring_num * cfg.ring_len
@@ -139,7 +176,10 @@ def step_footprint(batch: int, n_refs: int, cfg, sampler: str = "kernel",
     images = bufs * batch * img
     outputs = batch * PER_PARTICLE_BYTES + (bufs - 1) * batch * 5 * F32
     block = min(transform_block(h, w), batch)
-    transform = block * h * w * TRANSFORM_BYTES_PER_PIXEL
+    if sampler in ("template", "matmul"):
+        transform = shear_sum_bytes(batch, n_refs, h)
+    else:
+        transform = block * h * w * TRANSFORM_BYTES_PER_PIXEL
     class_sums = (2 + int(streamed)) * n_refs * 2 * img
     # refs, their polar samples and spectra, and the cached tables
     tables = (n_refs * (img + q * F32 + 2 * cfg.ring_num * 129 * 8)
@@ -148,6 +188,11 @@ def step_footprint(batch: int, n_refs: int, cfg, sampler: str = "kernel",
     if sampler == "template":
         tables += _splat_spectra_bytes(cfg)
         search = template_search_bytes(batch, n_refs, cfg)
+    elif sampler == "matmul":
+        # the constant tents: (n_dy, Q, H) and (n_dx, Q, W)
+        tables += ((len(cfg.shift_y_vals) + len(cfg.shift_x_vals)) * q * h
+                   * F32)
+        search = matmul_search_bytes(batch, n_refs, cfg)
     elif sampler == "plain" or random_method == "SHC":
         if cfg.ring_scheme == "eman2":
             samples = min(PLAIN_SAMPLE_BUDGET, batch * q)

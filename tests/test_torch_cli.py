@@ -10,8 +10,10 @@ The port's CLI runs with ``main(argv, device="cpu")`` and
 ``--CTF`` the images agree within 1e-3 of their largest value (the two
 packages' f32 CTFs differ by 6e-5, tests/test_torch_ctf.py, and the
 Wiener division carries that into the averages).  ``--Fourvar`` is held
-from a one-iteration start against the JAX CLI with its variance op at
-``engine="exact"`` (tests/test_torch_fourvar.py says why).
+from a one-iteration start with both packages' variance op at
+``engine="exact"`` (tests/test_torch_fourvar.py says why).  Every
+``--sampler`` value of the JAX CLI is taken (``--sampler=matmul`` in
+tests/test_torch_matmul.py).
 """
 
 import json
@@ -180,8 +182,8 @@ def ctf_files(tmp_path_factory):
     return {"star": str(star), "txt": str(txt)}
 
 
-# the flags this port took last, each against the JAX CLI's files (the
-# eight cases that left ``UNPORTED`` below, case for case, and more)
+# the flags this port took in its fifth slice, each against the JAX CLI's
+# files
 NEW_FLAGS = [
     ("mref", "mrcs", ["--maxit=2", "--CTF", "--ctf_file=star", "--snr=2"]),
     ("mref", "hdf", ["--maxit=2", "--CTF", "--ctf_file=txt", "--apix=1.7",
@@ -215,8 +217,9 @@ def test_cli_new_flags_match_jax(tmp_path, stacks, ctf_files, cli, fmt,
 
 def test_cli_fourvar_matches_jax(tmp_path, stacks, monkeypatch):
     """``--Fourvar`` resumed after one plain iteration, so that the
-    variance is taken at real params; the JAX CLI with its variance op at
-    ``engine="exact"`` (the port's one engine).  Images within 1e-3 of
+    variance is taken at real params; both CLIs with their variance op at
+    ``engine="exact"`` (the bilinear transform; the shear engine is held
+    in tests/test_torch_fourvar.py).  Images within 1e-3 of
     their largest value (measured 1.003e-4 on ``aqfinal.hdf``): the
     division by the variance amplifies rounding where it is small; the
     params found against that average within 0.05 degree and px
@@ -228,6 +231,13 @@ def test_cli_fourvar_matches_jax(tmp_path, stacks, monkeypatch):
         jfourvar, "fourier_variance",
         lambda data, params, mask=None: shear(data, params, mask=mask,
                                               engine="exact"))
+    from cryo_ralib_tpu_torch.models import reffree as port_reffree
+
+    port_shear = port_reffree.fourier_variance
+    monkeypatch.setattr(
+        port_reffree, "fourier_variance",
+        lambda data, params, mask=None, mesh=None: port_shear(
+            data, params, mask=mask, mesh=mesh, engine="exact"))
     dirs = {w: str(tmp_path / w) for w in ("port", "jax")}
     for which, d in dirs.items():
         argv = (_positionals(stacks, "reffree", "hdf", d) + COMMON
@@ -362,28 +372,6 @@ def test_cli_existing_outdir_exits(tmp_path, stacks, cli):
     with pytest.raises(SystemExit) as exc:
         _run(cli, "port", _positionals(stacks, cli, "hdf", str(d)) + COMMON)
     assert exc.value.code == 1
-
-
-UNPORTED = [
-    ("mref", ["--sampler=matmul"], "--sampler=matmul"),
-    ("reffree", ["--sampler=matmul"], "--sampler=matmul"),
-]
-
-
-@pytest.mark.parametrize("cli,argv,flag", UNPORTED,
-                         ids=[f"{c}{a[0]}" for c, a, _ in UNPORTED])
-def test_cli_unported_flags_exit_2(tmp_path, capsys, cli, argv, flag):
-    """What is not ported yet exits 2 with a message naming it, before
-    any stack is read (the stack paths here do not exist) and before the
-    output directory is made."""
-    out = str(tmp_path / "out")
-    pos = (["missing.hdf", "missing_refs.hdf", out] if cli == "mref"
-           else ["missing.hdf", out])
-    with pytest.raises(SystemExit) as exc:
-        _run(cli, "port", pos + argv)
-    assert exc.value.code == 2
-    assert flag in capsys.readouterr().err
-    assert not os.path.exists(out)
 
 
 DEVICES = [

@@ -133,15 +133,16 @@ def test_one_loop_iteration_is_one_align_step(mref):
         p, refs = make_mref_device_loop(cfg, 1, k, np.zeros(1), device="cpu",
                                         sampler="plain")(
             x, refs0, AlignParams.zeros(N), gidx, valid)
-        want = (sums[:, 0] + sums[:, 1]) / out.counts.clamp(min=1)[:, None,
-                                                                   None]
+        # the class sums are f64 (ops/classavg.py), the references f32
+        want = ((sums[:, 0] + sums[:, 1])
+                / out.counts.clamp(min=1)[:, None, None]).float()
         keep = out.counts < 4
         want[keep] = refs0[keep]
     else:
         p, refs = make_device_loop(cfg, 1, np.zeros(1), device="cpu",
                                    sampler="plain")(
             x, refs0[0], AlignParams.zeros(N), gidx, valid)
-        want = (sums[0, 0] + sums[0, 1]) / N
+        want = ((sums[0, 0] + sums[0, 1]) / N).float()
     # the loop's all-pass filter is an rfft2/irfft2 round trip of the
     # references: rounding-level changes, hence the tolerances
     for f in ("ref_id", "mirror", "shift_x", "shift_y"):

@@ -1,13 +1,14 @@
 """The 2-D Fourier variance in the port (``ops/fourvar.py``,
 ``ali2d_base(Fourvar=True)``) against the JAX package on the CPU.
 
-The port has one alignment engine here, the bilinear ``transform_batch``
-(JAX's ``engine="exact"``); ``ali2d_base_tpu`` calls its FFT-shear
-engine by default, another interpolation.  So:
+Both engines of the op: the bilinear ``transform_batch``
+(``engine="exact"``) and the FFT shear with bf16 DFTs (``engine="shear"``,
+``fast=True``, the default of both packages, tests/test_torch_shear.py
+holds it op by op).  So:
 
-* the op is held against ``fourier_variance(engine="exact")``: moments,
-  variance and radial profile within 1e-4 of their largest value (f32
-  sums of |F|^2 over the stack, torch.fft against matmul DFTs);
+* the op at ``engine="exact"`` is held against JAX's: moments, variance
+  and radial profile within 1e-4 of their largest value (f32 sums of
+  |F|^2 over the stack, torch.fft against matmul DFTs);
 * the two ``ali2d_base`` are compared from a well-conditioned start.  In
   a run from zero params the first variance has a ~0 DC bin (the masked mean is
   subtracted, so every particle's masked DC is a rounding residue), the
@@ -15,19 +16,26 @@ engine by default, another interpolation.  So:
   either package) and nothing after it can be compared.  So each package
   first runs one plain iteration, then resumes with ``Fourvar=True``: the
   variances are then taken at real params;
-* tightly against ``ali2d_base_tpu`` with its variance op at
-  ``engine="exact"`` (the test patches the name it looks up; the
-  package is not changed): the first variance and criterion within 1e-4
-  (measured 4e-5, 5e-5); over the run, mirrors equal, angles within 0.5
-  degree and shifts within 0.05 px (measured 0.13, 0.009), criteria
-  within 3% and variances within 2e-3 of their largest value (measured
-  1.0%, 6.7e-4): the division by the variance amplifies rounding where
-  the variance is small;
-* loosely against ``ali2d_base_tpu`` as it ships (FFT-shear variance in
-  bf16): the same files; the first variance within 10% of its largest
-  value (measured 5.9%); the criteria within a factor of 4 (measured
-  2.5): the shear engine's variance differs most where it is smallest,
-  which is where the division weighs most.
+* tightly with both packages' variance op at ``engine="exact"`` (the
+  test patches the names the drivers look up; the packages are not
+  changed): the first variance and criterion within 1e-4 (measured
+  4e-5, 5e-5); over the run, mirrors equal, angles within 0.5 degree and
+  shifts within 0.05 px (measured 0.13, 0.009), criteria within 3% and
+  variances within 2e-3 of their largest value (measured 1.0%, 6.7e-4):
+  the division by the variance amplifies rounding where the variance is
+  small;
+* against ``ali2d_base_tpu`` as it ships, both on the FFT shear with
+  bf16 DFTs: the same files; the first variance and radial profile
+  within 2% of their largest value (measured 1.1e-3 and 9.1e-4; before
+  the port had the shear, 10% with 5.9% measured); the criteria within
+  a ratio of 0.6-1.67 (measured 1.49, 0.95, 1.01; before, a factor of 4
+  with 2.5 measured).  The criterion divides by the smallest variance
+  bins, ~1e-3 of the largest, which is the bf16 DFTs' rounding level:
+  the two plain searches leave one angle 7.8e-4 degree apart, and that
+  re-rounds the bins enough to move the smallest by 18% and the first
+  criterion by 1.49.  At the same params and average the port's
+  variance gives JAX's criterion within 0.8-1.25
+  (tests/test_torch_shear.py).
 """
 
 import os
@@ -47,6 +55,7 @@ from cryo_ralib_tpu.utils.log import RunLogger as JaxLogger
 from cryo_ralib_tpu.utils.synthetic import asymmetric_templates
 from cryo_ralib_tpu_torch.io.eman_hdf import read_own_hdf
 from cryo_ralib_tpu_torch.models import ali2d_base
+from cryo_ralib_tpu_torch.models import reffree as port_reffree
 from cryo_ralib_tpu_torch.ops import fourvar
 from cryo_ralib_tpu_torch.ops.masks import model_circle
 from cryo_ralib_tpu_torch.params import params_from_numpy
@@ -92,7 +101,8 @@ def test_fourier_moments_match_jax_exact(masked, with_valid):
         valid=None if valid is None else jnp.asarray(valid), engine="exact")
     got = fourvar.fourier_moments(
         torch.as_tensor(imgs), tp, mask=mask,
-        valid=None if valid is None else torch.as_tensor(valid))
+        valid=None if valid is None else torch.as_tensor(valid),
+        engine="exact")
     for g, w in zip(got[:3], want[:3]):
         assert g.shape == (NX, NX // 2 + 1)
         _close(g, w)
@@ -110,7 +120,7 @@ def test_fourier_variance_matches_jax_exact(batch):
         batch=batch, engine="exact")
     var, rvar = fourvar.fourier_variance(torch.as_tensor(imgs), tp,
                                          mask=torch.as_tensor(mask),
-                                         batch=batch)
+                                         batch=batch, engine="exact")
     assert var.dtype == rvar.dtype == np.float32
     assert var.shape == (NX, NX // 2 + 1) and rvar.shape == (NX // 2 + 1,)
     assert (var >= 0).all()
@@ -170,6 +180,11 @@ def test_reffree_fourvar_matches_jax_exact_engine(tmp_path, monkeypatch):
         jfourvar, "fourier_variance",
         lambda data, params, mask=None: shear(data, params, mask=mask,
                                               engine="exact"))
+    port_shear = port_reffree.fourier_variance
+    monkeypatch.setattr(
+        port_reffree, "fourier_variance",
+        lambda data, params, mask=None, mesh=None: port_shear(
+            data, params, mask=mask, mesh=mesh, engine="exact"))
     got, want, d_port, d_jax = _run_both(tmp_path)
     assert set(os.listdir(d_port)) == set(os.listdir(d_jax))
     assert got.iterations == want.iterations == 4
@@ -202,10 +217,10 @@ def test_reffree_fourvar_against_jax_shear_engine(tmp_path):
     varf = _varf(os.path.join(d_port, "varf.hdf"))
     varf_j = _varf(os.path.join(d_jax, "varf.hdf"))
     assert sorted(varf) == sorted(varf_j) == [1, 2, 3]
-    assert _rel(varf[1], varf_j[1]) < 0.10
-    _close(got.radial_variances[0], want.radial_variances[0], 0.10)
+    assert _rel(varf[1], varf_j[1]) < 0.02
+    _close(got.radial_variances[0], want.radial_variances[0], 0.02)
     ratio = np.asarray(got.criteria) / np.asarray(want.criteria)
-    assert (ratio > 0.25).all() and (ratio < 4.0).all(), ratio
+    assert (ratio > 0.6).all() and (ratio < 1.67).all(), ratio
 
 
 def test_reffree_fourvar_from_scratch_writes_one_image_per_iteration(

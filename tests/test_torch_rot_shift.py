@@ -118,15 +118,21 @@ def test_rot_shift2d_by_blocks_equals_one_call(monkeypatch):
 
 
 def test_rot_shift2d_identity_and_engines():
-    """Zero angle and shift return the image; "shear" (the JAX package's
-    TPU engine) raises naming it."""
+    """Zero angle and shift return the image: exactly under "quadri",
+    within 1e-5 under "shear" (an f32 FFT round trip; the engine is held
+    to JAX's in tests/test_torch_shear.py); "shear" with a scale and an
+    unknown engine raise naming it."""
     img = torch.as_tensor(np.random.default_rng(1).standard_normal(
         (2, 16, 16)).astype(np.float32))
     zero = torch.zeros(2)
     assert torch.equal(rot_shift2d(img, zero, zero, zero, engine="quadri"),
                        img)
-    with pytest.raises(ValueError, match="shear"):
-        rot_shift2d(img, zero, zero, zero, engine="shear")
+    torch.testing.assert_close(
+        rot_shift2d(img, zero, zero, zero, engine="shear"), img, rtol=0,
+        atol=1e-5)
+    with pytest.raises(ValueError, match="scale"):
+        rot_shift2d(img, zero, zero, zero, scale=torch.ones(2),
+                    engine="shear")
     with pytest.raises(ValueError, match="engine"):
         rot_shift2d(img, zero, zero, zero, engine="fft")
 

@@ -286,13 +286,21 @@ def test_reffree_streamed_equals_resident_and_jax(ctf):
 
 def test_reffree_fourvar_streamed(tmp_path, monkeypatch):
     """``Fourvar`` from a one-iteration start (tests/test_torch_fourvar.py):
-    streamed equals resident, and the JAX driver streamed with its exact
-    variance engine."""
+    streamed equals resident, and the JAX driver streamed, both packages
+    with their exact variance engine (the shear engine is held in
+    tests/test_torch_fourvar.py)."""
     exact = jfourvar.fourier_variance
     monkeypatch.setattr(
         jfourvar, "fourier_variance",
         lambda data, params, mask=None: exact(data, params, mask=mask,
                                               engine="exact"))
+    from cryo_ralib_tpu_torch.models import reffree as port_reffree
+
+    port_shear = port_reffree.fourier_variance
+    monkeypatch.setattr(
+        port_reffree, "fourier_variance",
+        lambda data, params, mask=None, mesh=None: port_shear(
+            data, params, mask=mask, mesh=mesh, engine="exact"))
     imgs = _reffree_stack()
     kw = dict(ou=16, xr=1.0, ts=1.0)
     res = {}

@@ -3,23 +3,20 @@
 command line with ``sampler="template"`` (tests/torch_template_common.py
 holds the shared helpers).
 
-One ``align_step`` from the same references: params within 1e-3.  The
-drivers' first iteration (the same references in both packages): every
-assignment and mirror equal, header shifts within 1e-3, angles within
-1e-2 degree; it is read from the same run as the last, after the
-engine's first ``iterate``, and under ``--dst`` it is the discrete
-iteration.  Over 2-3 iterations (11 with ``--dst``) and in the device
-loop: at least 99% of assignments and mirrors equal and the median angle
-difference under 0.1 degree (the JAX package's own bar between two of
-its engines, tests/test_template.py:118).  The JAX engine sums its
-classes by an FFT shear (``class_sum_transform_mm``) and the port by the
-bilinear transform, so from the second iteration on the two search
-against references that differ by that interpolation: measured, angles
-0.03-0.16 degree apart after 2-3 iterations, and one SHC pick of 16
-(the first candidate above a threshold) on another candidate; after
-``--dst``'s 11 the angles are held to the port's plain driver, which
-sums its classes as the template path does.  The port's class sums are
-held to its own plain step under the same params.
+Both packages search by the template engine and sum their classes by the
+FFT shear with bf16 DFTs (``class_sum_transform_mm``), so from the
+second iteration on they search against the same references up to bf16
+rounding.  One ``align_step`` from the same references: params within
+1e-3, class sums within 2e-3 of their largest value.  The drivers' first
+iteration: every assignment and mirror equal, header shifts within 1e-3,
+angles within 1e-2 degree (bf16 rows move the refined angle of a flat
+peak by more than 1e-3); it is read after the engine's first
+``iterate``, and under ``--dst`` it is the discrete iteration.  Over 2-3
+iterations (11 with ``--dst``) and in the device loop: every assignment
+and mirror equal and the median angle difference within 0.05 degree of
+JAX's (each test states its measured values; before the class sums were
+the FFT shear's, 99% of assignments and a median of 0.1 degree was the
+rule, and ``--dst``'s 11 iterations drifted 0.17 degree apart).
 """
 
 import os
@@ -43,7 +40,6 @@ from cryo_ralib_tpu_torch.models.engine import AlignmentEngine
 from cryo_ralib_tpu_torch.ops import search
 from cryo_ralib_tpu_torch.ops import template_search as ts
 from cryo_ralib_tpu_torch.parallel import batching
-from cryo_ralib_tpu_torch.params import params_from_numpy
 from cryo_ralib_tpu_torch.utils.log import RunLogger
 from tests.torch_template_common import (E2E, K, NX, _assert_drivers_agree,
                                          _assert_first_iteration, _cfgs,
@@ -55,7 +51,12 @@ from tests.torch_template_common import (E2E, K, NX, _assert_drivers_agree,
                                         (dict(), 15.0)])
 def test_align_step_template_matches_jax(geom, delta):
     """One step from the same references, ``--dst``'s angle mask
-    included."""
+    included: params as the module docstring says, and the class sums,
+    both by the FFT shear with bf16 DFTs, within 2e-3 of their largest
+    value of JAX's (measured 6.0e-4-7.3e-4: the two round the same f32
+    values to bf16, and a value one f32 ulp apart, as XLA's fused
+    complex products leave it, rounds to the next bf16 step; JAX's own
+    compiled and eager warps differ as much)."""
     tmpl, imgs = _stack_k(3, 16, 41)
     base = dict(img_dim=48, ring_num=16, shift_rng_x=1.0, shift_rng_y=1.0)
     jcfg, cfg = JaxConfig(**base, **geom), AlignConfig(**base, **geom)
@@ -76,13 +77,9 @@ def test_align_step_template_matches_jax(geom, delta):
                                       np.asarray(getattr(want.params, f)), f)
     d = np.abs(got.params.angle.numpy() - np.asarray(want.params.angle))
     assert np.minimum(d, 360.0 - d).max() < 1e-3
-    # the class sums: the port's own bilinear step under JAX's params
-    plain = steps._finish_step(
-        torch.as_tensor(imgs), params_from_numpy(want.params.to_numpy()),
-        got.peak, torch.as_tensor(gidx), None, 3)
-    s = plain.class_sums.numpy()
+    s = np.asarray(want.class_sums)
     np.testing.assert_allclose(got.class_sums.numpy(), s, rtol=0,
-                               atol=1e-4 * np.abs(s).max())
+                               atol=2e-3 * np.abs(s).max())
     np.testing.assert_array_equal(got.counts.numpy(), np.asarray(want.counts))
 
 
@@ -100,6 +97,7 @@ def test_mref_template_matches_jax(case, monkeypatch):
     got = mref_ali2d(imgs, tmpl.copy(), device="cpu", sampler="template",
                      log=RunLogger(None, quiet=True), **kw)
     _assert_first_iteration(first_got[0], first_want[0])
+    # measured medians: standard 0.00026, eman2 0.00043 degree
     _assert_drivers_agree(got, want)
     np.testing.assert_array_equal(got.class_counts, want.class_counts)
 
@@ -114,12 +112,11 @@ REFFREE = {
 
 @pytest.mark.parametrize("case", REFFREE)
 def test_reffree_template_matches_jax(case, monkeypatch):
-    """The first iteration, then the case's iterations.  ``--dst``'s
-    discrete iteration is the first of 11 and is held to JAX's; over the
-    11 the two packages' averages drift apart by their interpolation
-    (median 0.17 degree measured), so the last angles are held to the
-    port's plain driver, whose class sums are the template path's
-    (median 0.04 degree measured), and the last mirrors to JAX's."""
+    """The first iteration, then the case's iterations, held to
+    ``ali2d_base_tpu(sampler="template")``: every mirror equal and the
+    median angle within 0.05 degree (measured: standard 0.0046, SHC
+    0.026, eman2 0.0023, and over ``--dst``'s 11 iterations 0.012,
+    whose discrete iteration is the first)."""
     _, imgs = _stack_k(1, 16, 3)
     kw = dict(ou=16, xr=1.0, ts=1.0, **REFFREE[case])
     first_want, first_got = _spies(monkeypatch)
@@ -129,11 +126,7 @@ def test_reffree_template_matches_jax(case, monkeypatch):
                      log=RunLogger(None, quiet=True), **kw)
     assert got.iterations == want.iterations
     _assert_first_iteration(first_got[0], first_want[0])
-    _assert_drivers_agree(got, want, angles=case != "dst")
-    if case == "dst":
-        plain = ali2d_base(imgs, device="cpu", sampler="plain",
-                           log=RunLogger(None, quiet=True), **kw)
-        _assert_drivers_agree(got, plain)
+    _assert_drivers_agree(got, want)
 
 
 def test_mref_device_loop_template_matches_jax():
@@ -154,9 +147,10 @@ def test_mref_device_loop_template_matches_jax():
     assert bool(torch.isfinite(refs).all())
     same = ((got_p.ref_id.numpy() == np.asarray(want_p.ref_id))
             & (got_p.mirror.numpy() == np.asarray(want_p.mirror)))
-    assert same.mean() >= 0.99
-    d = np.abs(got_p.angle.numpy() - np.asarray(want_p.angle))[same] % 360
-    assert np.median(np.minimum(d, 360.0 - d)) < 0.1
+    assert same.all(), np.nonzero(~same)
+    d = np.abs(got_p.angle.numpy() - np.asarray(want_p.angle)) % 360
+    # measured median 0.00024 degree (before: 99% and 0.1 degree)
+    assert np.median(np.minimum(d, 360.0 - d)) < 0.05
 
 
 def test_template_sampler_rules_and_engine():

@@ -195,12 +195,12 @@ def _assert_first_iteration(got, want):
     assert d.max() < 1e-2 and ds.max() < 1e-3, (d.max(), ds.max())
 
 
-def _assert_drivers_agree(got, want, angles=True):
-    """Several iterations: at least 99% of assignments and mirrors equal,
-    and where so (with ``angles``) the median angle within 0.1 degree
-    (the module docstring: the references differ from the second
-    iteration on, and an SHC pick, the first candidate above a
-    threshold, can then move a particle to another candidate)."""
+def _assert_drivers_agree(got, want, median: float = 0.05):
+    """Several iterations, both packages summing their classes by the FFT
+    shear: every assignment and mirror equal, and the median angle
+    difference within ``median`` degree (the bf16 rows and class sums
+    move a refined angle a little in either package; measured medians
+    in each test's docstring)."""
     same, d, _ = _driver_diffs(got, want)
-    assert same.mean() >= 0.99, np.nonzero(~same)
-    assert not angles or np.median(d) < 0.1, d
+    assert same.all(), np.nonzero(~same)
+    assert np.median(d) < median, (np.median(d), d)
