@@ -209,7 +209,7 @@ def _irfft(x, n: int, fast: bool):
     A phase ramp leaves the Nyquist bin complex; the JAX package's matmul
     inverse drops its imaginary part, and so does the CPU's FFT, but
     cuFFT's C2R transform reads it (1.3% of the largest class sum at 90
-    px), so it is zeroed first."""
+    px on an H100), so it is zeroed first."""
     if not fast:
         im = x.imag.clone()
         im[..., 0] = 0.0

@@ -43,6 +43,7 @@ from cryo_ralib_tpu_torch.ops import classavg, fourvar, transform
 from cryo_ralib_tpu_torch.ops.masks import model_circle
 from cryo_ralib_tpu_torch.params import params_from_numpy
 from cryo_ralib_tpu_torch.utils.synthetic import scattered_stack
+from tests.torch_template_common import one_torch_thread
 
 N, K = 24, 3
 EDGES = [0.0, 45.0, 135.0, 225.0, 315.0, -45.0, -135.0, 90.0, 180.0, 270.0,
@@ -134,9 +135,10 @@ def test_f32_fft_is_further_from_jax_fast():
 
 def test_transform_batch_mm_blocks_equal_one_call(monkeypatch):
     """A stack over ``shear_block`` particles goes by blocks, with one
-    call's result to f32 rounding."""
-    imgs = torch.as_tensor(_stack(48))
+    call's result to f32 rounding (12 particles, blocks of 4)."""
+    imgs = torch.as_tensor(_stack(48))[:12]
     _, tp = _params()
+    tp = type(tp)(*[f[:12] for f in tp])
     whole = transform.transform_batch_mm(imgs, tp, fast=True)
     monkeypatch.setattr(transform, "shear_block", lambda h: 4)
     blocked = transform.transform_batch_mm(imgs, tp, fast=True)
@@ -196,10 +198,11 @@ def test_class_sum_transform_mm_is_the_warp_summed(monkeypatch):
     """The sums on the spectra equal ``class_sum_oe`` of the warped
     stack (the final inverse DFT and flip hoisted past the sum), and a
     stack over ``shear_block`` particles sums by blocks to the same,
-    within 1e-5 of the largest value (f32 sums in another order)."""
-    imgs = torch.as_tensor(_stack(48))
+    within 1e-5 of the largest value (12 particles, blocks of 4)."""
+    imgs = torch.as_tensor(_stack(48))[:12]
     _, tp = _params()
-    gidx = torch.arange(N) + 3
+    tp = type(tp)(*[f[:12] for f in tp])
+    gidx = torch.arange(12) + 3
     got, counts = classavg.class_sum_transform_mm(imgs, tp, K,
                                                   global_index=gidx,
                                                   fast=False)

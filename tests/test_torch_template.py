@@ -35,8 +35,8 @@ from cryo_ralib_tpu_torch.ops import polar_mm, search
 from cryo_ralib_tpu_torch.ops import template_search as ts
 from tests.torch_template_common import (K, N, NX, WINNERS, _angle_slack,
                                          _assert_winners, _bf16_ulp, _cfgs,
-                                         _jit, _params, _spectra, refs,
-                                         stack)
+                                         _jit, _params, _spectra,
+                                         one_torch_thread, refs, stack)
 
 # the JAX ops package re-exports the function under the module's name
 jts = importlib.import_module("cryo_ralib_tpu.ops.template_search")

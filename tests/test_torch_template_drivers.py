@@ -43,7 +43,8 @@ from cryo_ralib_tpu_torch.parallel import batching
 from cryo_ralib_tpu_torch.utils.log import RunLogger
 from tests.torch_template_common import (E2E, K, NX, _assert_drivers_agree,
                                          _assert_first_iteration, _cfgs,
-                                         _jit, _params, _spies, _stack_k)
+                                         _jit, _params, _spies, _stack_k,
+                                         one_torch_thread)
 
 
 @pytest.mark.parametrize("geom,delta", [(dict(), 0.0),

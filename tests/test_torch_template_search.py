@@ -16,7 +16,7 @@ from cryo_ralib_tpu_torch.ops import template_search as ts
 from tests.conftest import make_disc_stack
 from tests.torch_template_common import (N, NX, WINNERS, _assert_winners,
                                          _cfgs, _jit, _params, _spectra,
-                                         refs, stack)
+                                         one_torch_thread, refs, stack)
 
 # the JAX ops package re-exports the function under the module's name
 jts = importlib.import_module("cryo_ralib_tpu.ops.template_search")

@@ -32,6 +32,18 @@ from cryo_ralib_tpu_torch.params import params_from_numpy, params_table
 from tests.conftest import make_class_bases, make_disc_stack
 
 NX, K, N = 64, 3, 8
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test's PyTorch work on one intra-op thread: the suite runs in
+    six worker processes on a few cores, where a worker's idle OpenMP
+    threads, waiting by spinning, take cores from the others; these
+    tests' tensors are small enough that one thread loses nothing."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 WINNERS = ("best_mirror", "best_sidx", "best_ref", "best_aidx")
 
 
