@@ -182,8 +182,7 @@ def ctf_files(tmp_path_factory):
     return {"star": str(star), "txt": str(txt)}
 
 
-# the flags this port took in its fifth slice, each against the JAX CLI's
-# files
+# the mode, CTF and ring-scheme flags, each against the JAX CLI's files
 NEW_FLAGS = [
     ("mref", "mrcs", ["--maxit=2", "--CTF", "--ctf_file=star", "--snr=2"]),
     ("mref", "hdf", ["--maxit=2", "--CTF", "--ctf_file=txt", "--apix=1.7",
