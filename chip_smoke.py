@@ -208,7 +208,9 @@ Phases (any failure raises and the script exits non-zero):
         under the eman2 rings through sampler="matmul", 2 iterations
         each, beside phases 6, 7, 10b, 10c and 10d (purity >= 0.9);
      f. one matmul align_step's peak against the planner's model (not
-        below it, not over twice it).
+        below it, not over twice it);
+     g. reffree's iteration-0 even/odd sums in ms, equal to numpy's
+        (the JAX driver's) bit for bit.
 Every launch counter is set to 0 just before each main-path run (6, 6b,
 7, 8, 9, 10, 11, 12, 14, 15, and 13 in each rank) and read just after it.  The
 last lines are the slice's JSON line (loop rates, stage breakdown, CLI
@@ -2208,11 +2210,11 @@ def matmul_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1,
     that now run through the shear (``before``); 15d the matmul search at
     K=8, 1 and 64 with its two bounds, and the card's winners against the
     CPU's; 15e the drivers through sampler="matmul"; 15f a matmul step's
-    peak against the planner's model.  No path launches the search
-    kernel."""
+    peak against the planner's model; 15g reffree's iteration-0 sums
+    against numpy's, bit for bit.  No path launches the search kernel."""
     from cryo_ralib_tpu_torch.config import AlignConfig
     from cryo_ralib_tpu_torch.models.mref import mref_ali2d
-    from cryo_ralib_tpu_torch.models.reffree import ali2d_base
+    from cryo_ralib_tpu_torch.models.reffree import _even_odd_sums, ali2d_base
     from cryo_ralib_tpu_torch.models.steps import _finish_step, align_step
     from cryo_ralib_tpu_torch.ops import search as srch
     from cryo_ralib_tpu_torch.ops.classavg import class_sum_transform_mm
@@ -2424,6 +2426,18 @@ def matmul_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1,
         f"{model / 2**30:.3f} GiB (ratio {model / step_p:.3f})  [{card}]")
     check(step_p <= model <= 2 * step_p,
           f"15f: the model {model} against the peak {step_p}")
+
+    # ---- 15g. reffree's iteration-0 sums: added in stack order in f32,
+    # the card's equal numpy's (the JAX driver's) bit for bit
+    host = stack_a.cpu().numpy()
+    eo_ms = cuda_ms(lambda: _even_odd_sums(stack_a, dev), 3)
+    eo = _even_odd_sums(stack_a, dev)
+    eo_same = bool(np.array_equal(eo[0, 0], host[0::2].sum(0))
+                   and np.array_equal(eo[0, 1], host[1::2].sum(0)))
+    out["even_odd_sums"] = {"ms": eo_ms, "equal_numpy": eo_same}
+    log(f"15g reffree iteration-0 even/odd sums N={n} 90px: {eo_ms:.2f} ms "
+        f"(CUDA events, mean of 3), equal to numpy's: {eo_same}  [{card}]")
+    check(eo_same, "15g: iteration-0 sums against numpy's")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 15: {out['seconds']:.1f} s  [{card}]")
     return out

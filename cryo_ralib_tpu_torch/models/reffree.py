@@ -48,8 +48,8 @@ from ..ops.fsc import fsc_mask, write_fsc
 from ..ops.masks import infomask, model_circle
 from ..io.eman_hdf import write_image
 from ..io.star import write_text_row
-from ..parallel.mesh import (StackShard, all_reduce_sums, barrier,
-                             broadcast_refs, shard_range, shard_stack)
+from ..parallel.mesh import (StackShard, barrier, broadcast_refs,
+                             rank_scan, shard_range, shard_stack)
 from ..utils.log import RunLogger
 from ..utils.profiling import annotate
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -246,19 +246,8 @@ def ali2d_base(
         total_iter += 1
         # ---- the new average from the previous iteration's sums
         if sums is None:
-            # iteration 0: even/odd sums of the raw stack; where every
-            # rank holds the whole stack (an array, and no CTF, whose
-            # context keeps the rank's rows), each sums all of it, so
-            # that the ranks start from one process's average bit for
-            # bit (partial f32 sums, all-reduced, round otherwise, and
-            # the template engine's bf16 references turn last bits
-            # into angles)
-            if (mesh is not None and mesh.world_size > 1
-                    and not isinstance(images, StackShard)
-                    and ctf_ctx is None):
-                sums = _even_odd_sums(images, device, prep=prep)
-            else:
-                sums = _even_odd_sums(data, device, start, mesh)
+            # iteration 0: even/odd sums of the raw stack
+            sums = _even_odd_sums(data, device, start, mesh)
         ave1, ave2 = sums[0, 0], sums[0, 1]
         if ctf_ctx is not None:
             tavg = ctf_ctx.restore((ave1 + ave2)[None])[0]
@@ -375,23 +364,38 @@ def _share(tavg, a1: float, mesh):
     return buf[:-1].reshape(tavg.shape).astype(np.float32), float(buf[-1])
 
 
-def _even_odd_sums(data, device, start: int = 0, mesh=None,
-                   prep=None) -> np.ndarray:
+def _ordered_sum(x):
+    """``x[0] + x[1] + ...`` over the first axis in f32, added in order,
+    as numpy adds them: numpy's own reduction on the host; on a CUDA
+    device the last row of ``cumsum``, whose scan over an outer
+    dimension adds in order in f32 (the CPU's ``cumsum`` adds in f64)."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(x.numpy().sum(0))
+    return x.cumsum(0)[-1]
+
+
+def _even_odd_sums(data, device, start: int = 0, mesh=None) -> np.ndarray:
     """(1, 2, H, W) float32 sums of the even- and odd-indexed particles
     of ``data`` (on the device or the host), by blocks of ``PREP_BLOCK``
-    on ``device``, as numpy; ``prep(x, start)``, where given,
-    preprocesses each block first.  ``data`` holds the particles
-    ``start ..``, so the parity is the global index's; under a ``mesh``
-    the sums are all-reduced over the ranks."""
+    on ``device``, as numpy.  ``data`` holds the particles ``start ..``,
+    so the parity is the global index's.  The particles are added in
+    stack order, in f32, as the JAX package's numpy sums add them
+    (``_ordered_sum``), and under a ``mesh`` the running sums pass from
+    rank to rank (``rank_scan``): every split of the stack over blocks
+    and ranks gives one process's sums bit for bit.  (Sums in another order, or in
+    f64, differ in their last bits, and the template engine's bf16
+    references turn such bits into angles.)"""
     n, h, w = data.shape
-    acc = torch.zeros((2, h, w), dtype=torch.float32, device=device)
-    even = start % 2   # the slot of local rows 0, 2, 4, ...
-    for s in range(0, n, PREP_BLOCK):
-        x = torch.as_tensor(data[s:s + PREP_BLOCK], dtype=torch.float32,
-                            device=device)
-        if prep is not None:
-            x = prep(x, start + s)
-        acc[even] += x[0::2].sum(0)
-        acc[1 - even] += x[1::2].sum(0)
-    all_reduce_sums(mesh, acc)
+
+    def add(acc):
+        for s in range(0, n, PREP_BLOCK):
+            x = torch.as_tensor(data[s:s + PREP_BLOCK], dtype=torch.float32,
+                                device=device)
+            for k, rows in (((start + s) % 2, x[0::2]),
+                            ((start + s + 1) % 2, x[1::2])):
+                acc[k] = _ordered_sum(torch.cat([acc[k][None], rows]))
+        return acc
+
+    acc = rank_scan(mesh, add, torch.zeros((2, h, w), dtype=torch.float32,
+                                           device=device))
     return acc[None].cpu().numpy()

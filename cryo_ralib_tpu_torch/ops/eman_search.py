@@ -34,7 +34,8 @@ from ..config import AlignConfig
 from ..params import AlignParams
 from .ccf import ring_spectra
 from .polar import polar_resample
-from .polar_mm import polar_group_mm, tent_rows, translate_bilinear_mm
+from .polar_mm import (build_polar_tables, polar_group_mm,
+                       translate_bilinear_mm)
 from .search import (PLAIN_SAMPLE_BUDGET, SearchResult, _update_best,
                      by_blocks, empty_result, mm_block)
 
@@ -100,17 +101,11 @@ def eman_mm_tables(cfg: AlignConfig, device: torch.device):
     """The matmul sampler's constant tents per ring group, on ``device``
     once per (cfg, device): ((wy (n_dy, Q_g, H), wx (n_dx, Q_g, W)), ...)
     in ``eman_groups`` order (the JAX package's ``_group_tables``)."""
-    h = w = cfg.img_dim
     out = []
     for _ln, _idx, coords in eman_groups(cfg):
-        py = coords[..., 1].reshape(-1)
-        px = coords[..., 0].reshape(-1)
-        wy = np.stack([tent_rows(h // 2 + py + dy, h)
-                       for dy in cfg.shift_y_vals])
-        wx = np.stack([tent_rows(w // 2 + px + dx, w)
-                       for dx in cfg.shift_x_vals])
-        out.append((torch.as_tensor(wy, device=device),
-                    torch.as_tensor(wx, device=device)))
+        t = build_polar_tables(cfg, coords=coords)
+        out.append((torch.as_tensor(t.wy, device=device),
+                    torch.as_tensor(t.wx, device=device)))
     return tuple(out)
 
 

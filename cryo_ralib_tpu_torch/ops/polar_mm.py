@@ -30,9 +30,14 @@ is exact in f32 (and in TF32), so these are the JAX package's bf16 x bf16
   out_dtype=torch.float32)`` where the installed PyTorch has it
   (``product_route`` "bf16"), else f32 operands holding bf16 values
   under TF32 ("tf32");
-* a batched product, and every product on the CPU ("f32"), takes f32
-  operands holding bf16 values (``_bf16_values``), under TF32 on a CUDA
-  device.
+* a batched product takes f32 operands holding bf16 values
+  (``_bf16_values``), under TF32 on a CUDA device;
+* a 2-D product on the CPU ("f32") sums the exact products of the bf16
+  values in f64 and rounds once to f32 (``mm_bf16``): a BLAS's f32 sum
+  of a row follows the product's shape, so a particle's result would
+  otherwise depend on its batch (a block, a rank).  The card sums in f32
+  in cuBLAS's order, so the CPU's results are the exact sums rounded,
+  not the card's last bits (PERF.md, open questions).
 
 ``fast=False`` is the JAX package's ``Precision.HIGHEST``: f32 operands
 with TF32 off (``_product_switches("f32")``).  For integer shifts the
@@ -106,11 +111,16 @@ def _bf16_values(x):
 
 def mm_bf16(a, b, route: str):
     """(M, K) x (K, N) -> (M, N) f32: both operands rounded to bf16, the
-    sums f32, on ``route`` (``product_route``)."""
+    sums f32, on ``route`` (``product_route``); on "f32" (the CPU) the
+    exact products summed in f64 and rounded once (the module
+    docstring)."""
     with _product_switches(route):
         if route == "bf16":
             return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
                             out_dtype=torch.float32)
+        if route == "f32":
+            return torch.mm(_bf16_values(a).double(),
+                            _bf16_values(b).double()).float()
         return torch.mm(_bf16_values(a), _bf16_values(b))
 
 
@@ -164,16 +174,18 @@ class PolarTables:
         return self.wx.shape[0]
 
 
-def build_polar_tables(cfg, x_window: tuple[int, int] | None = None
-                       ) -> PolarTables:
+def build_polar_tables(cfg, x_window: tuple[int, int] | None = None,
+                       coords=None) -> PolarTables:
     """``PolarTables`` of an AlignConfig (numpy, host side).
 
     ``x_window=(x0, width)`` builds the x tents relative to the column
     window [x0, x0 + width) of the image; the caller guarantees that
     every sample stays inside the window, where windowed tents equal the
-    full-width ones.
+    full-width ones.  ``coords`` (R, L, 2) replaces ``cfg.polar_coords``
+    (the eman2 ring groups, ``ops/eman_search.py::eman_mm_tables``).
     """
-    coords = cfg.polar_coords  # (R, L, 2), [..., 0] = x offset, [..., 1] = y
+    if coords is None:
+        coords = cfg.polar_coords  # (R, L, 2), [..., 0] = x offset, [..., 1] = y
     h = w = cfg.img_dim
     cx = w // 2
     cy = h // 2
@@ -186,8 +198,8 @@ def build_polar_tables(cfg, x_window: tuple[int, int] | None = None
                        for dx in cfg.shift_x_vals])
     else:
         wx = np.stack([tent_rows(cx + px + dx, w) for dx in cfg.shift_x_vals])
-    return PolarTables(wy=wy, wx=wx, ring_num=cfg.ring_num,
-                       ring_len=cfg.ring_len)
+    return PolarTables(wy=wy, wx=wx, ring_num=coords.shape[0],
+                       ring_len=coords.shape[1])
 
 
 @lru_cache(maxsize=16)

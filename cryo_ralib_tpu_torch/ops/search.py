@@ -357,21 +357,41 @@ def by_blocks(search, block: int, images, params: AlignParams, *extra):
             torch.cat(found))
 
 
+def _mm_rows(images, ref_fw, params: AlignParams, cfg: AlignConfig,
+             per_particle_ref: bool, fast: bool):
+    """The matmul sampler's ccf rows, one dy group at a time: the stack
+    bilinear-translated by each particle's accumulated shift
+    (``translate_bilinear_mm``, f32, exact for integer shifts), every dy
+    of the grid sampling all its dx candidates with constant tent
+    products (``polar_group_mm``, bf16 operands and f32 sums with
+    ``fast``).  Yields ``(rows, sidx)``: the group's ccf rows and their
+    x-major global shift indices ``arange(n_dx) * n_dy + yi``, the order
+    of ``cfg.shifts``."""
+    dev = images.device
+    wy, wx = polar_tables(cfg, dev)
+    n_dy, n_dx = wy.shape[0], wx.shape[0]
+    x_major = torch.arange(n_dx, device=dev) * n_dy
+    img_t = translate_bilinear_mm(images, params.shift_x, params.shift_y)
+    for yi in range(n_dy):
+        polar = polar_group_mm(img_t, wy[yi], wx, cfg.ring_num,
+                               cfg.ring_len, fast=fast)
+        orig_f, mirr_f = _ccf(ring_spectra(polar), ref_fw, params,
+                              per_particle_ref)
+        yield (ccf_rows(orig_f, mirr_f if cfg.mirror else None,
+                        cfg.ring_len), x_major + yi)
+
+
 def rotational_shift_search_mm(images, ref_fw, params: AlignParams,
                                cfg: AlignConfig, per_particle_ref: bool = False,
                                fast: bool = True,
                                angle_mask=None) -> SearchResult:
     """The search of ``rotational_shift_search`` through the matmul
-    sampler (``sampler="matmul"``): the stack is bilinear-translated by
-    each particle's accumulated shift (``translate_bilinear_mm``, f32,
-    exact for integer shifts), then every dy of the grid samples all its
-    dx candidates with constant tent products (``polar_group_mm``, bf16
-    operands and f32 sums with ``fast``), and the ring-DFT ccf rows fold
-    into the running best with their x-major global shift indices
-    ``arange(n_dx) * n_dy + yi``: the same priority order and first-seen
-    rule as the plain search.  A stack whose group would exceed
-    ``MM_SEARCH_BUDGET`` goes by blocks of particles (``mm_block``).
-    ``per_particle_ref`` and ``angle_mask`` as in the plain search."""
+    sampler (``sampler="matmul"``): the ccf rows of ``_mm_rows`` fold
+    into the running best with their x-major global shift indices, the
+    same priority order and first-seen rule as the plain search.  A
+    stack whose group would exceed ``MM_SEARCH_BUDGET`` goes by blocks
+    of particles (``mm_block``).  ``per_particle_ref`` and
+    ``angle_mask`` as in the plain search."""
     n = images.shape[0]
     n_refs = 1 if per_particle_ref else ref_fw.shape[0]
     block = mm_block(n, n_refs, cfg)
@@ -380,25 +400,16 @@ def rotational_shift_search_mm(images, ref_fw, params: AlignParams,
             lambda x, p: rotational_shift_search_mm(
                 x, ref_fw, p, cfg, per_particle_ref, fast, angle_mask),
             block, images, params)
-    dev = images.device
-    wy, wx = polar_tables(cfg, dev)
-    n_dy, n_dx = wy.shape[0], wx.shape[0]
-    x_major = torch.arange(n_dx, device=dev) * n_dy
     if angle_mask is not None:
         angle_mask = torch.as_tensor(angle_mask, dtype=torch.float32,
-                                     device=dev)
-    img_t = translate_bilinear_mm(images, params.shift_x, params.shift_y)
-    best = empty_result(n, cfg.ring_len, dev)
-    for yi in range(n_dy):
-        polar = polar_group_mm(img_t, wy[yi], wx, cfg.ring_num,
-                               cfg.ring_len, fast=fast)
-        orig_f, mirr_f = _ccf(ring_spectra(polar), ref_fw, params,
-                              per_particle_ref)
-        rows = ccf_rows(orig_f, mirr_f if cfg.mirror else None,
-                        cfg.ring_len)
+                                     device=images.device)
+    s_total = len(cfg.shifts)
+    best = empty_result(n, cfg.ring_len, images.device)
+    for rows, sidx in _mm_rows(images, ref_fw, params, cfg,
+                               per_particle_ref, fast):
         if angle_mask is not None:
             rows = rows + angle_mask
-        best = _update_best(best, rows, x_major + yi, n_dx * n_dy, n_refs)
+        best = _update_best(best, rows, sidx, s_total, n_refs)
     return best
 
 
@@ -419,21 +430,12 @@ def rotational_shift_search_shc_mm(images, ref_fw, params: AlignParams,
                 x, ref_fw, p, cfg, pm, per_particle_ref, fast),
             block, images, params, previousmax)
     dev = images.device
-    wy, wx = polar_tables(cfg, dev)
-    n_dy, n_dx = wy.shape[0], wx.shape[0]
-    x_major = torch.arange(n_dx, device=dev) * n_dy
-    img_t = translate_bilinear_mm(images, params.shift_x, params.shift_y)
+    s_total = len(cfg.shifts)
     carry = (empty_result(n, cfg.ring_len, dev),
              torch.full((n,), _SHC_BIG, dtype=torch.int64, device=dev))
-    for yi in range(n_dy):
-        polar = polar_group_mm(img_t, wy[yi], wx, cfg.ring_num,
-                               cfg.ring_len, fast=fast)
-        orig_f, mirr_f = _ccf(ring_spectra(polar), ref_fw, params,
-                              per_particle_ref)
-        rows = ccf_rows(orig_f, mirr_f if cfg.mirror else None,
-                        cfg.ring_len)
-        carry = _shc_fold(carry, rows, x_major + yi, n_dx * n_dy,
-                          previousmax)
+    for rows, sidx in _mm_rows(images, ref_fw, params, cfg,
+                               per_particle_ref, fast):
+        carry = _shc_fold(carry, rows, sidx, s_total, previousmax)
     result, best_prio = carry
     return result, best_prio < _SHC_BIG
 

@@ -34,9 +34,9 @@ f32 scores.  On a CUDA device the search product is
 ``torch.mm(bf16, bf16, out_dtype=torch.float32)`` where the installed
 PyTorch has it, else the same product on f32 operands that hold the bf16
 values under TF32 (every bf16 value is exact in TF32 and every product
-exact in f32); on the CPU the exact products summed in f64 and rounded
-once, so that a particle's scores do not depend on its batch or rank
-(``_scores``).  The TF32
+exact in f32); on the CPU ("f32") the exact products summed in f64
+and rounded once, so that a particle's scores do not depend on its
+batch or rank (``_scores``, ``ops/polar_mm.py::mm_bf16``).  The TF32
 switch is set only around the engine's own products and restored.  No
 product returns bf16 scores.  The pixel axis of both operands is padded
 with zeros to a multiple of 8 (81 x 81 = 6561 at the headline), which is
@@ -393,13 +393,12 @@ def _col_chunk(c_total: int, ring_len: int) -> int:
 def _scores(win, cols, route: str):
     """(N, Wp) window x (chunk, Wp) bf16 columns -> (N, chunk) f32
     scores with f32 sums.  ``win`` is bf16 on the "bf16" route and f32
-    holding bf16 values otherwise.  On the CPU the exact products are
-    summed in f64 and rounded once: a BLAS's f32 sum of a row follows
-    the product's shape, so a stack split over ranks would otherwise
-    score its particles otherwise than one process."""
+    holding bf16 values otherwise.  On the "f32" route (the CPU) the
+    exact products are summed in f64 and rounded once, as ``mm_bf16``
+    sums them there."""
     if route == "bf16":
         return torch.mm(win, cols.t(), out_dtype=torch.float32)
-    if win.device.type == "cpu":
+    if route == "f32":
         return torch.mm(win.double(), cols.double().t()).float()
     return torch.mm(win, cols.to(torch.float32).t())
 

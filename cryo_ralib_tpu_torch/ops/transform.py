@@ -28,9 +28,10 @@ at ``Precision.HIGHEST``; the two agree to f32 rounding).  ``fast=True``,
 the JAX drivers' setting, keeps the JAX package's rounding points: its
 DFTs are products with the DFT matrices, the operands (the rows, the
 f32 cos/sin matrices built in numpy) rounded to bf16 and the sums f32,
-the phase ramps f32 (``_dft_mm``: the tensor cores' bf16 product on
-the card; on the CPU the products summed in f64, so that a particle's
-result does not depend on its batch).  An f32 FFT in its
+the phase ramps f32 (``_dft_mm``: ``ops/polar_mm.py::mm_bf16``, the
+tensor cores' bf16 product on the card; on the CPU the exact products
+summed in f64, so that a particle's result does not depend on its
+batch, where the card sums in f32).  An f32 FFT in its
 place would not be the function the JAX drivers compute: their bf16 DFT
 matrices move every output by ~0.4% (relative), which is what the
 class sums and the Fourier variance of the two packages would then
@@ -167,25 +168,17 @@ def _dft_mats_np(n: int):
 
 @lru_cache(maxsize=16)
 def dft_tables(n: int, device: torch.device):
-    """``_dft_mats_np(n)`` rounded to bf16 on ``device`` (held in f64 on
-    the CPU, in f32 on a CUDA device; ``_dft_mm``), copied there once per
-    (n, device) (a device loop reads them with no copy)."""
-    dtype = (torch.float64 if torch.device(device).type == "cpu"
-             else torch.float32)
-    return tuple(_bf16_values(torch.as_tensor(m, device=device)).to(dtype)
+    """``_dft_mats_np(n)`` rounded to bf16 and held in f32 on ``device``,
+    copied there once per (n, device) (a device loop reads them with no
+    copy)."""
+    return tuple(_bf16_values(torch.as_tensor(m, device=device))
                  for m in _dft_mats_np(n))
 
 
 def _dft_mm(x, mat):
     """(M, K) x (K, N) -> (M, N) f32, ``x`` rounded to bf16, ``mat`` a
-    ``dft_tables`` matrix: the JAX package's bf16 x bf16 -> f32 product.
-    On a CUDA device the tensor cores' (``ops/polar_mm.py::mm_bf16``).
-    On the CPU the exact products are summed in f64 and rounded once: a
-    BLAS's f32 sum of a row follows the product's shape, and an ulp there
-    would now and then round to the next bf16 step in the next pass, so a
-    particle's result would depend on its batch (a block, a rank)."""
-    if x.device.type == "cpu":
-        return torch.mm(_bf16_values(x).double(), mat).float()
+    ``dft_tables`` matrix: the JAX package's bf16 x bf16 -> f32 product
+    (``ops/polar_mm.py::mm_bf16``)."""
     return mm_bf16(x, mat, product_route(x.device))
 
 

@@ -233,6 +233,25 @@ def all_reduce_sums(mesh: ParticleMesh | None, *tensors):
     return tensors
 
 
+def rank_scan(mesh: ParticleMesh | None, fn, acc: torch.Tensor):
+    """``fn(acc)`` on every rank in rank order, each rank starting from
+    the previous rank's result (rank 0 from ``acc``): a running sum that
+    passes the ranks in stack order.  Every rank returns the last rank's
+    result.  The running value travels as a host tensor (gloo)."""
+    if not _multi(mesh):
+        return fn(acc)
+    dev = acc.device
+    host = torch.empty(acc.shape, dtype=acc.dtype)
+    if mesh.rank > 0:
+        dist.recv(host, mesh.rank - 1, group=mesh.group)
+        acc = host.to(dev)
+    host = fn(acc).cpu()
+    if mesh.rank < mesh.world_size - 1:
+        dist.send(host, mesh.rank + 1, group=mesh.group)
+    dist.broadcast(host, mesh.world_size - 1, group=mesh.group)
+    return host.to(dev)
+
+
 def barrier(mesh: ParticleMesh | None):
     """Wait for every rank (a gloo all-reduce of one CPU number, so it
     needs no device)."""

@@ -186,3 +186,24 @@ def test_reffree_resumes_a_jax_checkpoint(tmp_path):
             atol=1e-4 * np.abs(straight.average).max())
         np.testing.assert_allclose(resumed.criteria, straight.criteria[2:],
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("start", [0, 1])
+def test_even_odd_sums_are_the_jax_numpy_sums(monkeypatch, start):
+    """Iteration 0's even/odd sums equal the JAX driver's numpy sums
+    (``data[0::2].sum(0)``, added in stack order in f32) bit for bit, by
+    blocks of any size and from an odd first global index.  At this
+    count torch's own ``sum(0)`` adds in another order: it differs from
+    numpy's at 87% of the pixels, by up to 9.2e-5 (measured), and f64
+    sums rounded once at 88%, by up to 1.1e-4."""
+    from cryo_ralib_tpu_torch.models import reffree
+    rng = np.random.default_rng(5)
+    data = (rng.standard_normal((300, 24, 24))
+            * rng.uniform(0.1, 10.0, (300, 1, 1))).astype(np.float32)
+    for block in (7, 64, 2048):
+        monkeypatch.setattr(reffree, "PREP_BLOCK", block)
+        got = reffree._even_odd_sums(data, "cpu", start=start)
+        first = data[start % 2::2].sum(0)
+        second = data[1 - start % 2::2].sum(0)
+        np.testing.assert_array_equal(got[0, 0], first)
+        np.testing.assert_array_equal(got[0, 1], second)

@@ -98,12 +98,18 @@ def test_ties_go_to_the_first_column():
 def test_tf32_route_is_the_same_function(stack, refs, monkeypatch):
     """The route taken where ``torch.mm`` has no bf16 -> f32 overload
     (f32 operands holding bf16 values, TF32 on around the products) gives
-    the CPU route's results here, and the switches it sets are restored,
+    the CPU route's winners here, and its scores are the CPU route's
+    search with the products summed in f32 (the CPU route sums them in
+    f64, ``_scores``), bit for bit; the switches it sets are restored,
     the global TF32 switch included."""
     _, cfg = _cfgs()
     _, tp = _params("integer")
     tr = search.prepare_ref_spectra(torch.as_tensor(refs), cfg)
-    want = ts.template_search(torch.as_tensor(stack), tr, tp, cfg)
+    exact = ts.template_search(torch.as_tensor(stack), tr, tp, cfg)
+    with monkeypatch.context() as m:
+        m.setattr(ts, "_scores",
+                  lambda win, cols, route: torch.mm(win, cols.float().t()))
+        want = ts.template_search(torch.as_tensor(stack), tr, tp, cfg)
     mm = torch.backends.cuda.matmul
     before = (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction)
     monkeypatch.setattr(ts, "product_route", lambda device: "tf32")
@@ -112,6 +118,8 @@ def test_tf32_route_is_the_same_function(stack, refs, monkeypatch):
         == before
     for f in got._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in WINNERS:
+        assert torch.equal(getattr(got, f), getattr(exact, f)), f
     assert ts.product_route(torch.device("cpu")) == "tf32"
     monkeypatch.undo()
     assert ts.product_route(torch.device("cpu")) == "f32"
