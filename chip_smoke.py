@@ -37,7 +37,9 @@ Phases (any failure raises and the script exits non-zero):
      particles, maxit=11, dst=15, with and without mirrors: at least 99%
      of particles with the same mirror and params within 1e-3;
   5. kernel and plain timed (CUDA events) at the main paths' shapes:
-     K=8 and K=64 mref, K=1 for every variant of the reffree driver;
+     K=8 and K=64 mref, K=32 (a rank's slice of K=64 in phase 13d, held
+     to the plain search by the noise rule), K=1 for every variant of
+     the reffree driver;
      the ablation stages of the default variant at K=8 and K=64
      (tools/torch_search_ablate.py's), printed as one JSON line;
   6. the main path: mref_ali2d on 16384 synthetic 90 px particles, K=8,
@@ -159,6 +161,23 @@ Phases (any failure raises and the script exits non-zero):
         mref device loop (6 iterations) against phase 8's; under NCCL the
         loop runs again under sync debug mode "error" (gloo stages CUDA
         tensors through the host, so the check is not made there).
+     d. (after 13e) the 2-D ('dp', 'ref') mesh, make_mesh_2d(1,
+        2): two ranks on the card(s) share phase 6b's stack (16384 x 90
+        px) and split its K=64 blob templates, 32 each; mref_ali2d
+        (maxit=2) launches the kernel exactly twice per rank, counted at
+        K=32 (the wrapper's tally by variant and K, printed; the loop's
+        launches at K=4 likewise), the ranks merge their winners by the
+        kernel's rule; held to phase 6b's run by 13a's rule, counts
+        summing to N; s/iteration beside phase 6b's, the merge's ms and
+        bytes, each rank's kernel ms at K=32 with the other rank on the
+        card; the mref device loop at K=8 against phase 8's; where four
+        cards are visible, also (dp=2, ref=2) under NCCL with the loop
+        under sync debug mode "error" (else the log says why not);
+     e. mref_ali2d (maxit=2) and reffree A under SHC (2 iterations)
+        through sampler="template" and "matmul" on the two ranks, against
+        one process's runs on the card: no kernel launch, at least 99.9%
+        of assignments equal and the params within 1e-2 where they agree
+        (a rank's block is another cuBLAS shape; the largest gap printed);
      A rank that raises fails the phase (torch.multiprocessing.spawn
      re-raises it) and the run.
   14. the template engine (sampler="template", ops/template_search.py:
@@ -212,7 +231,9 @@ Phases (any failure raises and the script exits non-zero):
      g. reffree's iteration-0 even/odd sums in ms, equal to numpy's
         (the JAX driver's) bit for bit.
 Every launch counter is set to 0 just before each main-path run (6, 6b,
-7, 8, 9, 10, 11, 12, 14, 15, and 13 in each rank) and read just after it.  The
+7, 8, 9, 10, 11, 12, 14, 15, and 13 and 13d in each rank) and read just
+after it; the kernels' record lists 13d's launches counted at K=32 as
+search_k32.  The
 last lines are the slice's JSON line (loop rates, stage breakdown, CLI
 times, phase 13), the stage ablation's JSON line, the card, the kernels'
 JSON record (with each instantiation's registers, spill bytes and shared
@@ -239,6 +260,7 @@ N_CHECK = 512
 N_SLICE = 16384
 MAXIT = 6
 K_LARGE = 64
+K_SPLIT = 32     # a rank's slice of K_LARGE on the (dp=1, ref=2) mesh
 DST = 15.0
 SOURCE = "cryo_ralib_tpu_torch/csrc/search.cu"
 REPLACES = "cryo_ralib_tpu/ops/fused_search.py:129"
@@ -249,6 +271,7 @@ VARIANT_REPLACES = {
     "search_masked": "cryo_ralib_tpu/ops/fused_search.py:162",
     "search_nomirror_masked": "cryo_ralib_tpu/ops/fused_search.py:147",
     "search_k64": "cryo_ralib_tpu/ops/fused_search.py:356",
+    "search_k32": "cryo_ralib_tpu/ops/fused_search.py:356",
 }
 SNRS = (1.0, 0.3, 0.1, 0.03)   # signal variance / noise variance
 F32_PEAK = 67e12     # FLOP/s, H100 SXM, outside the tensor cores
@@ -1532,6 +1555,8 @@ def bdb_phase(tmp, stack, main_path, card) -> dict:
 MESH_RANKS = 2
 MESH_MAXIT = 2
 MESH_BATCH = 4096      # 13c streamed: batches of a rank's 8192
+MESH_SAMPLERS = ("template", "matmul")   # 13e
+MESH_BF16_TOL = 1e-2   # 13e: params of the bf16 samplers' runs, degrees/px
 
 
 def mesh_rank(rank, world, store, tmp):
@@ -1654,6 +1679,22 @@ def mesh_rank(rank, world, store, tmp):
             torch.cuda.synchronize()
         out["loop_params"] = np.stack(gather_params(lp, n, mesh), 1)
         out["loop_refs"] = lrefs.cpu().numpy()
+
+        # ---- 13e. the template engine and the matmul sampler on the
+        # ranks' blocks: mref and reffree A under SHC
+        for sampler in MESH_SAMPLERS:
+            r = run(f"mesh mref {sampler}", lambda: mref_ali2d(
+                StackShard(imgs, s, n), tmpl, ou=HEADLINE["ou"],
+                xr=HEADLINE["xr"], yr=HEADLINE["xr"], ts=1,
+                maxit=MESH_MAXIT, mesh=mesh, sampler=sampler, log=quiet))
+            out[f"mref_{sampler}_params"] = r.params
+            out[f"mref_{sampler}_assign"] = r.assignments
+            r = run(f"mesh shc {sampler}", lambda: ali2d_base(
+                StackShard(stack, s, n), ou=HEADLINE["ou"],
+                xr=HEADLINE["xr"], yr=HEADLINE["xr"], ts=1.0,
+                random_method="SHC", maxit=MESH_MAXIT, mesh=mesh,
+                sampler=sampler, log=quiet))
+            out[f"shc_{sampler}_params"] = r.params
         info["rank_seconds"] = time.perf_counter() - t_start
         if mesh.is_root:
             np.savez(os.path.join(tmp, "mesh.npz"), **out)
@@ -1677,44 +1718,47 @@ def assignments_of(outdir, it, n):
 
 
 def mesh_agree(label, params, assign, want_params, want_assign,
-               params_share=1.0):
+               params_share=1.0, tol=1e-3):
     """Phase 13's rule against one process: at least 99.9% of the
     assignments equal, and where they agree the mirrors equal and the
-    params within 1e-3 (angles on the circle), for every such particle
-    or, with ``params_share`` < 1, for at least that share of them (the
-    others are listed)."""
+    params within ``tol`` (1e-3; angles on the circle), for every such
+    particle or, with ``params_share`` < 1, for at least that share of
+    them (the others are listed)."""
     same = assign == want_assign
     a, b = params[same], want_params[same]
     d = np.abs(a[:, 0] - b[:, 0]) % 360.0
     d = np.maximum(np.minimum(d, 360.0 - d), np.abs(a[:, 1:3] - b[:, 1:3]
                                                     ).max(1, initial=0.0))
-    ok = (d < 1e-3) & (a[:, 3] == b[:, 3])
+    ok = (d < tol) & (a[:, 3] == b[:, 3])
     rows = np.nonzero(same)[0]
     log(f"  {label}: {same.mean():.5f} of assignments equal to one "
         f"process's; where equal, {int((~ok).sum())} particle(s) differ "
-        f"(mirror, or params by 1e-3 or more): "
+        f"(mirror, or params by {tol:g} or more): "
         + "; ".join(f"#{rows[i]} {a[i].round(3).tolist()} against "
                     f"{b[i].round(3).tolist()}"
                     for i in np.nonzero(~ok)[0][:10])
-        + f"; the others within {float(d[ok].max(initial=0.0)):.2e}")
+        + f"; the others within {float(d[ok].max(initial=0.0)):.2e}"
+        + f"; the largest gap {float(d.max(initial=0.0)):.2e}")
     check(same.mean() >= 0.999, f"{label}: {same.mean():.5f} equal")
     check(ok.mean() >= params_share if ok.size else True,
           f"{label}: {int((~ok).sum())} particles' params differ")
     return float(same.mean())
 
 
-def mesh_phase(dev, card, tmp, imgs, tmpl, reffree_a, loop_params,
+def mesh_phase(dev, card, tmp, imgs, tmpl, stack_a, reffree_a, loop_params,
                launches) -> dict:
     """Phase 13: two ranks, a process each (NCCL over two cards where two
     are visible, else gloo with both on cuda:0).  13a mref_ali2d on phase
     6's stack against one process; 13b cli.mref under torchrun on phase
     9's files against phase 9's run; 13c reffree A resident and streamed
-    against phase 7's run, and the mref device loop against phase 8's."""
+    against phase 7's run, and the mref device loop against phase 8's;
+    13e mref and reffree A under SHC through the template engine and the
+    matmul sampler against one process's runs made here."""
     import torch.multiprocessing as mp
 
     from cryo_ralib_tpu_torch.models.engine import AlignmentEngine
     from cryo_ralib_tpu_torch.models.mref import mref_ali2d
-    from cryo_ralib_tpu_torch.ops import fused_search as fs
+    from cryo_ralib_tpu_torch.models.reffree import ali2d_base
     from cryo_ralib_tpu_torch.ops.masks import model_circle, normalize_mask
     from cryo_ralib_tpu_torch.utils.log import RunLogger
 
@@ -1747,6 +1791,17 @@ def mesh_phase(dev, card, tmp, imgs, tmpl, reffree_a, loop_params,
                      log=RunLogger(None, quiet=True))
     torch.cuda.synchronize()
     one_s_it = (time.perf_counter() - t0) / MESH_MAXIT
+    quiet = RunLogger(None, quiet=True)
+    one_bf16 = {}
+    for sampler in MESH_SAMPLERS:
+        one_bf16["mref", sampler] = mref_ali2d(
+            imgs, tmpl, ou=HEADLINE["ou"], xr=HEADLINE["xr"],
+            yr=HEADLINE["xr"], ts=1, maxit=MESH_MAXIT, device=dev,
+            sampler=sampler, log=quiet)
+        one_bf16["shc", sampler] = ali2d_base(
+            stack_a, ou=HEADLINE["ou"], xr=HEADLINE["xr"],
+            yr=HEADLINE["xr"], ts=1.0, random_method="SHC",
+            maxit=MESH_MAXIT, device=dev, sampler=sampler, log=quiet)
 
     t0 = time.perf_counter()
     mp.spawn(mesh_rank, args=(MESH_RANKS, "file://" + os.path.join(
@@ -1781,6 +1836,10 @@ def mesh_phase(dev, card, tmp, imgs, tmpl, reffree_a, loop_params,
             check(info["launches"][f"mesh reffree A {mode}"] == want,
                   f"rank {r}: reffree A {mode} launches "
                   f"{info['launches'][f'mesh reffree A {mode}']}")
+        for sampler in MESH_SAMPLERS:
+            for what in ("mref", "shc"):
+                check(info["launches"][f"mesh {what} {sampler}"] == {},
+                      f"rank {r}: mesh {what} {sampler} launched the kernel")
 
     # ---- 13a against one process
     check(np.array_equal(got["it1_params"][:, 3:], one_p[:, 3:]),
@@ -1870,9 +1929,271 @@ def mesh_phase(dev, card, tmp, imgs, tmpl, reffree_a, loop_params,
            "does not apply under gloo, which stages CUDA tensors through "
            "the host"))
     check(row["mref_loop_assign_equal"] >= 0.999, "13c mref loop assignments")
+
+    # ---- 13e. the bf16 samplers on two ranks against one process: a
+    # rank's block is another cuBLAS shape, summed in another order, and
+    # the bf16 rows of a flat peak turn that into angles
+    for sampler in MESH_SAMPLERS:
+        want = one_bf16["mref", sampler]
+        row[f"mref_{sampler}_assign_equal"] = mesh_agree(
+            f"13e mref_ali2d sampler={sampler} maxit={MESH_MAXIT}",
+            got[f"mref_{sampler}_params"], got[f"mref_{sampler}_assign"],
+            want.params, want.assignments, tol=MESH_BF16_TOL)
+        want = one_bf16["shc", sampler]
+        params = got[f"shc_{sampler}_params"]
+        ones = np.zeros(N_SLICE, np.int64)
+        row[f"shc_{sampler}_agree"] = mesh_agree(
+            f"13e reffree A SHC sampler={sampler} maxit={MESH_MAXIT}",
+            params, ones, want.params, ones, params_share=0.999,
+            tol=MESH_BF16_TOL)
+        for what in ("mref", "shc"):
+            row[f"{what}_{sampler}_seconds"] = infos[0]["seconds"][
+                f"mesh {what} {sampler}"]
+        log(f"13e sampler={sampler} on {MESH_RANKS} ranks: mref "
+            f"{row[f'mref_{sampler}_seconds']:.2f} s, SHC "
+            f"{row[f'shc_{sampler}_seconds']:.2f} s for {MESH_MAXIT} "
+            f"iterations, no kernel launch  [{card}]")
     row["seconds"] = time.perf_counter() - t_phase
     log(f"phase 13: {row['seconds']:.1f} s  [{card}]")
     return row
+
+# ---- phase 13d: the 2-D ('dp', 'ref') mesh, the references split
+MESH2D_LAYOUTS = ((1, 2), (2, 2))   # (dp, ref); (2, 2) where 4 cards are
+MESH2D_MAXIT = 2
+
+
+def mesh2d_rank(rank, world, store, tmp, stack64, layout):
+    """One rank of phase 13d (a process of its own, started by
+    ``torch.multiprocessing.spawn``) on ``make_mesh_2d(*layout)``:
+    mref_ali2d at K=64 on phase 6b's stack, each rank searching its
+    slice of the references, timed after a first call; the merge and
+    the kernel at the rank's slice, timed with the other ranks on the
+    card; the mref device loop at K=8 on phase 6's stack, under sync
+    debug mode "error" where NCCL carries the collectives.  Each rank
+    writes ``rank2d<r>.json``; rank 0 writes ``mesh2d.npz``."""
+    from cryo_ralib_tpu_torch.models import make_mref_device_loop
+    from cryo_ralib_tpu_torch.models.mref import mref_ali2d
+    from cryo_ralib_tpu_torch.io.mrc import read_mrc
+    from cryo_ralib_tpu_torch.ops import fused_search as fs
+    from cryo_ralib_tpu_torch.ops.search import (merge_ref_slices,
+                                                 prepare_ref_spectra)
+    from cryo_ralib_tpu_torch.params import AlignParams
+    from cryo_ralib_tpu_torch.parallel import make_mesh_2d
+    from cryo_ralib_tpu_torch.parallel.mesh import (
+        StackShard, barrier, gather_params, initialize_distributed,
+        ref_reduce, ref_slice, shard_range, shutdown)
+    from cryo_ralib_tpu_torch.utils.log import RunLogger
+
+    initialize_distributed(rank=rank, world_size=world, init_method=store,
+                           device="cuda", timeout=120)
+    try:
+        mesh = make_mesh_2d(*layout)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev, quiet = mesh.device, RunLogger(None, quiet=True)
+        tmpl64 = np.load(os.path.join(tmp, "tmpl64.npy"))
+        k, n = tmpl64.shape[0], N_SLICE
+        s, e = shard_range(n, mesh)
+        k0, k1 = ref_slice(k, mesh)
+        cfg = geometry(HEADLINE)
+        out = {}
+        info = {"backend": mesh.backend, "device": str(dev),
+                "dp_rank": mesh.dp_rank, "ref_rank": mesh.ref_rank,
+                "block": [s, e], "slice": [k0, k1], "launches": {},
+                "seconds": {}}
+
+        def run(label, fn):
+            fs.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            info["seconds"][label] = time.perf_counter() - t0
+            # by variant and K: a rank must launch at its slice's K
+            info["launches"][label] = {
+                f"{key} K={k_l}": n_l
+                for (key, k_l), n_l in fs.fused_search.launches_by_k.items()}
+            return res
+
+        local = np.array(np.load(stack64, mmap_mode="r")[s:e])
+
+        def mref():
+            return mref_ali2d(
+                StackShard(local, s, n), tmpl64, ou=HEADLINE["ou"],
+                xr=HEADLINE["xr"], yr=HEADLINE["xr"], ts=1,
+                maxit=MESH2D_MAXIT, mesh=mesh, log=quiet)
+
+        run("mesh2d mref, first call", mref)
+        res = run("mesh2d mref", mref)
+        out.update(mref_params=res.params, mref_assign=res.assignments,
+                   mref_counts=res.class_counts)
+
+        # the kernel at the rank's slice and the merge of its winners,
+        # every rank at once (they share the card where they share it)
+        x = torch.as_tensor(local, device=dev)
+        rfw = prepare_ref_spectra(torch.as_tensor(tmpl64[k0:k1], device=dev),
+                                  cfg)
+        prm = AlignParams.zeros(e - s, dev)
+        barrier(mesh)
+        info["kernel_ms"] = cuda_ms(lambda: fs.fused_search(x, rfw, prm,
+                                                             cfg), 3)
+        best = fs.fused_search(x, rfw, prm, cfg)
+
+        def merge():
+            return merge_ref_slices(best, k0, cfg.n_shifts, k,
+                                    lambda t, op: ref_reduce(mesh, t, op))
+
+        merge()
+        barrier(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            merge()
+        torch.cuda.synchronize()
+        info["merge_ms"] = 1e3 * (time.perf_counter() - t0) / 10
+        # the three reductions' payloads: f32 values, int64 priorities,
+        # f32 rows of L
+        info["merge_bytes"] = (e - s) * (4 + 8 + 4 * L)
+        del x, best
+
+        imgs = read_mrc(os.path.join(tmp, "stack.mrcs"),
+                        indices=np.arange(s, e))
+        tmpl = np.load(os.path.join(tmp, "tmpl.npy"))
+        loop = make_mref_device_loop(cfg, MAXIT, tmpl.shape[0],
+                                     np.full(MAXIT, 0.25), mesh=mesh)
+        args = (torch.as_tensor(imgs, device=dev),
+                torch.as_tensor(tmpl, device=dev),
+                AlignParams.zeros(e - s, dev),
+                torch.arange(s, e, device=dev), torch.ones(e - s, device=dev))
+        lp, _ = run("mesh2d mref loop", lambda: loop(*args))
+        info["sync_checked"] = "nccl" in mesh.backend
+        if info["sync_checked"]:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                loop(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        out["loop_params"] = np.stack(gather_params(lp, n, mesh), 1)
+        if mesh.is_root:
+            np.savez(os.path.join(tmp, "mesh2d.npz"), **out)
+        with open(os.path.join(tmp, f"rank2d{rank}.json"), "w") as f:
+            json.dump(info, f)
+    finally:
+        shutdown()
+
+
+def mesh2d_phase(card, tmp, stack64, tmpl64, one64, one64_s_it,
+                 loop_params, launches, one_label="phase 6b") -> dict:
+    """Phase 13d: mref_ali2d at K=64 on the 2-D mesh (dp=1, ref=2), two
+    ranks on the card(s), each searching 32 references through the
+    kernel, against phase 6b's one-process run; the mref device loop at
+    K=8 against phase 8's; (dp=2, ref=2) under NCCL where four cards are
+    visible.  ``stack64``: phase 6b's stack as a .npy file; ``tmp``
+    holds phase 9's stack.mrcs and phase 13's tmpl.npy; ``one_label``
+    names the one-process run that ``one64_s_it`` timed."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    n_dev = torch.cuda.device_count()
+    np.save(os.path.join(tmp, "tmpl64.npy"), tmpl64)
+    rows = {}
+    lp_one = np.stack([f.cpu().numpy() for f in loop_params], 1)
+    for dp, ref in MESH2D_LAYOUTS:
+        world, tag = dp * ref, f"{dp}x{ref}"
+        if dp > 1 and n_dev < world:
+            log(f"13d (dp={dp}, ref={ref}) did not run: it needs {world} "
+                f"cards for NCCL with one rank on each, and {n_dev} "
+                "is visible")
+            continue
+        want_backend = "cpu:gloo,cuda:nccl" if n_dev >= world else "gloo"
+        log(f"13d: {world} ranks as (dp={dp}, ref={ref}) on "
+            f"{min(n_dev, world)} card(s), backend {want_backend}")
+        t0 = time.perf_counter()
+        mp.spawn(mesh2d_rank, args=(world, "file://" + os.path.join(
+            tmp, f"store2d_{tag}"), tmp, stack64, (dp, ref)), nprocs=world,
+            join=True)
+        spawn_s = time.perf_counter() - t0
+        got = dict(np.load(os.path.join(tmp, "mesh2d.npz")))
+        infos = [json.load(open(os.path.join(tmp, f"rank2d{r}.json")))
+                 for r in range(world)]
+        k = tmpl64.shape[0]
+        per = k // ref
+        for r, info in enumerate(infos):
+            check(info["backend"] == want_backend,
+                  f"13d rank {r}: backend {info['backend']}")
+            check((info["dp_rank"], info["ref_rank"]) == (r // ref, r % ref),
+                  f"13d rank {r}: layout {info['dp_rank'], info['ref_rank']}")
+            check(info["slice"] == [per * (r % ref), per * (r % ref + 1)],
+                  f"13d rank {r}: reference slice {info['slice']}")
+            for label in ("mesh2d mref, first call", "mesh2d mref"):
+                check(info["launches"][label]
+                      == {f"search K={per}": MESH2D_MAXIT},
+                      f"13d rank {r}: {label} launches "
+                      f"{info['launches'][label]}, not {MESH2D_MAXIT} at "
+                      f"K={per}")
+            loop_k = HEADLINE["k"] // ref
+            check(info["launches"]["mesh2d mref loop"]
+                  == {f"search K={loop_k}": MAXIT},
+                  f"13d rank {r}: mref loop launches "
+                  f"{info['launches']['mesh2d mref loop']}, not {MAXIT} at "
+                  f"K={loop_k}")
+            log(f"13d rank {r} (dp_rank {info['dp_rank']}, ref_rank "
+                f"{info['ref_rank']}) on {info['device']}: particles "
+                f"{info['block'][0]}..{info['block'][1] - 1}, references "
+                f"{info['slice'][0]}..{info['slice'][1] - 1}; launches "
+                f"by variant and K {info['launches']}; "
+                f"kernel at K={per} {info['kernel_ms']:.2f} ms with the "
+                f"other ranks on the card; merge {info['merge_ms']:.3f} ms "
+                f"for {info['merge_bytes']} bytes  [{card}]")
+            # the K=32 record takes the launches counted at K=32; the
+            # loop's K=4 launches are checked above and match no record's
+            # shape
+            launches.setdefault(f"search_k{per}", {})[
+                f"mesh2d {tag} mref K={k} rank {r}"] = (
+                info["launches"]["mesh2d mref"][f"search K={per}"])
+        check(int(got["mref_counts"].sum()) == N_SLICE,
+              f"13d {tag}: counts {got['mref_counts']}")
+        check(bool(np.isfinite(got["mref_params"]).all()), f"13d {tag}: NaN")
+        row = {"dp": dp, "ref": ref, "backend": infos[0]["backend"],
+               "spawn_seconds": spawn_s}
+        row["mref_assign_equal"] = mesh_agree(
+            f"13d {tag} mref_ali2d K={k} maxit={MESH2D_MAXIT} against phase "
+            "6b", got["mref_params"], got["mref_assign"], one64.params,
+            one64.assignments)
+        row["loop_assign_equal"] = float(
+            (got["loop_params"][:, 4] == lp_one[:, 4]).mean())
+        check(row["loop_assign_equal"] >= 0.999,
+              f"13d {tag} mref loop assignments {row['loop_assign_equal']}")
+        info = infos[0]
+        s_it = info["seconds"]["mesh2d mref"] / MESH2D_MAXIT
+        row.update(
+            s_per_iteration=s_it,
+            first_call_s_per_iteration=(
+                info["seconds"]["mesh2d mref, first call"] / MESH2D_MAXIT),
+            one_process_s_per_iteration=one64_s_it,
+            kernel_ms=[i["kernel_ms"] for i in infos],
+            merge_ms=[i["merge_ms"] for i in infos],
+            merge_bytes=info["merge_bytes"],
+            sync_checked=info["sync_checked"])
+        log(f"13d {tag} mref_ali2d N={N_SLICE} K={k}: {s_it:.4f} "
+            f"s/iteration ({row['first_call_s_per_iteration']:.4f} in a "
+            f"rank's first call) against {one64_s_it:.4f} in one process "
+            f"({one_label}); merge {max(row['merge_ms']):.3f} ms and "
+            f"{row['merge_bytes']} bytes a rank per iteration (host clock, "
+            f"mean of 10); kernel at K={per} "
+            + ", ".join(f"{m:.2f}" for m in row["kernel_ms"])
+            + f" ms by rank (CUDA events, mean of 3); mref loop K=8 "
+            f"{row['loop_assign_equal']:.5f} of assignments equal to phase "
+            f"8's; the sync-debug check "
+            + ("ran (NCCL): no host sync" if info["sync_checked"] else
+               "does not apply under gloo, which stages CUDA tensors "
+               "through the host") + f"  [{card}]")
+        rows[tag] = row
+    rows["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13d: {rows['seconds']:.1f} s  [{card}]")
+    return rows
 
 
 # ---- phase 14: the template engine (sampler="template")
@@ -2675,6 +2996,12 @@ def main():
     var_errs["search_k64"].append(compare(
         cfg, imgs64, rfw64, params, "noise", f"90px K={K_LARGE} N={N_SLICE}"))
     time_search("search_k64", cfg, imgs64, rfw64)
+    # a rank's slice of the K=64 references on phase 13d's 2-D mesh
+    rfw32 = rfw64[:K_SPLIT].contiguous()
+    var_errs["search_k32"].append(compare(
+        cfg, imgs64, rfw32, params, "noise", f"90px K={K_SPLIT} N={N_SLICE}"))
+    time_search("search_k32", cfg, imgs64, rfw32)
+    del rfw32
 
     # half rings: the same instantiations on other tables; and the K=1,
     # one-shift launch of SCF's rotation stage
@@ -2769,6 +3096,11 @@ def main():
         f"{seconds / 2:.3f} s/iteration, {2 * N_SLICE / seconds:.0f} "
         f"particles/s, purity {purity(res.assignments, cls64, K_LARGE):.4f}"
         f"  [{card}]")
+    # kept for phase 13d, which splits these 64 references over two ranks
+    one64, one64_s_it = res, seconds / 2
+    stack64_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_k64_")
+    stack64 = os.path.join(stack64_tmp.name, "stack64.npy")
+    np.save(stack64, imgs64.cpu().numpy())
     del imgs64
 
     # ---- 7. the reference-free main paths
@@ -2877,8 +3209,12 @@ def main():
 
     # ---- 13. two ranks, a process each
     slice_json["mesh"] = mesh_phase(dev, card, cli_tmp.name, imgs, tmpl,
-                                    reffree_a, p_loop, launches)
+                                    stack_a, reffree_a, p_loop, launches)
+    # ---- 13d. the 2-D mesh: K=64 split over two ranks
+    slice_json["mesh2d"] = mesh2d_phase(card, cli_tmp.name, stack64, tmpl64,
+                                        one64, one64_s_it, p_loop, launches)
     cli_tmp.cleanup()
+    stack64_tmp.cleanup()
 
     # ---- 14. the template engine: no search-kernel launch on its paths
     modes = slice_json["modes"]
@@ -2915,6 +3251,7 @@ def main():
         "search_masked": ("search_masked_k1", 1, 2, 1),
         "search_nomirror_masked": ("search_nomirror_masked_k1", 1, 1, 1),
         "search_k64": ("search_k64", K_LARGE, 2, 0),
+        "search_k32": ("search_k32", K_SPLIT, 2, 0),
     }
     records = []
     for name, (tkey, k, n_mirr, masked) in shapes.items():

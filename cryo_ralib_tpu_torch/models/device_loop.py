@@ -34,7 +34,11 @@ multireference loop the counts) before the average or the references
 are rebuilt, so every rank carries the same references.  Under NCCL
 the all-reduce is queued on the device like the rest of the body, and
 the loop still makes no host sync; under gloo a CUDA tensor is staged
-through the host, which waits.
+through the host, which waits.  On a 2-D mesh (``make_mesh_2d``) every
+iteration's step searches the rank's slice of the references and merges
+the winners over its ref group (``models/steps.py``), and each rank sums
+its share of the block; the loops take any K, a rank whose slice is
+empty searching nothing.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ import torch
 
 from ..config import AlignConfig
 from ..params import AlignParams
-from ..parallel.mesh import all_reduce_sums, gather_params, shard_stack
+from ..parallel.mesh import (all_reduce_sums, gather_params, ref_slice,
+                             shard_stack)
 from ..ops.eman_search import eman_mm_tables, eman_tables
 from ..ops.filters import device_freq_grid, filt_tanl_dyn
 from ..ops.fused_search import kernel_tables
@@ -74,7 +79,8 @@ def _build(cfg: AlignConfig, n_iter: int, cutoffs, falloffs, device,
     device = resolve_device(device if mesh is None else mesh.device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    sampler = resolve_sampler(sampler, device, cfg, n_refs=n_refs)
+    k0, k1 = ref_slice(n_refs, mesh)
+    sampler = resolve_sampler(sampler, device, cfg, n_refs=max(1, k1 - k0))
     search_tables(cfg, device)
     device_freq_grid(cfg.img_dim, cfg.img_dim, device)
     if cfg.ring_scheme == "eman2":
@@ -133,12 +139,13 @@ def make_device_loop(cfg: AlignConfig, n_iter: int, cutoffs, falloffs=None,
 
     def run(images, avg0, params: AlignParams, gidx, valid):
         avg = torch.as_tensor(avg0, dtype=torch.float32, device=device)
-        n_total = _reduce(mesh, valid.sum())[0]
+        a, b = ref_slice(valid.shape[0], mesh)
+        n_total = _reduce(mesh, valid[a:b].sum())[0]
         for i in range(n_iter):
             out = align_step(images, filt_tanl_dyn(avg, cut[i], fall[i])[None],
                              params, gidx, valid, cfg, n_classes=1,
                              update_ref=False, sampler=sampler, fast=fast,
-                             sf=sf)
+                             sf=sf, mesh=mesh)
             params = out.params
             sums = _reduce(mesh, out.class_sums)[0]
             avg = ((sums[0, 0] + sums[0, 1]) / n_total).float()
@@ -165,7 +172,7 @@ def make_mref_device_loop(cfg: AlignConfig, n_iter: int, n_classes: int,
         for i in range(n_iter):
             out = align_step(images, filt_tanl_dyn(refs, cut[i], fall[i]),
                              params, gidx, valid, cfg, n_classes=n_classes,
-                             sampler=sampler, fast=fast, sf=sf)
+                             sampler=sampler, fast=fast, sf=sf, mesh=mesh)
             params = out.params
             sums, counts = _reduce(mesh, out.class_sums, out.counts)
             new_refs = ((sums[:, 0] + sums[:, 1])
@@ -204,8 +211,9 @@ def ref_free_alignment_2d(images, n_iter: int = 10, ou: int = -1,
                             np.full(n_iter, falloff), device=device,
                             sampler=sampler, mesh=mesh)
     m = imgs.shape[0]
+    a, b = ref_slice(m, mesh)
     avg0 = (imgs.mean(0) if mesh is None
-            else _reduce(mesh, imgs.sum(0))[0] / n)
+            else _reduce(mesh, imgs[a:b].sum(0))[0] / n)
     params, avg = loop(imgs, avg0, AlignParams.zeros(m, device),
                        gidx.to(device), torch.ones(m, device=device))
     if mesh is not None:

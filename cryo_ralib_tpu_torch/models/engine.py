@@ -24,7 +24,13 @@ only the rank's block of particles, resident or streamed, with their
 global indices; ``iterate`` all-reduces the class sums (one float32
 buffer) and the counts, centering sums and SHC's ``nope`` (another
 float64 buffer) once per iteration, and ``params_np`` / ``previousmax_np``
-gather every rank's block to the whole stack.
+gather every rank's block to the whole stack.  On a 2-D mesh
+(``make_mesh_2d``) the ranks of a ref group hold the same block, each
+step searches the rank's slice of the references and merges the
+winners over the group (``models/steps.py``), each rank sums its share
+of the block, and the gathers run over the dp group; the references
+must split evenly over ``ref`` (``ValueError`` otherwise, as JAX's
+``P("ref")`` placement refuses them).
 """
 
 from __future__ import annotations
@@ -39,11 +45,12 @@ from ..params import AlignParams, params_from_numpy
 from ..ops.search import PREVIOUSMAX_INIT, delta_angle_mask
 from ..ops.template_search import splat_spectra_groups
 from ..parallel.batching import plan_batch_size
-from ..parallel.mesh import (all_reduce_sums, gather_params, gather_rows,
+from ..parallel.mesh import (all_reduce_sums, check_ref_split,
+                             gather_params, gather_rows, ref_group_min,
                              shard_range, shard_stack)
 from ..utils.profiling import annotate
 from .steps import (align_step, align_step_scf, align_step_shc,
-                    resolve_sampler)
+                    resolve_sampler, searched_refs)
 
 
 def resolve_device(device) -> torch.device:
@@ -59,20 +66,29 @@ def resolve_device(device) -> torch.device:
 
 def plan_batch(n: int, n_classes: int, cfg: AlignConfig, device,
                sampler: str = "auto", random_method: str = "",
-               batch_size: int | None = None, log=None,
-               ranks_on_device: int = 1) -> int:
+               batch_size: int | None = None, log=None, mesh=None) -> int:
     """The engine's batch for a stack (or a rank's block) of ``n``:
     ``batch_size`` where given, else the planner's for the search that
-    will run, with the card's memory shared by ``ranks_on_device`` ranks;
-    a batch of ``n`` or more means resident.  ``log`` (a callable) gets
-    the plan."""
+    will run (over the references that the rank searches of the
+    ``n_classes``, ``searched_refs``), with the card's memory shared by
+    the ranks of ``mesh`` that share it; a batch of ``n`` or more means
+    resident.  Under a ``ref`` split the ranks of a ref group take the
+    least of their plans: each plans from the memory its card has free,
+    and they must step through the same batches, since each batch's
+    merge is a collective of the group.  ``log`` (a callable) gets the
+    plan."""
     if batch_size is None:
+        k = searched_refs(n_classes, mesh, random_method)
         search = resolve_sampler(sampler, device, cfg, random_method,
-                                 n_refs=n_classes)
-        batch_size = plan_batch_size(n, n_classes, cfg, device=device,
-                                     sampler=search,
-                                     random_method=random_method, log=log,
-                                     ranks_on_device=ranks_on_device)
+                                 n_refs=k)
+        own = plan_batch_size(n, k, cfg, device=device, sampler=search,
+                              random_method=random_method, log=log,
+                              ranks_on_device=1 if mesh is None
+                              else mesh.ranks_on_device)
+        batch_size = ref_group_min(own, mesh)
+        if log is not None and batch_size != own:
+            log(f"batch plan: batches of {batch_size}, the least plan of "
+                "the ref group")
     return max(1, min(int(batch_size), n))
 
 
@@ -142,13 +158,16 @@ class AlignmentEngine:
     data-parallel group on ``mesh.device``: ``data`` is the whole stack
     or a ``StackShard`` of the rank's block, the engine keeps the block
     (``.start``, ``.n_local``; ``.n`` is the whole stack), and
-    ``batch_size`` is a batch of the block."""
+    ``batch_size`` is a batch of the block.  On a 2-D mesh each rank
+    searches its slice of the ``n_classes`` references, which must be a
+    multiple of ``mesh.ref`` (``ValueError`` otherwise)."""
 
     def __init__(self, data, cfg: AlignConfig, n_classes: int,
                  device="cuda", sampler: str = "auto",
                  update_ref: bool = True, delta: float = 0.0,
                  random_method: str = "", batch_size: int | None = None,
                  mesh=None):
+        check_ref_split(n_classes, mesh)
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None
                                      else mesh.device)
@@ -170,8 +189,9 @@ class AlignmentEngine:
                              "standard search, not random_method=%r"
                              % random_method)
         # fail at construction where the first iteration would
-        search = resolve_sampler(sampler, self.device, cfg, random_method,
-                                 n_refs=n_classes)
+        search = resolve_sampler(
+            sampler, self.device, cfg, random_method,
+            n_refs=searched_refs(n_classes, mesh, random_method))
         # the template engine's splat spectra depend on cfg only: built
         # once per engine, as the JAX engine hoists them out of its step
         self._sf = (splat_spectra_groups(cfg, self.device)
@@ -183,8 +203,7 @@ class AlignmentEngine:
         m = self.n_local
         self.batch = plan_batch(
             m, n_classes, cfg, self.device, sampler, random_method,
-            batch_size, ranks_on_device=1 if mesh is None
-            else mesh.ranks_on_device)
+            batch_size, mesh=mesh)
         self.resident = self.batch >= m
         shc = random_method == "SHC"
         if self.resident:
@@ -278,7 +297,8 @@ class AlignmentEngine:
 
     def _step(self, imgs, refs, params, gidx, prevmax, mask):
         """One step on a batch: (StepOutput, new previousmax, nope)."""
-        kw = dict(n_classes=self.n_classes, sampler=self.sampler)
+        kw = dict(n_classes=self.n_classes, sampler=self.sampler,
+                  mesh=self.mesh)
         if self.random_method == "SCF":
             return (align_step_scf(imgs, refs, params, gidx, None, self.cfg,
                                    **kw), None, None)

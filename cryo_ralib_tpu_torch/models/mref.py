@@ -22,7 +22,12 @@ the stack, with global indices; the engine all-reduces the class sums
 and gathers the params; a vanished class is reseeded from the rank that
 holds the drawn particle (every rank draws the same numbers); rank 0
 runs the FSC, the filter and the centering, writes every output file and
-the checkpoint, and broadcasts the new references.  Every rank calls the
+the checkpoint, and broadcasts the new references.  On a 2-D mesh
+(``make_mesh_2d``) the ranks of a ref group share a block, each searches
+its slice of the K references (K must be a multiple of ``ref``:
+``ValueError`` otherwise, as the JAX package's ``P("ref")`` placement
+refuses it), and a vanished class is reseeded from the first rank of the
+block that holds the drawn particle.  Every rank calls the
 collectives in the same order: only file writes and the reference update
 are guarded by the rank.
 """
@@ -44,7 +49,8 @@ from ..ops.masks import model_circle, normalize_mask
 from ..io.eman_hdf import header_fits, write_hdf_stack
 from ..io.star import write_text_row
 from ..parallel.mesh import (StackShard, barrier, block_owner,
-                             broadcast_refs, shard_range, shard_stack)
+                             broadcast_refs, check_ref_split, shard_range,
+                             shard_stack)
 from ..utils.log import RunLogger
 from ..utils.profiling import annotate
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -112,8 +118,11 @@ def mref_ali2d(
     call as one rank of a data-parallel group on ``mesh.device``:
     ``images`` is the whole stack or a ``StackShard`` of the rank's
     block, every rank returns the same result, and rank 0 alone writes
-    to ``outdir`` and logs.
+    to ``outdir`` and logs.  On a 2-D mesh (``make_mesh_2d``) each rank
+    searches its slice of the references, whose number must be a
+    multiple of ``mesh.ref``.
     """
+    check_ref_split(refs.shape[0], mesh)
     device = resolve_device(device if mesh is None else mesh.device)
     root = mesh is None or mesh.is_root
     if outdir and root:
@@ -169,9 +178,7 @@ def mref_ali2d(
     local, _gidx = shard_stack(images, mesh)
     start, stop = shard_range(n, mesh)
     batch = plan_batch(stop - start, numref, cfg, device, sampler, "",
-                       batch_size, log=log.add,
-                       ranks_on_device=1 if mesh is None
-                       else mesh.ranks_on_device)
+                       batch_size, log=log.add, mesh=mesh)
     data = prepare_stack(local, device, batch >= stop - start, prep)
     refi = normalize_mask(torch.as_tensor(np.asarray(refs, np.float32)),
                           mask_host, no_sigma=True).numpy()

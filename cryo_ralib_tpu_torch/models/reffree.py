@@ -28,7 +28,10 @@ params, the CTF restoration and the Fourier variance reduce their sums
 over the ranks, and rank 0 conditions the average (FSC, criterion,
 filter, centering), writes every output file and the checkpoint, and
 broadcasts the average and its criterion; the QC runs on the gathered
-tables, on every rank.
+tables, on every rank.  Its one reference does not split over the ranks
+of a 2-D mesh: ``ref > 1`` raises ``ValueError`` in every
+``random_method``, as the JAX package's ``P("ref")`` placement refuses
+it.
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ from ..ops.masks import infomask, model_circle
 from ..io.eman_hdf import write_image
 from ..io.star import write_text_row
 from ..parallel.mesh import (StackShard, barrier, broadcast_refs,
-                             rank_scan, shard_range, shard_stack)
+                             check_ref_split, rank_scan, shard_range,
+                             shard_stack)
 from ..utils.log import RunLogger
 from ..utils.profiling import annotate
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -127,8 +131,9 @@ def ali2d_base(
     sampler with ``sampler="matmul"`` in every mode, and the template
     engine with ``sampler="template"`` in every mode but SCF, where it
     raises ``ValueError`` as in the JAX package.  ``batch_size`` and ``mesh`` as in
-    ``mref_ali2d``.
+    ``mref_ali2d``; a 2-D mesh with ``ref > 1`` raises ``ValueError``.
     """
+    check_ref_split(1, mesh)
     device = resolve_device(device if mesh is None else mesh.device)
     root = mesh is None or mesh.is_root
     if outdir and root:
@@ -190,9 +195,7 @@ def ali2d_base(
     local, _gidx = shard_stack(images, mesh)
     start, stop = shard_range(n, mesh)
     batch = plan_batch(stop - start, 1, cfg, device, sampler, random_method,
-                       batch_size, log=log.add,
-                       ranks_on_device=1 if mesh is None
-                       else mesh.ranks_on_device)
+                       batch_size, log=log.add, mesh=mesh)
     data = prepare_stack(local, device, batch >= stop - start, prep)
     engine = AlignmentEngine(StackShard(data, start, n), cfg, n_classes=1,
                              device=device, sampler=sampler,

@@ -39,6 +39,18 @@ sums by the FFT shear instead: the one place where a port's sampler sums
 otherwise than its JAX counterpart.  Both go in blocks of particles
 (``transform_block``, ``shear_block``), adding the blocks' sums on the
 device, so the peak does not grow with the stack.
+
+Under a 2-D mesh (``mesh=`` a ``ParticleMesh`` with ``ref > 1``,
+``parallel/mesh.py::make_mesh_2d``) a step searches the rank's slice of
+the references (``ref_slice``) on its particle block, through whichever
+search the sampler names, merges the winners over the ref group by the
+search's own rule (``ops/search.py::merge_ref_slices``) before
+``decode_params``, and transforms and sums only its share of the
+particles (``ref_slice``): the caller's all-reduce then counts each
+particle once.  The SHC and SCF steps search every reference on every
+rank of the group and sum its share alike.  Every rank of the group
+returns the same params and peaks.  Without a ``ref`` split the steps
+run as they did, bit for bit.
 """
 
 from __future__ import annotations
@@ -55,13 +67,15 @@ from ..ops.eman_search import (prepare_ref_spectra_eman,
                                rotational_shift_search_eman)
 from ..ops.fused_search import fused_search, kernel_gate, search_plain
 from ..ops.scf import scf_align, zero_shift_cfg
-from ..ops.search import (decode_params, prepare_ref_spectra,
+from ..ops.search import (decode_params, empty_result, merge_ref_slices,
+                          prepare_ref_spectra,
                           rotational_shift_search_mm,
                           rotational_shift_search_shc,
                           rotational_shift_search_shc_mm)
 from ..ops.template_search import (template_search, template_search_shc,
                                    template_supported)
 from ..ops.transform import transform_batch, transform_block
+from ..parallel.mesh import ref_reduce, ref_slice
 
 _log = logging.getLogger(__name__)
 
@@ -89,6 +103,36 @@ def _header_shift_sums(params: AlignParams, valid):
         sgn = sgn * valid
         sy = sy * valid
     return (sx * sgn).sum(), sy.sum()
+
+
+class _RefPart(NamedTuple):
+    """A step's share of the references under a ``ref`` split."""
+
+    k0: int                 # the slice's first reference
+    refs: torch.Tensor      # (k1 - k0, H, W): the rank's slice
+    n_refs: int             # the references of the whole search
+    reduce: object          # reduce(t, op) over the ref group, or None
+
+
+def _ref_part(refs, mesh) -> _RefPart:
+    """The rank's slice of ``refs`` and its merge's reduction (None where
+    the references are not split)."""
+    k = refs.shape[0]
+    if mesh is None or mesh.ref == 1:
+        return _RefPart(0, refs, k, None)
+    k0, k1 = ref_slice(k, mesh)
+    return _RefPart(k0, refs[k0:k1], k,
+                   lambda t, op: ref_reduce(mesh, t, op))
+
+
+def searched_refs(n_refs: int, mesh, random_method: str = "") -> int:
+    """The references that a rank searches of ``n_refs``: its slice under
+    a ``ref`` split for the standard search, all of them for SHC and SCF,
+    which keep them whole on every rank (as the JAX package's SHC step
+    keeps them replicated)."""
+    if mesh is None or random_method:
+        return n_refs
+    return max(1, n_refs // mesh.ref)
 
 
 def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
@@ -161,7 +205,7 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
 def align_step(images, refs, params: AlignParams, global_index, valid,
                cfg: AlignConfig, *, n_classes: int, update_ref: bool = True,
                sampler: str = "auto", fast: bool = True, angle_mask=None,
-               sf=None) -> StepOutput:
+               sf=None, mesh=None) -> StepOutput:
     """One alignment iteration over a resident stack.
 
     Args:
@@ -185,6 +229,10 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
         (``ops/template_search.py::splat_spectra_groups``), built once by
         callers that step repeatedly; None builds them here.  Read by the
         template engine only.
+      mesh:   a ``ParticleMesh``; under a ``ref`` split the rank searches
+        its slice of ``refs``, the ref group merges the winners, and the
+        sums cover the rank's share of the particles (module docstring).
+        Without a mesh, or with ``ref`` 1, it changes nothing.
 
     ``cfg.ring_scheme == "eman2"`` runs the variable-length Numrinit
     rings of ``ops/eman_search.py`` (the PyTorch search on either
@@ -192,51 +240,80 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
     ``cfg.mode == "H"`` searches half
     rings, through the kernel on a CUDA tensor like mode "F".
     """
+    part = _ref_part(refs, mesh)
     sampler = resolve_sampler(sampler, images.device, cfg,
-                              n_refs=refs.shape[0])
-    eman2 = cfg.ring_scheme == "eman2"
-    ref_fw = (prepare_ref_spectra_eman(refs, cfg) if eman2
-              else prepare_ref_spectra(refs, cfg))
-    if sampler == "template":
-        result = template_search(images, ref_fw, params, cfg, sf=sf,
-                                 angle_mask=angle_mask)
-    elif eman2:
-        result = rotational_shift_search_eman(
-            images, ref_fw, params, cfg, angle_mask=angle_mask,
-            sampler="matmul" if sampler == "matmul" else "plain", fast=fast)
-    elif sampler == "matmul":
-        result = rotational_shift_search_mm(images, ref_fw, params, cfg,
-                                            fast=fast, angle_mask=angle_mask)
-    else:
-        search = fused_search if sampler == "kernel" else search_plain
-        result = search(images, ref_fw, params, cfg, angle_mask=angle_mask)
+                              n_refs=max(1, part.refs.shape[0]))
+    result = _search(images, part.refs, params, cfg, sampler, fast,
+                     angle_mask, sf)
+    if part.reduce is not None:
+        result = merge_ref_slices(result, part.k0, cfg.n_shifts,
+                                  part.n_refs, part.reduce)
     new_params = decode_params(result, params, cfg, update_ref=update_ref,
                                refine=angle_mask is None)
     return _finish_step(images, new_params, result.best_val, global_index,
-                        valid, n_classes, sampler in SHEAR_SUMS, fast)
+                        valid, n_classes, sampler in SHEAR_SUMS, fast, mesh)
+
+
+def _search(images, refs, params: AlignParams, cfg: AlignConfig,
+            sampler: str, fast: bool, angle_mask, sf):
+    """The resolved ``sampler``'s search of every particle against
+    ``refs``; an empty slice of the references (fewer references than
+    ``ref`` ranks) searches nothing and loses every merge."""
+    if refs.shape[0] == 0:
+        return empty_result(images.shape[0], cfg.ring_len, images.device)
+    if cfg.ring_scheme == "eman2":
+        ref_fw = prepare_ref_spectra_eman(refs, cfg)
+        if sampler != "template":
+            return rotational_shift_search_eman(
+                images, ref_fw, params, cfg, angle_mask=angle_mask,
+                sampler="matmul" if sampler == "matmul" else "plain",
+                fast=fast)
+    else:
+        ref_fw = prepare_ref_spectra(refs, cfg)
+    if sampler == "template":
+        return template_search(images, ref_fw, params, cfg, sf=sf,
+                               angle_mask=angle_mask)
+    if sampler == "matmul":
+        return rotational_shift_search_mm(images, ref_fw, params, cfg,
+                                          fast=fast, angle_mask=angle_mask)
+    search = fused_search if sampler == "kernel" else search_plain
+    return search(images, ref_fw, params, cfg, angle_mask=angle_mask)
 
 
 def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
                  n_classes: int, shear: bool = False,
-                 fast: bool = True) -> StepOutput:
+                 fast: bool = True, mesh=None) -> StepOutput:
     """Transform by the new params, sum the classes even/odd, and the
     centering sums: the end of every kind of step.  ``shear`` sums by the
     FFT shear (``class_sum_transform_mm``, bf16 DFTs with ``fast``), else
     by the bilinear transform; either goes in blocks of particles whose
-    sums add up on the device."""
+    sums add up on the device.  Under a ``ref`` split (``mesh``) only the
+    rank's share of the particles (``ref_slice``) is transformed and
+    summed; the params and peaks stay whole."""
     n, h, w = images.shape
     if global_index is None:
         global_index = torch.arange(n, device=images.device)
+    if valid is not None:
+        peak = torch.where(valid > 0, peak, 0.0)
+    a, b = ref_slice(n, mesh)
+    if (a, b) != (0, n):
+        sl = slice(a, b)
+        images, global_index = images[sl], global_index[sl]
+        valid = None if valid is None else valid[sl]
+        summed = AlignParams(*[f[sl] for f in new_params])
+    else:
+        summed = new_params
+    n = b - a
     if shear:
         sums, counts = class_sum_transform_mm(
-            images, new_params, n_classes, global_index=global_index,
+            images, summed, n_classes, global_index=global_index,
             valid=valid, fast=fast)
-        return _step_output(new_params, sums, counts, peak, valid)
+        return _step_output(new_params, summed, sums, counts, peak, valid)
     block = transform_block(h, w)
     sums = counts = None
     for start in range(0, max(n, 1), block):
         sl = slice(start, start + block)
-        part = AlignParams(*[f[sl] for f in new_params])
+        part = AlignParams(*[f[sl] for f in summed])
         s_b, c_b = class_sum_oe(transform_batch(images[sl], part),
                                 part.ref_id, n_classes,
                                 global_index=global_index[sl],
@@ -246,16 +323,15 @@ def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
         else:
             sums += s_b
             counts += c_b
-    return _step_output(new_params, sums, counts, peak, valid)
+    return _step_output(new_params, summed, sums, counts, peak, valid)
 
 
-def _step_output(new_params: AlignParams, sums, counts, peak,
-                 valid) -> StepOutput:
-    """The step's output with its centering sums; the peaks of padding
-    particles zeroed."""
-    sx_sum, sy_sum = _header_shift_sums(new_params, valid)
-    if valid is not None:
-        peak = torch.where(valid > 0, peak, 0.0)
+def _step_output(new_params: AlignParams, summed: AlignParams, sums, counts,
+                 peak, valid) -> StepOutput:
+    """The step's output with the centering sums of the ``summed``
+    particles (all of them but under a ``ref`` split; ``valid`` is
+    theirs)."""
+    sx_sum, sy_sum = _header_shift_sums(summed, valid)
     return StepOutput(new_params, sums, counts, peak, sx_sum, sy_sum)
 
 
@@ -279,7 +355,7 @@ class ShcStepOutput(NamedTuple):
 def align_step_shc(images, refs, params: AlignParams, global_index, valid,
                    previousmax, cfg: AlignConfig, *, n_classes: int,
                    sampler: str = "auto", fast: bool = True,
-                   sf=None) -> ShcStepOutput:
+                   sf=None, mesh=None) -> ShcStepOutput:
     """One SHC (stochastic hill climbing) iteration,
     ``random_method="SHC"``: each particle takes the first candidate
     above its ``previousmax`` rather than the global argmax; a particle
@@ -289,6 +365,9 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
     ``sampler="template"`` (``sf`` as in ``align_step``), or
     ``rotational_shift_search_shc_mm`` with ``sampler="matmul"`` (``fast``
     as in ``align_step``); ``sampler="kernel"`` raises ``ValueError``.
+    ``mesh`` as in ``align_step``, but every rank of a ref group searches
+    all the references, as the JAX package's SHC step keeps them
+    replicated, and sums its share of the particles (``nope`` too).
     """
     if cfg.ring_scheme != "cuda":
         raise ValueError("random_method='SHC' runs the standard ring "
@@ -310,14 +389,16 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
                                for new, old in zip(decoded, params)])
     new_prevmax = torch.where(found, result.best_val, previousmax)
     step = _finish_step(images, new_params, new_prevmax, global_index, valid,
-                        n_classes, sampler in SHEAR_SUMS, fast)
+                        n_classes, sampler in SHEAR_SUMS, fast, mesh)
     missed = ~found if valid is None else (~found) & (valid > 0)
-    return ShcStepOutput(step, new_prevmax, missed.sum())
+    a, b = ref_slice(missed.shape[0], mesh)
+    return ShcStepOutput(step, new_prevmax, missed[a:b].sum())
 
 
 def align_step_scf(images, refs, params: AlignParams, global_index, valid,
                    cfg: AlignConfig, *, n_classes: int,
-                   sampler: str = "auto", fast: bool = True) -> StepOutput:
+                   sampler: str = "auto", fast: bool = True,
+                   mesh=None) -> StepOutput:
     """One SCF (self-correlation) iteration, ``random_method="SCF"``:
     rotation from the shift-invariant scf ring spectra, translation from
     one cross-correlation map per 180-degree candidate
@@ -327,6 +408,8 @@ def align_step_scf(images, refs, params: AlignParams, global_index, valid,
     ``sampler="matmul"`` runs both stages and the class sums as the JAX
     package's matmul step (``fast`` as in ``align_step``);
     ``sampler="template"`` raises ``ValueError``, as in the JAX package.
+    SCF searches ``refs[0]`` alone, so under a ``ref`` split (``mesh``)
+    every rank of a ref group aligns its block whole and sums its share.
     """
     if cfg.ring_scheme != "cuda":
         raise ValueError("random_method='SCF' runs the standard ring "
@@ -336,4 +419,4 @@ def align_step_scf(images, refs, params: AlignParams, global_index, valid,
     new_params, peak = scf_align(images, refs[0], cfg, sampler=sampler,
                                  fast=fast)
     return _finish_step(images, new_params, peak, global_index, valid,
-                        n_classes, sampler in SHEAR_SUMS, fast)
+                        n_classes, sampler in SHEAR_SUMS, fast, mesh)

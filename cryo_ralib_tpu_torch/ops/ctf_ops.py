@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from ..parallel.mesh import all_reduce_sums, shard_range
+from ..parallel.mesh import all_reduce_sums, ref_slice, shard_range
 
 
 def rfft2_freqs(nx: int, apix: float = 1.0) -> np.ndarray:
@@ -143,7 +143,9 @@ class CtfContext:
     the block's size, ``start`` its first global index and ``n_total``
     the stack's; ``ctf_chunk`` and ``premultiply_block`` count from the
     block's start, and ``restore`` all-reduces the per-class ctf^2 sums
-    before the Wiener division.
+    before the Wiener division.  On a 2-D mesh the ranks of a ref group
+    hold the same block and each sums the ctf^2 of its share of it
+    (``ref_slice``), so every particle counts once, as in the class sums.
     """
 
     def __init__(self, nx: int, ctf_params: dict, snr: float = 1.0,
@@ -232,7 +234,9 @@ class CtfContext:
             rid = rid[self.start:self.start + self.n]
         ctf2 = torch.zeros((k, self.nx, self.nx // 2 + 1),
                            dtype=torch.float32, device=self.device)
-        for i in range(0, self.n, self.batch):
-            ctf2 += class_ctf2_sum(self.ctf_chunk(i), rid[i:i + self.batch], k)
+        a, b = ref_slice(self.n, self.mesh)
+        for i in range(a, b, self.batch):
+            m = min(self.batch, b - i)
+            ctf2 += class_ctf2_sum(self.ctf_chunk(i, m), rid[i:i + m], k)
         all_reduce_sums(self.mesh, ctf2)
         return wiener_restore(summed, ctf2, self.snr).cpu().numpy()

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..params import AlignParams
-from ..parallel.mesh import all_reduce_sums
+from ..parallel.mesh import all_reduce_sums, ref_slice
 from .fsc import _rfft2_weights, _shell_index
 from .transform import transform_batch, transform_batch_mm
 
@@ -124,16 +124,19 @@ def fourier_variance(data, params: AlignParams, mask=None,
     moments are summed in float64, and the chunks add up in float64 on
     the host.  Under a ``mesh`` ``data`` and ``params`` are the rank's
     block, and the moments and the count are all-reduced (one float64
-    buffer) before the variance is finalised; every rank calls it.
-    Returns ``(var (H, F), rvar (H//2+1,))`` as float32 numpy arrays.
+    buffer) before the variance is finalised; every rank calls it (on a
+    2-D mesh each rank of a ref group takes its share of the block,
+    ``ref_slice``).  Returns ``(var (H, F), rvar (H//2+1,))`` as float32
+    numpy arrays.
     """
     device = (mask.device if torch.is_tensor(mask) else
               data.device if torch.is_tensor(data) else "cpu")
     n, h, _w = data.shape
     acc = [np.zeros((h, h // 2 + 1), np.float64) for _ in range(3)]
     total = 0.0
-    for start in range(0, n, batch):
-        sl = slice(start, start + batch)
+    first, last = ref_slice(n, mesh)
+    for start in range(first, last, batch):
+        sl = slice(start, min(start + batch, last))
         imgs = torch.as_tensor(data[sl], dtype=torch.float32, device=device)
         part = AlignParams(*[torch.as_tensor(f[sl], device=device)
                              for f in params])

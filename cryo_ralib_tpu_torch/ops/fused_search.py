@@ -21,7 +21,9 @@ at :129 with static flags), each with its own launch counter in
   the ``has_mask=True`` variant (:162-167, :389-394, :439-443, :533-535);
   the returned row is unmasked (decode with ``refine=False``).
 
-Any K runs in one launch, counted under its variant: the kernel's
+Any K runs in one launch, counted under its variant, and under its
+variant and K in ``fused_search.launches_by_k`` (``(variant, K)`` keys,
+for a caller that must know which K a path launched): the kernel's
 ref-group loop replaces the ``fold=True`` finalize and the ref-axis
 chunks (:356-424, :752-781, ``_merge_chunk`` :791).  Rings are
 ``ring_len=256`` uniform rings, full (mode "F") or half (mode "H"): the
@@ -418,7 +420,8 @@ def fused_search(images, ref_fw, params: AlignParams, cfg: AlignConfig,
             angle_mask._checked_version = version
     return _launch(images, ref_fw, params, cfg, angle_mask, 0,
                    fused_search.launches,
-                   variant(cfg, angle_mask is not None))
+                   variant(cfg, angle_mask is not None),
+                   fused_search.launches_by_k)
 
 
 # the TPU kernel's ablation stages (fused_search.py:221-233, :329-348)
@@ -451,10 +454,11 @@ def fused_search_stage(images, ref_fw, params: AlignParams,
 
 
 def _launch(images, ref_fw, params: AlignParams, cfg: AlignConfig,
-            angle_mask, stage: int, counts: dict, key: str) -> SearchResult:
+            angle_mask, stage: int, counts: dict, key: str,
+            by_k: dict | None = None) -> SearchResult:
     """Check the inputs and launch the kernel on a CUDA tensor; a launch
-    that succeeds adds one to ``counts[key]`` (an empty stack launches
-    nothing and counts nothing)."""
+    that succeeds adds one to ``counts[key]``, and to ``by_k[(key, K)]``
+    where given (an empty stack launches nothing and counts nothing)."""
     if images.device.type != "cuda":
         raise ValueError(f"no search for device {images.device}")
     if cfg.ring_len != RING_LEN or cfg.ring_scheme != "cuda":
@@ -503,6 +507,8 @@ def _launch(images, ref_fw, params: AlignParams, cfg: AlignConfig,
         raise RuntimeError("search kernel launch failed: "
                            + lib.cryo_search_error_string(rc).decode())
     counts[key] += 1
+    if by_k is not None:
+        by_k[(key, k)] = by_k.get((key, k), 0) + 1
     aidx, sidx, ref, mirror = out_i
     return SearchResult(out_val, out_row, aidx, sidx, ref, mirror)
 
@@ -512,9 +518,11 @@ def reset_launches():
     for counts in (fused_search.launches, fused_search_stage.launches):
         for key in counts:
             counts[key] = 0
+    fused_search.launches_by_k.clear()
 
 
 fused_search.launches = dict.fromkeys(
     ("search", "search_nomirror", "search_masked", "search_nomirror_masked"),
     0)
+fused_search.launches_by_k = {}
 fused_search_stage.launches = dict.fromkeys(STAGES, 0)

@@ -6,8 +6,9 @@ hand-written kernel in ``ops/fused_search.py``), its stochastic
 hill-climbing variant (``rotational_shift_search_shc``), the matmul
 sampler's searches (``rotational_shift_search_mm``,
 ``rotational_shift_search_shc_mm``: the polar samples as tent products,
-``ops/polar_mm.py``), the ``--dst`` discrete-angle mask and
-``decode_params``.
+``ops/polar_mm.py``), the ``--dst`` discrete-angle mask, ``decode_params``, and the merge of the
+winners of reference slices searched apart (``merge_ref_slices``, the
+2-D mesh's ``ref`` split).
 
 The search keeps a running per-particle best over chunks of the shift
 grid, so it never holds the whole (N, 2, S, K, L) ccf table.  Winners
@@ -98,6 +99,54 @@ def priority_index(mirror, sidx, ref, aidx, n_shifts: int, n_refs: int,
     """Flat priority ``((m*S + s)*K + k)*L + a`` (int64) of a candidate."""
     return (((mirror.long() * n_shifts + sidx.long()) * n_refs + ref.long())
             * ring_len + aidx.long())
+
+
+def decode_priority(prio, n_shifts: int, n_refs: int, ring_len: int):
+    """(mirror, sidx, ref, aidx) as int32 of flat priorities
+    (``priority_index``'s inverse)."""
+    aidx = prio % ring_len
+    rest = prio // ring_len
+    ref = rest % n_refs
+    rest = rest // n_refs
+    return ((rest // n_shifts).int(), (rest % n_shifts).int(), ref.int(),
+            aidx.int())
+
+
+_I64_MAX = 2**63 - 1
+
+
+def merge_ref_slices(result: SearchResult, k0, n_shifts: int, n_refs: int,
+                     reduce) -> SearchResult:
+    """The winners of the whole search from those of its reference slices
+    (the 2-D mesh's ``ref`` split): a slice searched the references
+    ``k0 ..`` of ``n_refs``, and its ``best_ref`` counts from ``k0``.
+
+    The rule is the search's own: the larger value wins, then the lower
+    global priority (``priority_index`` with ``k0 + best_ref`` and all
+    ``n_refs``).  A slice's flat order [mirror][shift][ref][angle] is a
+    restriction of the global one, so its first-seen winner is the lowest
+    priority among its ties, and the merge of the slices' winners is the
+    unsplit search's winner.  ``reduce(t, op)`` reduces a tensor over the
+    slices by ``op`` "max", "min" or "sum" (in place, where it
+    all-reduces over a ref group, ``parallel/mesh.py::ref_reduce``):
+    three reductions, the values, the priorities of the slices that hold
+    the maximum (int64 max elsewhere), and the rows, zeroed but on the
+    winner's slice (adding zeros is exact).  A slice that searched
+    nothing passes ``empty_result``.
+    """
+    ring_len = result.best_row.shape[-1]
+    prio = priority_index(result.best_mirror, result.best_sidx,
+                          result.best_ref.long() + k0, result.best_aidx,
+                          n_shifts, n_refs, ring_len)
+    val = reduce(result.best_val.clone(), "max")
+    prio = torch.where(result.best_val == val, prio, _I64_MAX)
+    win = reduce(prio.clone(), "min")
+    row = reduce(torch.where((prio == win)[..., None], result.best_row,
+                             0.0), "sum")
+    mirror, sidx, ref, aidx = decode_priority(win, n_shifts, n_refs,
+                                              ring_len)
+    return SearchResult(best_val=val, best_row=row, best_aidx=aidx,
+                        best_sidx=sidx, best_ref=ref, best_mirror=mirror)
 
 
 def rotational_shift_search(images, ref_fw, params: AlignParams,

@@ -16,6 +16,17 @@ per-particle params are gathered to full length where a table or a
 checkpoint needs them.  Ranks are not lock-stepped, so no stack is
 padded: only the reduced tensors have equal shapes on every rank.
 
+``make_mesh_2d(dp, ref)`` is the JAX package's 2-D ``('dp', 'ref')``
+mesh: the ranks laid out row-major as (dp, ref), so rank ``r`` is
+``dp_rank = r // ref``, ``ref_rank = r % ref``.  The particles are split
+over ``dp``: the ``ref`` ranks of one particle block (its *ref group*)
+hold the same block, each searches its contiguous slice of the
+references (``ref_slice``), and they merge their winners
+(``ops/search.py::merge_ref_slices``).  Each then sums its share of the
+block (``ref_slice`` of the particles), so the world all-reduce counts
+every particle once, and the per-particle gathers run over the *dp group* (the ranks of
+one ``ref_rank``, whose blocks tile the stack).
+
 The backend is chosen by a rule, never by catching a failure:
 
 * ``"cpu:gloo,cuda:nccl"`` when every rank of a host has a card of its
@@ -53,7 +64,8 @@ DEFAULT_TIMEOUT = 300.0
 
 @dataclass(frozen=True)
 class ParticleMesh:
-    """One rank's view of the data-parallel group."""
+    """One rank's view of the data-parallel group: ``dp`` particle blocks
+    times ``ref`` reference slices (``ref`` 1 but for ``make_mesh_2d``)."""
 
     rank: int
     world_size: int
@@ -61,13 +73,29 @@ class ParticleMesh:
     backend: str
     group: object = None        # None: the default (world) group
     ranks_on_device: int = 1    # ranks that share this rank's device
+    ref: int = 1                # ranks that split the references
+    dp_group: object = None     # the ranks of this ref_rank (ref > 1)
+    ref_group: object = None    # the ranks of this particle block (ref > 1)
 
     @property
     def is_root(self) -> bool:
         return self.rank == 0
 
+    @property
+    def dp(self) -> int:
+        return self.world_size // self.ref
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.ref
+
+    @property
+    def ref_rank(self) -> int:
+        return self.rank % self.ref
+
 
 _current: ParticleMesh | None = None
+_meshes_2d: dict = {}   # (dp, ref) -> the ParticleMesh make_mesh_2d built
 
 
 def rank_device(device, local_rank: int) -> torch.device:
@@ -160,6 +188,40 @@ def make_mesh(n_devices: int | None = None) -> ParticleMesh:
     return _current
 
 
+def make_mesh_2d(dp: int, ref: int) -> ParticleMesh:
+    """The 2-D ``('dp', 'ref')`` mesh over the process group that
+    ``initialize_distributed`` joined (the JAX package's
+    ``make_mesh_2d``): particles split over ``dp``, the references over
+    ``ref``, the ranks laid out row-major (rank ``r`` is ``dp_rank = r //
+    ref``, ``ref_rank = r % ref``, as JAX reshapes its devices).
+    ``dp * ref`` must be the world size; ``ref=1`` is ``make_mesh(dp)``.
+
+    Every rank must call it, in the same order: it makes the two
+    families of sub-groups (``dist.new_group``), the ref groups (the
+    ``ref`` ranks of one particle block) and the dp groups (the ``dp``
+    ranks of one ``ref_rank``), once per (dp, ref)."""
+    base = make_mesh()
+    dp, ref = int(dp), int(ref)
+    if dp < 1 or ref < 1 or dp * ref != base.world_size:
+        raise ValueError(f"a ({dp}, {ref}) mesh needs dp * ref = "
+                         f"{base.world_size} ranks, the process group's size")
+    if ref == 1:
+        return base
+    if (dp, ref) not in _meshes_2d:
+        ref_groups = [dist.new_group([d * ref + j for j in range(ref)])
+                      for d in range(dp)]
+        dp_groups = [dist.new_group([d * ref + j for d in range(dp)])
+                     for j in range(ref)]
+        r = base.rank
+        _meshes_2d[(dp, ref)] = ParticleMesh(
+            base.rank, base.world_size, base.device, base.backend,
+            base.group, base.ranks_on_device, ref,
+            dp_groups[r % ref], ref_groups[r // ref])
+        _log.info("2-D mesh (dp=%d, ref=%d): rank %d is dp_rank %d, "
+                  "ref_rank %d", dp, ref, r, r // ref, r % ref)
+    return _meshes_2d[(dp, ref)]
+
+
 def shutdown():
     """Leave the process group (the counterpart of
     ``jax.distributed.shutdown``)."""
@@ -167,6 +229,7 @@ def shutdown():
     if dist.is_initialized():
         dist.destroy_process_group()
     _current = None
+    _meshes_2d.clear()
 
 
 def block_range(n: int, world_size: int, rank: int) -> tuple[int, int]:
@@ -179,11 +242,36 @@ def block_range(n: int, world_size: int, rank: int) -> tuple[int, int]:
 
 
 def shard_range(n: int, mesh: ParticleMesh | None) -> tuple[int, int]:
-    """The rank's [start, stop) of a stack of ``n``; the whole stack
-    without a mesh."""
+    """The rank's [start, stop) of a stack of ``n``: its block of the
+    ``dp`` blocks (the ranks of a ref group hold the same one); the
+    whole stack without a mesh."""
     if mesh is None:
         return 0, n
-    return block_range(n, mesh.world_size, mesh.rank)
+    return block_range(n, mesh.dp, mesh.dp_rank)
+
+
+def ref_slice(n: int, mesh: ParticleMesh | None) -> tuple[int, int]:
+    """The rank's contiguous [start, stop) of ``n`` items split over its
+    ref group (all of them without a ``ref`` split; a share may be
+    empty where ``n < ref``): its slice of the references, as JAX's
+    ``P("ref")`` places them, or its share of the particles that the
+    group holds alike (a block, or a batch of it), whose class sums,
+    counts and centering sums the rank adds, so that the world
+    all-reduce counts every particle once."""
+    if mesh is None or mesh.ref == 1:
+        return 0, n
+    return block_range(n, mesh.ref, mesh.ref_rank)
+
+
+def check_ref_split(n_refs: int, mesh: ParticleMesh | None):
+    """Raise ``ValueError`` where ``n_refs`` references do not split
+    evenly over the mesh's ``ref`` ranks (JAX's ``P("ref")`` placement
+    refuses them; the engine and the drivers follow it)."""
+    if mesh is not None and n_refs % mesh.ref:
+        raise ValueError(f"{n_refs} references do not divide over the "
+                         f"mesh's ref={mesh.ref} ranks (K must be a "
+                         "multiple of ref, as JAX's P('ref') placement "
+                         "requires)")
 
 
 @dataclass(frozen=True)
@@ -222,6 +310,27 @@ def shard_stack(images, mesh: ParticleMesh | None):
 
 def _multi(mesh) -> bool:
     return mesh is not None and mesh.world_size > 1
+
+
+def ref_reduce(mesh: ParticleMesh, t: torch.Tensor, op: str):
+    """``t`` reduced in place over the rank's ref group by ``op`` ("max",
+    "min" or "sum"), where it lies (an ``all_reduce``: gloo takes CUDA
+    tensors for it, as NCCL does, so nothing leaves the device under
+    NCCL)."""
+    if mesh.ref > 1:
+        dist.all_reduce(t, op=getattr(dist.ReduceOp, op.upper()),
+                        group=mesh.ref_group)
+    return t
+
+
+def ref_group_min(value: int, mesh: ParticleMesh | None) -> int:
+    """The least of the ranks' ``value`` over the rank's ref group (one
+    CPU number through gloo); ``value`` itself without a ``ref`` split."""
+    if mesh is None or mesh.ref == 1:
+        return int(value)
+    t = torch.tensor([int(value)], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.ref_group)
+    return int(t)
 
 
 def all_reduce_sums(mesh: ParticleMesh | None, *tensors):
@@ -280,20 +389,22 @@ def broadcast_status(code: int, mesh: ParticleMesh | None) -> int:
 
 
 def gather_rows(x: torch.Tensor, n: int, mesh: ParticleMesh | None):
-    """The (n, ...) concatenation of every rank's block of rows of a stack
-    of ``n`` (each rank passes its own ``shard_range`` rows), on every
-    rank, as a CPU tensor; blocks are padded to the largest for the
-    ``all_gather`` and cut again."""
+    """The (n, ...) concatenation of every block of rows of a stack of
+    ``n`` (each rank passes its own ``shard_range`` rows), on every rank,
+    as a CPU tensor; blocks are padded to the largest for the
+    ``all_gather`` and cut again.  Under a ``ref`` split it gathers over
+    the rank's dp group: the ref groups hold identical copies."""
     x = x.detach().cpu()
-    if not _multi(mesh):
+    if mesh is None or mesh.dp == 1:
         return x
-    sizes = [b - a for a, b in (block_range(n, mesh.world_size, r)
-                                for r in range(mesh.world_size))]
+    sizes = [b - a for a, b in (block_range(n, mesh.dp, r)
+                                for r in range(mesh.dp))]
     width = max(sizes)
     pad = torch.zeros((width,) + tuple(x.shape[1:]), dtype=x.dtype)
     pad[:x.shape[0]] = x
     parts = [torch.empty_like(pad) for _ in sizes]
-    dist.all_gather(parts, pad, group=mesh.group)
+    dist.all_gather(parts, pad,
+                    group=mesh.group if mesh.ref == 1 else mesh.dp_group)
     return torch.cat([p[:m] for p, m in zip(parts, sizes)])
 
 
@@ -312,10 +423,11 @@ def gather_params(params: AlignParams, n: int,
 
 
 def block_owner(i: int, n: int, mesh: ParticleMesh | None) -> int:
-    """The rank whose block of a stack of ``n`` holds particle ``i``."""
+    """A rank whose block of a stack of ``n`` holds particle ``i``: the
+    first rank (``ref_rank`` 0) of the block's ref group."""
     if mesh is None:
         return 0
-    for r in range(mesh.world_size):
-        if i < block_range(n, mesh.world_size, r)[1]:
-            return r
+    for d in range(mesh.dp):
+        if i < block_range(n, mesh.dp, d)[1]:
+            return d * mesh.ref
     raise IndexError(f"particle {i} of a stack of {n}")

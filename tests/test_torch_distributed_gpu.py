@@ -22,7 +22,10 @@ N=2048, 90 px, K=8, ou=36, xr=yr=3:
 * under NCCL, the multireference device loop runs under
   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); under
   gloo a CUDA tensor is staged through the host, so the check is not
-  made there.
+  made there;
+* the 2-D mesh (dp=1, ref=2): one engine iteration at K=64, one kernel
+  launch per rank on its 32 references, held to one process by the
+  first bullet's rules.
 """
 
 import json
@@ -182,3 +185,97 @@ def test_two_ranks_match_one_process(cuda_device, tmp_path):
         assert np.minimum(d, 360.0 - d).max() < 1e-3
         np.testing.assert_array_equal(a[:, 3], b[:, 3])
         assert np.abs(a[:, 1:3] - b[:, 1:3]).max() < 1e-3
+
+
+WORKER_2D = r"""
+import json, os, sys
+rank, tmp = int(sys.argv[1]), sys.argv[2]
+import numpy as np
+import torch
+from cryo_ralib_tpu_torch.config import AlignConfig
+from cryo_ralib_tpu_torch.models.engine import AlignmentEngine
+from cryo_ralib_tpu_torch.ops import fused_search as fs
+from cryo_ralib_tpu_torch.parallel import make_mesh_2d
+from cryo_ralib_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                ref_slice, shutdown)
+
+initialize_distributed(rank=rank, world_size=2,
+                       init_method="file://" + tmp + "/store", device="cuda",
+                       timeout=120)
+mesh = make_mesh_2d(1, 2)
+torch.backends.cuda.matmul.allow_tf32 = False
+inp = np.load(os.path.join(tmp, "inputs.npz"))
+cfg = AlignConfig(img_dim=%(nx)d, ring_num=%(ou)d, shift_step=1.0,
+                  shift_rng_x=%(xr)r, shift_rng_y=%(xr)r)
+eng = AlignmentEngine(inp["norm"], cfg, n_classes=len(inp["refs"]),
+                      mesh=mesh)
+fs.reset_launches()
+it = eng.iterate(inp["refs"])
+torch.cuda.synchronize()
+launches = {"%%s K=%%d" %% key: n
+            for key, n in fs.fused_search.launches_by_k.items()}
+p = eng.params_np()
+np.savez(os.path.join(tmp, "out2d%%d.npz" %% rank), sums=it.class_sums,
+         counts=it.counts, ref_id=p.ref_id, mirror=p.mirror, angle=p.angle)
+with open(os.path.join(tmp, "rank2d%%d.json" %% rank), "w") as f:
+    json.dump({"launches": launches, "slice": ref_slice(len(inp["refs"]),
+                                                         mesh)}, f)
+shutdown()
+assert "jax" not in sys.modules
+"""
+
+
+def test_ref_split_over_two_ranks_matches_one_process(cuda_device, tmp_path):
+    """The 2-D mesh (dp=1, ref=2) on the card(s): one engine iteration at
+    K=64, each rank launching the search kernel once on its 32
+    references; the ranks' merged winners (class, mirror) equal one
+    process's, the angles within 1e-4, the counts equal and the class
+    sums within 1e-5 of their largest (each rank sums half the
+    particles)."""
+    from cryo_ralib_tpu_torch.utils.synthetic import unit_sigma_blobs
+
+    k = 64
+    tmpl = unit_sigma_blobs(k, NX).astype(np.float32)
+    imgs = scattered_stack(tmpl, N, max_shift=2, noise=1.0, seed=9)[0]
+    mask = torch.as_tensor(model_circle(OU, NX))
+    norm = normalize_mask(imgs, mask, no_sigma=False)
+    refs = normalize_mask(torch.as_tensor(tmpl), mask, no_sigma=True)
+    np.savez(tmp_path / "inputs.npz", norm=norm.numpy(), refs=refs.numpy())
+    code = WORKER_2D % dict(nx=NX, ou=OU, xr=XR)
+    env = {key: v for key, v in os.environ.items()
+           if key not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                          "MASTER_PORT")}
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r),
+                               str(tmp_path)], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=RANK_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    for proc, log in zip(procs, logs):
+        assert proc.returncode == 0, log[-4000:]
+
+    cfg = AlignConfig(img_dim=NX, ring_num=OU, shift_step=1.0,
+                      shift_rng_x=XR, shift_rng_y=XR)
+    eng = AlignmentEngine(norm.to(cuda_device), cfg, n_classes=k,
+                          device=cuda_device)
+    want = eng.iterate(refs.numpy())
+    wp = eng.params_np()
+    for r in range(2):
+        got = dict(np.load(tmp_path / f"out2d{r}.npz"))
+        info = json.loads((tmp_path / f"rank2d{r}.json").read_text())
+        assert info["slice"] == [32 * r, 32 * (r + 1)]
+        assert info["launches"] == {"search K=32": 1}, info
+        np.testing.assert_array_equal(got["ref_id"], wp.ref_id)
+        np.testing.assert_array_equal(got["mirror"], wp.mirror)
+        d = np.abs(got["angle"] - wp.angle)
+        assert np.minimum(d, 360.0 - d).max() < 1e-4
+        np.testing.assert_array_equal(got["counts"], want.counts)
+        np.testing.assert_allclose(got["sums"], want.class_sums, rtol=0,
+                                   atol=1e-5 * np.abs(want.class_sums).max())
