@@ -1,0 +1,9 @@
+"""``device.idle_pct``: the share of one profiled job's span in which no
+kernel, copy or memset ran on the card (mean over the ranks), in %."""
+
+
+def read(obs):
+    t = obs.get("trace")
+    if not t:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
