@@ -48,7 +48,7 @@ from ..parallel.batching import plan_batch_size
 from ..parallel.mesh import (all_reduce_sums, check_ref_split,
                              gather_params, gather_rows, ref_group_min,
                              shard_range, shard_stack)
-from ..utils.profiling import annotate
+from ..utils.profiling import span
 from .steps import (align_step, align_step_scf, align_step_shc,
                     resolve_sampler, searched_refs)
 
@@ -189,13 +189,14 @@ class AlignmentEngine:
                              "standard search, not random_method=%r"
                              % random_method)
         # fail at construction where the first iteration would
-        search = resolve_sampler(
+        self.search = resolve_sampler(
             sampler, self.device, cfg, random_method,
             n_refs=searched_refs(n_classes, mesh, random_method))
         # the template engine's splat spectra depend on cfg only: built
         # once per engine, as the JAX engine hoists them out of its step
         self._sf = (splat_spectra_groups(cfg, self.device)
-                    if search == "template" else None)
+                    if self.search == "template" else None)
+        self._iterations = 0
         if random_method and cfg.ring_scheme != "cuda":
             raise ValueError(f"random_method={random_method!r} runs the "
                              "standard ring scheme only (ring_scheme='cuda')")
@@ -315,38 +316,46 @@ class AlignmentEngine:
         """One alignment pass against (K, H, W) references.
         ``discrete=True`` restricts the rotation search to multiples of
         the engine's ``delta``."""
-        mask = self._mask(discrete)
-        refs_t = torch.as_tensor(np.asarray(refs, np.float32),
-                                 device=self.device)
-        if not self.resident:
-            return self._iterate_streamed(refs_t, mask)
-        out, prevmax, nope = self._step(self._imgs, refs_t, self.params,
-                                        self._gidx, self._prevmax, mask)
-        self.params = out.params
-        if prevmax is not None:
-            self._prevmax = prevmax
-        return self._result(out.class_sums, out.counts, out.sx_sum,
-                            out.sy_sum, nope, out.peak.cpu().numpy())
+        self._iterations += 1
+        with span("engine.iterate", iteration=self._iterations):
+            mask = self._mask(discrete)
+            refs_t = torch.as_tensor(np.asarray(refs, np.float32),
+                                     device=self.device)
+            if not self.resident:
+                return self._iterate_streamed(refs_t, mask)
+            with span("engine.step", start=0, end=self.n_local):
+                out, prevmax, nope = self._step(
+                    self._imgs, refs_t, self.params, self._gidx,
+                    self._prevmax, mask)
+            self.params = out.params
+            if prevmax is not None:
+                self._prevmax = prevmax
+            return self._result(out.class_sums, out.counts, out.sx_sum,
+                                out.sy_sum, nope, out.peak)
 
     def _result(self, sums, counts, sx, sy, nope, peak) -> IterationResult:
         """The iteration's result on the host, the sums all-reduced over
         the mesh: one float64 buffer of class sums (``ops/classavg.py``:
         the same sums for any split of the stack, rounded to float32 once
         they are whole) and one of the counts, the centering sums and
-        ``nope``."""
-        scalars = torch.cat([
-            counts.to(torch.float64),
-            torch.stack([torch.as_tensor(v, device=counts.device).to(
-                torch.float64).reshape(()) for v in
-                (sx, sy, 0 if nope is None else nope)])])
-        all_reduce_sums(self.mesh, sums, scalars)
-        scalars = scalars.cpu().numpy()
-        k = self.n_classes
-        return IterationResult(
-            class_sums=sums.float().cpu().numpy(),
-            counts=np.rint(scalars[:k]).astype(np.int64), peak=peak,
-            sx_sum=float(scalars[k]), sy_sum=float(scalars[k + 1]),
-            nope=int(round(scalars[k + 2])))
+        ``nope``; ``peak`` (the rank's, not reduced) is read to the host
+        here too, from the device or from pinned memory."""
+        with span("engine.reduce"):
+            scalars = torch.cat([
+                counts.to(torch.float64),
+                torch.stack([torch.as_tensor(v, device=counts.device).to(
+                    torch.float64).reshape(()) for v in
+                    (sx, sy, 0 if nope is None else nope)])])
+            all_reduce_sums(self.mesh, sums, scalars)
+            scalars = scalars.cpu().numpy()
+            k = self.n_classes
+            return IterationResult(
+                class_sums=sums.float().cpu().numpy(),
+                counts=np.rint(scalars[:k]).astype(np.int64),
+                peak=(peak.numpy().copy() if peak.is_pinned()
+                      else peak.cpu().numpy()),
+                sx_sum=float(scalars[k]), sy_sum=float(scalars[k + 1]),
+                nope=int(round(scalars[k + 2])))
 
     def _device_buffers(self):
         """Two sets of (images, params, previousmax, free event) of one
@@ -420,7 +429,7 @@ class AlignmentEngine:
                            pin_memory=cuda)
         stream = torch.cuda.current_stream(dev) if cuda else None
         for s, e, imgs, prm, pmb, free in self._batches():
-            with annotate("engine::batch"):
+            with span("engine.step", start=s, end=e):
                 gidx = torch.arange(self.start + s, self.start + e,
                                     device=dev)
                 out, pm_new, nope_b = self._step(imgs, refs_t, prm, gidx,
@@ -439,4 +448,4 @@ class AlignmentEngine:
                     free.record(stream)
         if cuda:
             stream.synchronize()
-        return self._result(sums, counts, sx, sy, nope, peak.numpy().copy())
+        return self._result(sums, counts, sx, sy, nope, peak)

@@ -76,6 +76,7 @@ from ..ops.template_search import (template_search, template_search_shc,
                                    template_supported)
 from ..ops.transform import transform_batch, transform_block
 from ..parallel.mesh import ref_reduce, ref_slice
+from ..utils.profiling import span
 
 _log = logging.getLogger(__name__)
 
@@ -243,8 +244,10 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
     part = _ref_part(refs, mesh)
     sampler = resolve_sampler(sampler, images.device, cfg,
                               n_refs=max(1, part.refs.shape[0]))
-    result = _search(images, part.refs, params, cfg, sampler, fast,
-                     angle_mask, sf)
+    with span("step.search", images.device, sampler=sampler,
+              N=images.shape[0], K=part.refs.shape[0]):
+        result = _search(images, part.refs, params, cfg, sampler, fast,
+                         angle_mask, sf)
     if part.reduce is not None:
         result = merge_ref_slices(result, part.k0, cfg.n_shifts,
                                   part.n_refs, part.reduce)
@@ -290,40 +293,41 @@ def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
     sums add up on the device.  Under a ``ref`` split (``mesh``) only the
     rank's share of the particles (``ref_slice``) is transformed and
     summed; the params and peaks stay whole."""
-    n, h, w = images.shape
-    if global_index is None:
-        global_index = torch.arange(n, device=images.device)
-    if valid is not None:
-        peak = torch.where(valid > 0, peak, 0.0)
-    a, b = ref_slice(n, mesh)
-    if (a, b) != (0, n):
-        sl = slice(a, b)
-        images, global_index = images[sl], global_index[sl]
-        valid = None if valid is None else valid[sl]
-        summed = AlignParams(*[f[sl] for f in new_params])
-    else:
-        summed = new_params
-    n = b - a
-    if shear:
-        sums, counts = class_sum_transform_mm(
-            images, summed, n_classes, global_index=global_index,
-            valid=valid, fast=fast)
-        return _step_output(new_params, summed, sums, counts, peak, valid)
-    block = transform_block(h, w)
-    sums = counts = None
-    for start in range(0, max(n, 1), block):
-        sl = slice(start, start + block)
-        part = AlignParams(*[f[sl] for f in summed])
-        s_b, c_b = class_sum_oe(transform_batch(images[sl], part),
-                                part.ref_id, n_classes,
-                                global_index=global_index[sl],
-                                valid=None if valid is None else valid[sl])
-        if sums is None:
-            sums, counts = s_b, c_b
+    with span("step.sums", images.device, shear=shear):
+        n, h, w = images.shape
+        if global_index is None:
+            global_index = torch.arange(n, device=images.device)
+        if valid is not None:
+            peak = torch.where(valid > 0, peak, 0.0)
+        a, b = ref_slice(n, mesh)
+        if (a, b) != (0, n):
+            sl = slice(a, b)
+            images, global_index = images[sl], global_index[sl]
+            valid = None if valid is None else valid[sl]
+            summed = AlignParams(*[f[sl] for f in new_params])
         else:
-            sums += s_b
-            counts += c_b
-    return _step_output(new_params, summed, sums, counts, peak, valid)
+            summed = new_params
+        n = b - a
+        if shear:
+            sums, counts = class_sum_transform_mm(
+                images, summed, n_classes, global_index=global_index,
+                valid=valid, fast=fast)
+            return _step_output(new_params, summed, sums, counts, peak, valid)
+        block = transform_block(h, w)
+        sums = counts = None
+        for start in range(0, max(n, 1), block):
+            sl = slice(start, start + block)
+            part = AlignParams(*[f[sl] for f in summed])
+            s_b, c_b = class_sum_oe(transform_batch(images[sl], part),
+                                    part.ref_id, n_classes,
+                                    global_index=global_index[sl],
+                                    valid=None if valid is None else valid[sl])
+            if sums is None:
+                sums, counts = s_b, c_b
+            else:
+                sums += s_b
+                counts += c_b
+        return _step_output(new_params, summed, sums, counts, peak, valid)
 
 
 def _step_output(new_params: AlignParams, summed: AlignParams, sums, counts,
@@ -374,16 +378,18 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
                          "scheme only (ring_scheme='cuda')")
     sampler = resolve_sampler(sampler, images.device, cfg,
                               random_method="SHC", n_refs=refs.shape[0])
-    ref_fw = prepare_ref_spectra(refs, cfg)
-    if sampler == "template":
-        result, found = template_search_shc(images, ref_fw, params, cfg,
-                                            previousmax, sf=sf)
-    elif sampler == "matmul":
-        result, found = rotational_shift_search_shc_mm(
-            images, ref_fw, params, cfg, previousmax, fast=fast)
-    else:
-        result, found = rotational_shift_search_shc(images, ref_fw, params,
-                                                    cfg, previousmax)
+    with span("step.search", images.device, sampler=sampler,
+              N=images.shape[0], K=refs.shape[0]):
+        ref_fw = prepare_ref_spectra(refs, cfg)
+        if sampler == "template":
+            result, found = template_search_shc(images, ref_fw, params, cfg,
+                                                previousmax, sf=sf)
+        elif sampler == "matmul":
+            result, found = rotational_shift_search_shc_mm(
+                images, ref_fw, params, cfg, previousmax, fast=fast)
+        else:
+            result, found = rotational_shift_search_shc(
+                images, ref_fw, params, cfg, previousmax)
     decoded = decode_params(result, params, cfg, update_ref=True)
     new_params = AlignParams(*[torch.where(found, new, old)
                                for new, old in zip(decoded, params)])
@@ -416,7 +422,9 @@ def align_step_scf(images, refs, params: AlignParams, global_index, valid,
                          "scheme only (ring_scheme='cuda')")
     sampler = resolve_sampler(sampler, images.device, zero_shift_cfg(cfg),
                               random_method="SCF")
-    new_params, peak = scf_align(images, refs[0], cfg, sampler=sampler,
-                                 fast=fast)
+    with span("step.search", images.device, sampler=sampler,
+              N=images.shape[0], K=1):
+        new_params, peak = scf_align(images, refs[0], cfg, sampler=sampler,
+                                     fast=fast)
     return _finish_step(images, new_params, peak, global_index, valid,
                         n_classes, sampler in SHEAR_SUMS, fast, mesh)

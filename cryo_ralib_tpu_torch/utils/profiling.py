@@ -1,47 +1,165 @@
-"""Tracing and timing helpers (PyTorch).
+"""The port's span recorder (PyTorch).
 
-Counterpart of ``cryo_ralib_tpu/utils/profiling.py``: ``annotate(name)``
-names a phase on the device timeline (an NVTX range, as the reference's
-drivers push one around every phase; nothing on the CPU), ``force`` is
-a completion barrier (a device synchronise), ``DeviceTimer`` times
-phases on the host clock between such barriers, and ``trace(logdir)``
-records a ``torch.profiler`` trace that TensorBoard or Perfetto reads.
+Counterpart of ``cryo_ralib_tpu/utils/profiling.py``.  The drivers, the
+engine and the step name the parts of an alignment job where the work
+happens:
+
+===================  ====================================================
+``job``              one call of ``mref_ali2d`` or ``ali2d_base``
+``driver.prepare``   the stack's upload and normalisation (device time)
+``driver.update``    an iteration's host work outside the engine
+``driver.fourvar``   ``ali2d_base``'s Fourier variance (device time)
+``driver.raw_sums``  ``ali2d_base``'s first sums of the raw stack (device)
+``engine.iterate``   one ``AlignmentEngine.iterate``
+``engine.step``      one step: the resident stack or one streamed batch
+``step.search``      a step's search (device time)
+``step.sums``        a step's transform and class sums (device time)
+``engine.reduce``    the iteration's all-reduce and host reads
+===================  ====================================================
+
+Spans are recorded only while a ``torch.profiler`` profile records
+(``trace(logdir)`` or any other): the decision is taken once, as a
+``job`` opens, so a job is recorded whole or not at all.  Otherwise
+opening a span costs one test and returns a shared null context.
+
+A recorded ``Span`` holds its name, its id, its parent's id, its job's
+id, its start and end on ``time.perf_counter_ns`` and its attributes.
+It also enters ``torch.profiler.record_function(name)``, which puts it
+in the profile's trace beside the kernels.  A span opened with a CUDA
+``device`` records a pair of timing events on that device's current
+stream and never waits for them; ``device_ms()`` reads them when asked
+(elsewhere it is the host time).  ``last_job()`` returns the spans of
+the last recorded job; only ``trace`` writes anything to disk.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """An NVTX range named ``name`` where CUDA is available; nothing
-    else."""
-    if not torch.cuda.is_available():
-        yield
-        return
-    torch.cuda.nvtx.range_push(name)
-    try:
-        yield
-    finally:
-        torch.cuda.nvtx.range_pop()
+class Span:
+    """One recorded span (made by ``span`` / ``job`` while a job records).
+
+    ``parent`` is the enclosing span's ``id`` (None for the job),
+    ``job`` the id shared by every span of one driver call."""
+
+    __slots__ = ("name", "id", "parent", "job", "attrs", "t0_ns", "t1_ns",
+                 "_events", "_fn")
+
+    def __init__(self, name: str, device, attrs: dict):
+        self.name = name
+        self.attrs = attrs
+        self.id = next(_IDS)
+        self.parent = self.job = None
+        self.t0_ns = self.t1_ns = None
+        self._events = None
+        if device is not None and torch.device(device).type == "cuda":
+            stream = torch.cuda.current_stream(device)
+            self._events = (stream, torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+        self._fn = None
+
+    def set(self, **attrs):
+        """Add attributes known only once the span is open."""
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        if _REC.open is None:          # the outermost span: a new job
+            _REC.open, _REC.spans = [], []
+        self.parent = _REC.open[-1].id if _REC.open else None
+        self.job = _REC.open[0].id if _REC.open else self.id
+        _REC.open.append(self)
+        _REC.spans.append(self)
+        self._fn = torch.profiler.record_function(self.name)
+        self._fn.__enter__()
+        self.t0_ns = time.perf_counter_ns()
+        if self._events is not None:
+            self._events[1].record(self._events[0])
+        return self
+
+    def __exit__(self, *exc):
+        if self._events is not None:
+            self._events[2].record(self._events[0])
+        self.t1_ns = time.perf_counter_ns()
+        self._fn.__exit__(*exc)
+        _REC.open.pop()
+        if not _REC.open:
+            _REC.last, _REC.open = _REC.spans, None
+        return False
+
+    @property
+    def host_ms(self) -> float:
+        return (self.t1_ns - self.t0_ns) * 1e-6
+
+    def device_ms(self) -> float:
+        """Device ms between the span's events (waits for the end
+        event); the host ms for a span with no CUDA device."""
+        if self._events is None:
+            return self.host_ms
+        _, a, b = self._events
+        b.synchronize()
+        return a.elapsed_time(b)
 
 
-def force(*_tensors) -> None:
-    """Completion barrier: wait for every queued device operation (the
-    arguments are accepted for the JAX helper's signature)."""
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+class _NullSpan:
+    """The shared context of every span that is not recorded."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        pass
+
+
+class _Recorder:
+    def __init__(self):
+        self.open = None    # the recording job's open spans, or None
+        self.spans = []     # the recording job's spans, in start order
+        self.last = []      # the last recorded job's spans
+
+
+_IDS = itertools.count(1)
+_REC = _Recorder()
+_NULL = _NullSpan()
+
+
+def job(**attrs):
+    """The span of one driver call: recorded, with every span inside it,
+    where a ``torch.profiler`` profile records as it opens."""
+    if _REC.open is None and not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return Span("job", None, attrs)
+
+
+def span(name: str, device=None, **attrs):
+    """A span named ``name`` inside the recording job (nothing outside
+    one).  ``device``: the device whose current stream the span's work
+    is queued on; a CUDA device also times it with events."""
+    if _REC.open is None:
+        return _NULL
+    return Span(name, device, attrs)
+
+
+def last_job() -> list:
+    """The spans of the last recorded job, in start order (empty where
+    no job was recorded)."""
+    return list(_REC.last)
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Record a ``torch.profiler`` trace of the block (the CPU, and the
-    card where CUDA is available) into ``logdir`` as a Chrome trace."""
+    card where CUDA is available), the program's spans among it, into
+    ``logdir`` as a Chrome trace."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -51,34 +169,3 @@ def trace(logdir: str):
     with profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-class DeviceTimer:
-    """Wall-clock phase timer with completion barriers.
-
-    Usage::
-
-        t = DeviceTimer()
-        with t.phase("align"):
-            out = step(...)
-            force(out)
-        print(t.report())
-    """
-
-    def __init__(self):
-        self.times: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.times[name] = self.times.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> str:
-        return "\n".join(f"{k}: {self.times[k] * 1e3:.1f} ms"
-                         f" ({self.counts[k]} calls)" for k in self.times)

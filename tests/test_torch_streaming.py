@@ -387,12 +387,21 @@ def test_cli_mref_streams_under_a_small_limit(tmp_path, monkeypatch, capsys):
 # ---- profiling
 
 def test_profiling_helpers_on_the_cpu(tmp_path):
-    timer = profiling.DeviceTimer()
+    # no profile: a job and its spans are the shared null context
+    assert profiling.job() is profiling.span("engine.step", "cpu")
     with profiling.trace(str(tmp_path / "trace")):
-        for _ in range(2):
-            with timer.phase("align"), profiling.annotate("mref::align_iter"):
-                x = torch.ones(64, 64) @ torch.ones(64, 64)
-                profiling.force(x)
-    assert timer.counts == {"align": 2} and timer.times["align"] > 0
-    assert timer.report().startswith("align: ")
+        with profiling.job(driver="test") as job:
+            for i in range(2):
+                with profiling.span("engine.step", "cpu", start=i) as s:
+                    torch.ones(64, 64) @ torch.ones(64, 64)
+            job.set(n=2)
+        # a span outside the recorded job is not recorded
+        with profiling.span("engine.step", "cpu"):
+            pass
+    spans = profiling.last_job()
+    assert [s.name for s in spans] == ["job", "engine.step", "engine.step"]
+    assert spans[0].attrs == {"driver": "test", "n": 2}
+    assert [s.attrs["start"] for s in spans[1:]] == [0, 1]
+    assert {s.parent for s in spans[1:]} == {spans[0].id}
+    assert s.device_ms() == s.host_ms > 0
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
