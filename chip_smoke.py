@@ -10,7 +10,8 @@ Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card, its power limit and the versions;
   2. build the search kernel (csrc/search.cu, nvcc for sm_90a; eight
      instantiations: mirror or not, angle mask or not, ref group 8 or 1,
-     and the three ablation stages of the default one); print ptxas'
+     the three ablation stages of the default one, and the SHC pick's
+     two: mirror or not, one reference); print ptxas'
      registers and spills and each shape's launch plan (shifts per
      group, image staged in shared memory, shared memory per block);
   3. kernel vs its plain PyTorch version at 90 px / ou=36 / K=8 / xr=3
@@ -42,6 +43,15 @@ Phases (any failure raises and the script exits non-zero):
      the reffree driver;
      the ablation stages of the default variant at K=8 and K=64
      (tools/torch_search_ablate.py's), printed as one JSON line;
+  5b. the kernel's SHC pick (fused_search_shc) against the plain SHC
+     search on the K=1 stack of phase 5, with and without mirrors, at
+     previousmax 1e-23, 0.98 x each particle's exhaustive peak and 3e38:
+     found and the winners equal but where a candidate's peak lies
+     within 1e-5 of the threshold, values and rows within 1e-5 of the
+     row's largest magnitude, out_groups the count the plain pick
+     implies; timed with mirrors at each threshold (the search_shc
+     record: its bound is the K=1 bound times the share of shift groups
+     run at 0.98 x the peaks);
   6. the main path: mref_ali2d on 16384 synthetic 90 px particles, K=8,
      ou=36, xr=yr=3, 6 iterations, through the kernel (its launch count
      must rise by exactly 6); counts sum to N, nothing is NaN, class
@@ -86,9 +96,10 @@ Phases (any failure raises and the script exits non-zero):
      xr=yr=3, ts=1), each between a reset and a read of the counters:
      a. ali2d_base(mode="H"), maxit=6: exactly 6 default launches; kernel
         and plain paths agree on >= 99% of 512 particles;
-     b. ali2d_base(random_method="SHC"), 4 iterations: no kernel launch
-        (the SHC pick has no kernel, as the TPU package has none; the
-        engine that ran is printed), the count of particles that kept
+     b. ali2d_base(random_method="SHC"), 4 iterations: one launch of the
+        kernel's SHC pick an iteration (the TPU package has no such
+        kernel; the engine that ran is printed), the count of particles
+        that kept
         their orientation never above N and falling, nothing NaN;
      c. ali2d_base(random_method="SCF"), 3 iterations: one K=1, one-shift
         launch per iteration; scf_align through the kernel on 512 known
@@ -113,8 +124,9 @@ Phases (any failure raises and the script exits non-zero):
         them); then mref_ali2d, maxit=2, both ways from the host array:
         purity >= 0.9, final assignments agreeing on >= 99.99%;
      c. ali2d_base(random_method="SHC") on reffree A's stack, 2
-        iterations, resident and in batches of 4096: no launch, params
-        and previousmax agreeing on >= 99.9% of particles;
+        iterations, resident and in batches of 4096: one SHC launch an
+        iteration or a batch, params and previousmax agreeing on >= 99.9%
+        of particles;
      d. align_step at ring_len=128 with sampler="auto" on the card: no
         launch, the plain engine logged, winners equal to the plain
         search on the CPU; sampler="kernel" raises ValueError.
@@ -272,6 +284,8 @@ VARIANT_REPLACES = {
     "search_nomirror_masked": "cryo_ralib_tpu/ops/fused_search.py:147",
     "search_k64": "cryo_ralib_tpu/ops/fused_search.py:356",
     "search_k32": "cryo_ralib_tpu/ops/fused_search.py:356",
+    "search_shc": "cryo_ralib_tpu/ops/search.py:366",
+    "search_shc_nomirror": "cryo_ralib_tpu/ops/search.py:366",
 }
 SNRS = (1.0, 0.3, 0.1, 0.03)   # signal variance / noise variance
 F32_PEAK = 67e12     # FLOP/s, H100 SXM, outside the tensor cores
@@ -320,12 +334,13 @@ def geometry(geom, mirror=True, mode="F"):
 
 
 def ptxas_table(report: str) -> dict:
-    """{(NMIRR, MASK, KG, STAGE): {"registers", "spill_bytes"}} of the
-    search kernel's instantiations, from nvcc's -Xptxas -v report
+    """{(NMIRR, MASK, KG, STAGE, PICK): {"registers", "spill_bytes"}} of
+    the search kernel's instantiations, from nvcc's -Xptxas -v report
     (spill bytes: the spill stores)."""
     out, cur = {}, None
     for line in report.splitlines():
-        m = re.search(r"search_kernelILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)E", line)
+        m = re.search(r"search_kernelILi(\d+)ELb(\d)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                      line)
         if m:
             cur = out.setdefault(tuple(map(int, m.groups())), {})
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -496,6 +511,102 @@ def compare(cfg, imgs, rfw, params, kind, label, mask=None):
         check(torch.equal(getattr(p_got, f)[same], getattr(p_want, f)[same]),
               f"{label}: decoded {f} differs")
     return err
+
+
+def shc_candidate_peaks(imgs, rfw, params, cfg):
+    """(N, M*S*K) row peaks of every SHC candidate in priority order
+    (mirror, shift, ref), from the plain search's rows, four shifts at a
+    time."""
+    from cryo_ralib_tpu_torch.ops.ccf import (ccf_rows, ccf_spectra,
+                                              ring_spectra)
+    from cryo_ralib_tpu_torch.ops.polar import polar_resample
+    from cryo_ralib_tpu_torch.ops.search import search_tables
+
+    tables = search_tables(cfg, imgs.device)
+    peaks = []
+    for s0 in range(0, cfg.n_shifts, 4):
+        grid = tables.shifts[s0:s0 + 4]
+        sx = params.shift_x[:, None] + grid[None, :, 0]
+        sy = params.shift_y[:, None] + grid[None, :, 1]
+        orig, mirr = ccf_spectra(ring_spectra(polar_resample(
+            imgs, tables.polar_coords, sx, sy)), rfw)
+        peaks.append(ccf_rows(orig, mirr if cfg.mirror else None,
+                              cfg.ring_len).amax(-1))
+    return torch.cat(peaks, dim=2).reshape(imgs.shape[0], -1)
+
+
+def compare_shc(cfg, imgs, rfw, params, pm, peaks, label):
+    """The kernel's SHC pick (``fused_search_shc``, one launch) against
+    ``rotational_shift_search_shc`` on the same card tensors.  ``found``
+    and the winners (ref, shift, mirror) equal but where a candidate up to
+    either pick has its peak within 1e-5 (relative) of ``previousmax``
+    (at least 90% of particles held); values and rows within 1e-5 of the
+    row's largest magnitude; angles equal but where the row's two highest
+    bins lie within that of each other, and the kernel's bin a peak of
+    the plain row; a particle with no pick -3e38, a zero row and zero
+    indices; ``out_groups`` the count that the plain pick implies (up to
+    the winner's shift group where it is unmirrored, else every group).
+    Returns (max |dval| over the held particles with a pick, the share of
+    a full search's shift groups the kernel ran)."""
+    from cryo_ralib_tpu_torch.ops import fused_search as fs
+    from cryo_ralib_tpu_torch.ops.search import rotational_shift_search_shc
+
+    n, k, s = imgs.shape[0], rfw.shape[0], cfg.n_shifts
+    groups = torch.full((n,), -1, dtype=torch.int32, device=imgs.device)
+    got, found = fs.fused_search_shc(imgs, rfw, params, cfg, pm,
+                                     out_groups=groups)
+    want, found_w = rotational_shift_search_shc(imgs, rfw, params, cfg, pm)
+    torch.cuda.synchronize()
+    total = peaks.shape[1]
+
+    def prio(r, f):
+        p = (r.best_mirror.long() * s + r.best_sidx.long()) * k + r.best_ref
+        return torch.where(f, p, total - 1)
+
+    upto = torch.maximum(prio(got, found), prio(want, found_w))
+    near = (peaks - pm[:, None]).abs() <= 1e-5 * pm.abs()[:, None]
+    near &= torch.arange(total, device=pm.device)[None] <= upto[:, None]
+    ok = ~near.any(1)
+    held = float(ok.float().mean())
+    check(held >= 0.9, f"{label}: only {held:.4f} held away from the "
+          f"threshold")
+    check(torch.equal(found[ok], found_w[ok]), f"{label}: found differs")
+    n_diff = 0
+    for f in ("best_ref", "best_sidx", "best_mirror"):
+        n_diff += int((getattr(got, f) != getattr(want, f))[ok].sum())
+    check(n_diff == 0, f"{label}: {n_diff} winners differ")
+    both = ok & found
+    scale = want.best_row.abs().amax(1)
+    dval = (got.best_val - want.best_val).abs()
+    check(bool((dval <= 1e-5 * scale)[both].all()), f"{label}: values")
+    drow = (got.best_row - want.best_row).abs().amax(1)
+    check(bool((drow <= 1e-5 * scale)[both].all()), f"{label}: rows")
+    top2 = want.best_row.topk(2, dim=1).values
+    clear = both & (top2[:, 0] - top2[:, 1] > 1e-5 * scale)
+    check(torch.equal(got.best_aidx[clear], want.best_aidx[clear]),
+          f"{label}: angles")
+    at = want.best_row.gather(1, got.best_aidx.long()[:, None])[:, 0]
+    check(bool((at >= want.best_val - 1e-5 * scale)[both].all()),
+          f"{label}: the kernel's angle is no peak of the plain row")
+    none = ok & ~found
+    check(bool((got.best_val[none] == -3.0e38).all())
+          and not bool(got.best_row[none].any())
+          and not any(bool(getattr(got, f)[none].any()) for f in
+                      ("best_ref", "best_sidx", "best_mirror", "best_aidx")),
+          f"{label}: a particle with no pick is not zero")
+    group = fs.kernel_plan(cfg.ring_num, cfg.mirror, k, s, imgs.shape[1],
+                           imgs.shape[2])["group"]
+    full = -(-s // group)
+    stop = torch.div(want.best_sidx, group, rounding_mode="floor") + 1
+    implied = torch.where(found_w & (want.best_mirror == 0), stop, full)
+    check(torch.equal(groups[ok].long(), implied[ok].long()),
+          f"{label}: out_groups differ from the plain pick's")
+    share = float(groups.double().sum()) / (n * full)
+    err = float(dval[both].max()) if bool(both.any()) else 0.0
+    log(f"  {label}: {held:.4f} held, {int(found.sum())}/{n} found, "
+        f"max |dval| {err:.3e}, shift groups run {share:.4f} of {full} "
+        f"a particle")
+    return err, share
 
 
 def purity(assign, truth, k):
@@ -731,7 +842,7 @@ def cli_phase(tmp, imgs, tmpl, truth, stack_a, main_path, card) -> dict:
 
 CTF_SCALARS = dict(apix=2.0, voltage=300.0, cs=2.7, w=0.1)
 ALL_VARIANTS = ("search", "search_nomirror", "search_masked",
-                "search_nomirror_masked")
+                "search_nomirror_masked", "search_shc", "search_shc_nomirror")
 NO_LAUNCH = dict.fromkeys(ALL_VARIANTS, 0)
 
 
@@ -852,24 +963,23 @@ def modes_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, mir_a,
         f"; mirror flags matching the truth up to a global flip "
         f"{mirror_share(res, mir_a):.4f}")
 
-    # ---- 10b. SHC: the PyTorch search on the card, by the engine rule
+    # ---- 10b. SHC: the kernel's SHC pick, by the engine rule
     n_shc = 4
     engine = resolve_sampler("auto", dev, geometry(HEADLINE), "SHC")
     lines = ListLogger()
     res, seconds = main_path("reffree SHC", lambda: ali2d_base(
         stack_a, maxit=n_shc, random_method="SHC", log=lines, **rf_kw),
-        NO_LAUNCH)
+        {**NO_LAUNCH, "search_shc": n_shc})
     finite(res, "reffree SHC")
     nope = [int(m.split()[1]) for m in lines.lines if m.startswith("SHC:")]
-    log(f"10b reffree SHC: engine {engine!r} (the PyTorch search: the SHC "
-        f"pick has no kernel), particles that kept their orientation per "
-        f"iteration {nope}")
-    check(engine == "plain", f"SHC engine {engine}")
+    log(f"10b reffree SHC: engine {engine!r} (the kernel's SHC pick), "
+        f"particles that kept their orientation per iteration {nope}")
+    check(engine == "kernel", f"SHC engine {engine}")
     check(len(nope) == n_shc and all(0 <= v <= n for v in nope)
           and nope[0] == 0, f"SHC nope counts {nope}")
     out["reffree_shc"] = mode_line(
         "10b reffree SHC", "ali2d_base(random_method='SHC')", seconds, n_shc,
-        card, f"; no kernel launch; nope {nope}")
+        card, f"; {n_shc} SHC launches; nope {nope}")
     out["reffree_shc"]["nope"] = nope
 
     # ---- 10c. SCF: a K=1, one-shift kernel launch per iteration
@@ -1196,10 +1306,11 @@ def streaming_phase(dev, card, main_path, imgs, tmpl, cls, stack_a) -> dict:
                  random_method="SHC")
     for name, bs in (("resident", None), ("streamed", 4096)):
         lines = ListLogger()
+        batches = 1 if bs is None else -(-len(stack_a) // bs)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_shc_") as tmp:
             r, seconds = main_path(f"reffree SHC {name}", lambda: ali2d_base(
                 stack_a, outdir=tmp, batch_size=bs, log=lines, **rf_kw),
-                NO_LAUNCH)
+                {**NO_LAUNCH, "search_shc": n_shc * batches})
             pm = np.load(os.path.join(tmp, "checkpoint.npz"))["x_previousmax"]
         nope = [int(m.split()[1]) for m in lines.lines if m.startswith("SHC:")]
         shc[name] = (r, pm, nope, seconds)
@@ -2408,7 +2519,7 @@ def template_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1,
     out["reffree_shc"] = mode_line(
         "14c reffree SHC template", "ali2d_base(random_method='SHC', "
         "sampler='template')", seconds, n_shc, card,
-        f"; phase 10b (PyTorch search) {before['shc_s_it']:.4f} "
+        f"; phase 10b (the kernel's SHC pick) {before['shc_s_it']:.4f} "
         f"s/iteration; nope {nope}")
     out["reffree_shc"]["nope"] = nope
 
@@ -2785,8 +2896,8 @@ def main():
     from cryo_ralib_tpu_torch.models.reffree import ali2d_base
     from cryo_ralib_tpu_torch.ops import fused_search as fs
     from cryo_ralib_tpu_torch.ops.ctf_ops import CtfContext
-    from cryo_ralib_tpu_torch.ops.search import (delta_angle_mask,
-                                                 prepare_ref_spectra)
+    from cryo_ralib_tpu_torch.ops.search import (
+        delta_angle_mask, prepare_ref_spectra, rotational_shift_search_shc)
     from cryo_ralib_tpu_torch.params import AlignParams
     from cryo_ralib_tpu_torch.utils.log import RunLogger
     from cryo_ralib_tpu_torch.utils.synthetic import (asymmetric_templates,
@@ -2803,8 +2914,9 @@ def main():
                 or "entry function" in line):
             log("  ptxas: " + line.strip())
     regs = ptxas_table(info["ptxas"])
-    log(f"  registers, spill bytes by (NMIRR, MASK, KG, STAGE): {regs}")
-    check(len(regs) == 11, f"ptxas reports {len(regs)} instantiations")
+    log(f"  registers, spill bytes by (NMIRR, MASK, KG, STAGE, PICK): "
+        f"{regs}")
+    check(len(regs) == 13, f"ptxas reports {len(regs)} instantiations")
     for geom in (HEADLINE, BIG_BOX):
         n_shifts = geometry(geom).n_shifts
         for mirror in (1, 0):
@@ -2990,6 +3102,43 @@ def main():
                              f"{name} 90px K=1 N={N_SLICE}", mask=m)
             var_errs[name].append(errs_n)
             time_search(name + "_k1", cfg1, imgs1, rfw1, m)
+    # ---- 5b. the kernel's SHC pick against the plain one on that stack
+    shc_runs = {}   # previousmax -> {"ms", "plain_ms", "group_share"}
+    for mirror in (True, False):
+        cfg1 = geometry(HEADLINE, mirror)
+        rfw1 = prepare_ref_spectra(torch.as_tensor(tmpl1, device=dev), cfg1)
+        name = fs.variant(cfg1, False, shc=True)
+        peak = fs.fused_search(imgs1, rfw1, params, cfg1).best_val
+        peaks = shc_candidate_peaks(imgs1, rfw1, params, cfg1)
+        for tag, pm in (("1e-23", torch.full_like(peak, 1e-23)),
+                        ("0.98 x peak", 0.98 * peak),
+                        ("3e38", torch.full_like(peak, 3e38))):
+            err, share = compare_shc(
+                cfg1, imgs1, rfw1, params, pm, peaks,
+                f"{name} 90px K=1 N={N_SLICE} previousmax {tag}")
+            var_errs[name].append(err)
+            if not mirror:
+                continue
+            shc_runs[tag] = {
+                "ms": cuda_ms(lambda: fs.fused_search_shc(
+                    imgs1, rfw1, params, cfg1, pm), 3),
+                "plain_ms": cuda_ms(lambda: rotational_shift_search_shc(
+                    imgs1, rfw1, params, cfg1, pm), 1),
+                "group_share": share}
+            log(f"time {name}_k1 previousmax {tag}: kernel "
+                f"{shc_runs[tag]['ms']:.2f} ms, plain "
+                f"{shc_runs[tag]['plain_ms']:.2f} ms at N={N_SLICE}, "
+                f"{share:.4f} of the shift groups run  [{card}]")
+        if mirror:
+            sub, pm = imgs1[:N_CHECK].contiguous(), 0.98 * peak[:N_CHECK]
+            times["search_shc_k1"] = (
+                shc_runs["0.98 x peak"]["ms"],
+                shc_runs["0.98 x peak"]["plain_ms"],
+                cuda_ms(lambda: fs.fused_search_shc(
+                    sub, rfw1, small_params, cfg1, pm), 10),
+                cuda_ms(lambda: rotational_shift_search_shc(
+                    sub, rfw1, small_params, cfg1, pm), 3))
+        del peaks
     imgs64 = scattered_stack(tmpl64, N_SLICE, max_shift=2, noise=1.0,
                              seed=9, device=dev)[0]
     rfw64 = prepare_ref_spectra(torch.as_tensor(tmpl64, device=dev), cfg)
@@ -3252,11 +3401,20 @@ def main():
         "search_nomirror_masked": ("search_nomirror_masked_k1", 1, 1, 1),
         "search_k64": ("search_k64", K_LARGE, 2, 0),
         "search_k32": ("search_k32", K_SPLIT, 2, 0),
+        "search_shc": ("search_shc_k1", 1, 2, 0),
     }
+    # the SHC pick runs a share of the shift groups: its bound is the K=1
+    # search's times the share at the timed threshold (0.98 x each
+    # particle's exhaustive peak)
+    shc = {"group_share": shc_runs["0.98 x peak"]["group_share"],
+           "by_previousmax": shc_runs}
     records = []
     for name, (tkey, k, n_mirr, masked) in shapes.items():
         bound_ms, bound_by = search_bound(
             N_SLICE, HEADLINE["nx"], HEADLINE["ou"], cfg.n_shifts, k, n_mirr)
+        pick = int(name == "search_shc")
+        if pick:
+            bound_ms *= shc["group_share"]
         log(f"{name}: bound {bound_ms:.3f} ms ({bound_by})")
         by_path = launches.get(name, {})
         plan = fs.kernel_plan(HEADLINE["ou"], n_mirr == 2, k, cfg.n_shifts,
@@ -3271,9 +3429,10 @@ def main():
             "plain_ms": times[tkey][1], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "n": N_SLICE, "k": k,
             "ms_n512": times[tkey][2], "plain_ms_n512": times[tkey][3],
-            **regs[(n_mirr, masked, 1 if k == 1 else 8, 0)],
+            **regs[(n_mirr, masked, 1 if k == 1 else 8, 0, pick)],
             "smem_bytes": plan["smem_bytes"], "shift_group": plan["group"],
-            "image_in_smem": plan["image_in_smem"]})
+            "image_in_smem": plan["image_in_smem"],
+            **(shc if pick else {})})
     k1 = times["search_k1"]
     log(f"search default variant at K=1 (reffree unmasked iterations): "
         f"kernel {k1[0]:.2f} ms, plain {k1[1]:.2f} ms at N={N_SLICE}; "

@@ -25,8 +25,9 @@ SHC; refused under SCF and outside its geometry gate), ``matmul`` the
 matmul sampler (the polar samples as bf16 tent products,
 ``ops/polar_mm.py``; every mode); ``template`` and ``matmul`` sum the
 classes by the FFT shear, as the JAX CLI does with them;
-``--random_method=SHC`` and ``--ring_scheme=eman2`` have no kernel and
-run the PyTorch search under ``auto`` (``fused`` is refused there).
+``--random_method=SHC`` runs the kernel's SHC pick under ``auto`` and
+``fused``; ``--ring_scheme=eman2`` has no kernel and runs the PyTorch
+search under ``auto`` (``fused`` is refused there).
 """
 
 from __future__ import annotations

@@ -21,9 +21,9 @@
 //   Outputs: peak value, winning 256-angle row, angle bin, shift index,
 //   ref and mirror flag.
 //
-// Variants: search_kernel<NMIRR, MASK, KG, STAGE>, eight production
-// instantiations (STAGE_FULL) picked at launch (cryo_search_launch); each is
-// one static variant of the TPU body:
+// Variants: search_kernel<NMIRR, MASK, KG, STAGE, PICK>, eight production
+// instantiations (STAGE_FULL, PICK_ARGMAX) picked at launch
+// (cryo_search_launch); each is one static variant of the TPU body:
 //   NMIRR=2, MASK=false  the default variant (mirrored, unmasked, full
 //                        stage; fused_search.py:129).
 //   NMIRR=1              do_mirror=False, --nomirror (fused_search.py:147-152,
@@ -56,6 +56,26 @@
 //                        outputs have the production shapes and values that
 //                        mean nothing.  raw4 (:174-176) is a TPU accumulator
 //                        layout with the default variant's outputs.
+//   PICK=PICK_SHC        stochastic hill climbing, the rule of
+//                        ops/search.py::_shc_fold (the TPU package has no
+//                        kernel for it), launched by cryo_search_launch
+//                        where prevmax is given, for NMIRR 1 and 2, KG 1
+//                        (one reference, as the reference-free driver
+//                        has; SHC with more runs the plain search),
+//                        unmasked.  Stages a-c are shared; stage d
+//                        reduces each candidate row (m, s, k) on its own
+//                        to its peak and its first argmax angle, and the
+//                        block keeps the row of the LOWEST priority
+//                        p = (m*S + s)*K + k whose peak is strictly above
+//                        the particle's previousmax: as e = p*256 + a, the
+//                        least e among passing rows.  A particle with none
+//                        keeps value -3e38, a zero row and zero indices.
+//                        Mirror is the outermost axis of p, so once a
+//                        shift group ends with a winner of m = 0 no later
+//                        shift can hold a lower p: the block leaves the
+//                        shift loop there (every thread holds the same
+//                        best, so the test is block-uniform) and counts
+//                        the groups it ran in out_groups.
 //
 // What bounds it on the H100.  Per particle at the headline geometry
 // (R=36, K=8, S=49) the search needs, per shift, 9216 bilinear samples
@@ -109,6 +129,9 @@
 //   d. the argmax.  Thread k1 of an FFT holds angles k1 + 16 k2 of both
 //      rows; the block reduces (value, e) by the rule above, and the 16
 //      threads that hold a new winning row write it to shared memory.
+//      Under PICK_SHC the 16 threads of an FFT first reduce each of its
+//      two rows to (peak, first argmax angle) with xor shuffles, and the
+//      block reduces the passing rows' e.
 //
 // Shared memory per block: the group's spectra (G*R*128 float2, 36.9 KB
 // per shift at R=36), the ccf rows (G*KG*NMIRR rows of 129 or 130 float2,
@@ -138,6 +161,17 @@
 
 __device__ __forceinline__ bool beats(float v, int e, float bv, int be) {
   return v > bv || (v == bv && e < be);
+}
+
+// Stage d's rule: the exhaustive argmax, or the SHC pick
+enum { PICK_ARGMAX = 0, PICK_SHC = 1 };
+
+// Whether candidate (v, e) replaces the best (bv, be) under PICK: by
+// value, then priority (argmax), or by priority alone among the passing
+// rows (SHC; a row that does not pass carries e = INT_MAX)
+template <int PICK>
+__device__ __forceinline__ bool takes(float v, int e, float bv, int be) {
+  return PICK == PICK_SHC ? e < be : beats(v, e, bv, be);
 }
 
 // Pixel i of the image: from the block's copy in shared memory (SMEM) or
@@ -450,7 +484,7 @@ static inline Plan plan(int n_rings, int n_mirr, int kg, int n_shifts,
   return {g_ldg, false, smem_bytes(n_rings, n_mirr, kg, g_ldg)};
 }
 
-template <int NMIRR, bool MASK, int KG, int STAGE>
+template <int NMIRR, bool MASK, int KG, int STAGE, int PICK>
 __global__ void __launch_bounds__(NTHREADS)
 search_kernel(const float* __restrict__ images,   // (N, H, W)
               const float* __restrict__ acc_sx,   // (N,) accumulated shifts
@@ -461,13 +495,15 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
               const float2* __restrict__ ref_fw,  // (K, R, F) ref spectra
               const float2* __restrict__ twiddle, // (16, 16): [k1][j] W256^(j k1)
               const float* __restrict__ mask,     // (L,) angle mask if MASK
+              const float* __restrict__ prevmax,  // (N,) SHC threshold if SHC
               int h, int w, int n_rings, int n_shifts, int n_refs,
               int group,                          // shifts per group (G)
               int image_in_smem,                  // the image is staged
               float* __restrict__ out_val,        // (N,)
               float* __restrict__ out_row,        // (N, L)
               int* __restrict__ out_aidx, int* __restrict__ out_sidx,
-              int* __restrict__ out_ref, int* __restrict__ out_mirror) {
+              int* __restrict__ out_ref, int* __restrict__ out_mirror,
+              int* __restrict__ out_groups) {     // (N,) groups run if SHC
   static_assert(GMAX == 4, "the ccf switch covers groups of 1 to 4 shifts");
   constexpr int XS = x_stride(NMIRR);
   extern __shared__ __align__(16) float2 smem[];
@@ -504,6 +540,8 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
   float best_v = -3.0e38f;  // identical in every thread
   int best_e = 0x7fffffff;
   float smax = -3.0e38f;    // ablation sink: the largest sample seen
+  const float pm = PICK == PICK_SHC ? prevmax[n] : 0.f;
+  int groups = 0;           // SHC: the shift groups run
   __syncthreads();
 
   for (int s0 = 0; s0 < n_shifts; s0 += group) {
@@ -609,7 +647,7 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
         // rows r0 (real parts) and r0+1 (imaginary parts), angles j + 16 k2
         float tv = -3.0e38f;
         int te = 0x7fffffff;
-        if (act) {
+        if (PICK == PICK_ARGMAX && act) {
 #pragma unroll
           for (int part = 0; part < 2; ++part) {
             if (part == 1 && !has1) break;
@@ -626,11 +664,39 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
             }
           }
         }
+        if (PICK == PICK_SHC) {
+          // each row's peak and its lowest angle among equal values, over
+          // the FFT's 16 threads (xor shuffles stay inside the half-warp)
+#pragma unroll
+          for (int part = 0; part < 2; ++part) {
+            float pv = part ? v[0].y : v[0].x;
+            int pa = j;
+#pragma unroll
+            for (int k2 = 1; k2 < 16; ++k2) {
+              const float raw = part ? v[k2].y : v[k2].x;
+              if (raw > pv) { pv = raw; pa = j + 16 * k2; }
+            }
+#pragma unroll
+            for (int off = 8; off > 0; off >>= 1) {
+              const float ov = __shfl_xor_sync(0xffffffffu, pv, off);
+              const int oa = __shfl_xor_sync(0xffffffffu, pa, off);
+              if (beats(ov, oa, pv, pa)) { pv = ov; pa = oa; }
+            }
+            const int row = r0 + part;
+            const int m = row % NMIRR, gk = row / NMIRR;
+            const int kr = gk % kn, g = gk / kn;
+            const int e = ((m * n_shifts + s0 + g) * n_refs + k0 + kr) * L + pa;
+            if (act && (part == 0 || has1) && pv > pm && e < te) {
+              tv = pv;
+              te = e;
+            }
+          }
+        }
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) {
           const float ov = __shfl_down_sync(0xffffffffu, tv, off);
           const int oe = __shfl_down_sync(0xffffffffu, te, off);
-          if (beats(ov, oe, tv, te)) { tv = ov; te = oe; }
+          if (takes<PICK>(ov, oe, tv, te)) { tv = ov; te = oe; }
         }
         if (lane == 0) { red_v[warp] = tv; red_e[warp] = te; }
         __syncthreads();
@@ -638,8 +704,11 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
         int ge = red_e[0];
 #pragma unroll
         for (int i = 1; i < NWARPS; ++i)
-          if (beats(red_v[i], red_e[i], gv, ge)) { gv = red_v[i]; ge = red_e[i]; }
-        if (beats(gv, ge, best_v, best_e)) {
+          if (takes<PICK>(red_v[i], red_e[i], gv, ge)) {
+            gv = red_v[i];
+            ge = red_e[i];
+          }
+        if (takes<PICK>(gv, ge, best_v, best_e)) {
           best_v = gv;
           best_e = ge;
           const int rest = ge / L;
@@ -656,6 +725,11 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
         // round's first barrier
       }
     }
+    if (PICK == PICK_SHC) {
+      ++groups;
+      // a winner of m = 0 (p < S*K): no later shift holds a lower p
+      if (best_e != 0x7fffffff && best_e / L / n_refs < n_shifts) break;
+    }
   }
 
   __syncthreads();
@@ -664,35 +738,42 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
   out_row[(size_t)n * L + t] = STAGE == STAGE_FULL ? best_row[t]
                                                    : fmaxf(best_row[t], smax);
   if (t == 0) {
-    const int rest = best_e / L;
+    // SHC with no passing row: zero indices (the row stayed zero)
+    const bool none = PICK == PICK_SHC && best_e == 0x7fffffff;
+    const int e = none ? 0 : best_e;
+    const int rest = e / L;
     out_val[n] = best_v;
-    out_aidx[n] = best_e % L;
+    out_aidx[n] = e % L;
     out_ref[n] = rest % n_refs;
     out_sidx[n] = (rest / n_refs) % n_shifts;
     out_mirror[n] = rest / n_refs / n_shifts;
+    if (PICK == PICK_SHC) out_groups[n] = groups;
   }
 }
 
-template <int NMIRR, bool MASK, int KG, int STAGE = STAGE_FULL>
+template <int NMIRR, bool MASK, int KG, int STAGE = STAGE_FULL,
+          int PICK = PICK_ARGMAX>
 static cudaError_t launch(const float* images, const float* acc_sx,
                           const float* acc_sy, const double* polar,
                           const double* radii, const float* shifts,
                           const float* ref_fw,
-                          const float* twiddle, const float* mask, int n,
+                          const float* twiddle, const float* mask,
+                          const float* prevmax, int n,
                           int h, int w, int n_rings, int n_shifts, int n_refs,
                           float* out_val, float* out_row, int* out_aidx,
                           int* out_sidx, int* out_ref, int* out_mirror,
-                          cudaStream_t stream) {
+                          int* out_groups, cudaStream_t stream) {
   const Plan pl = plan(n_rings, NMIRR, KG, n_shifts, h, w);
   cudaError_t err = cudaFuncSetAttribute(
-      search_kernel<NMIRR, MASK, KG, STAGE>,
+      search_kernel<NMIRR, MASK, KG, STAGE, PICK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (err != cudaSuccess) return err;
-  search_kernel<NMIRR, MASK, KG, STAGE><<<n, NTHREADS, pl.smem, stream>>>(
+  search_kernel<NMIRR, MASK, KG, STAGE, PICK>
+      <<<n, NTHREADS, pl.smem, stream>>>(
       images, acc_sx, acc_sy, (const double2*)polar, radii, shifts,
-      (const float2*)ref_fw, (const float2*)twiddle, mask, h, w, n_rings,
-      n_shifts, n_refs, pl.group, (int)pl.image, out_val, out_row, out_aidx,
-      out_sidx, out_ref, out_mirror);
+      (const float2*)ref_fw, (const float2*)twiddle, mask, prevmax, h, w,
+      n_rings, n_shifts, n_refs, pl.group, (int)pl.image, out_val, out_row,
+      out_aidx, out_sidx, out_ref, out_mirror, out_groups);
   return cudaGetLastError();
 }
 
@@ -708,14 +789,15 @@ static cudaError_t launch_kg(int n_refs, const float* images,
                              cudaStream_t stream) {
   if (ref_group(n_refs) == 1)
     return launch<NMIRR, MASK, 1>(images, acc_sx, acc_sy, polar, radii,
-                                  shifts, ref_fw, twiddle, mask, n, h, w,
-                                  n_rings, n_shifts, n_refs, out_val, out_row,
-                                  out_aidx, out_sidx, out_ref, out_mirror,
-                                  stream);
+                                  shifts, ref_fw, twiddle, mask, nullptr, n,
+                                  h, w, n_rings, n_shifts, n_refs, out_val,
+                                  out_row, out_aidx, out_sidx, out_ref,
+                                  out_mirror, nullptr, stream);
   return launch<NMIRR, MASK, 8>(images, acc_sx, acc_sy, polar, radii, shifts,
-                                ref_fw, twiddle, mask, n, h, w, n_rings,
-                                n_shifts, n_refs, out_val, out_row, out_aidx,
-                                out_sidx, out_ref, out_mirror, stream);
+                                ref_fw, twiddle, mask, nullptr, n, h, w,
+                                n_rings, n_shifts, n_refs, out_val, out_row,
+                                out_aidx, out_sidx, out_ref, out_mirror,
+                                nullptr, stream);
 }
 
 extern "C" {
@@ -724,26 +806,41 @@ extern "C" {
 // search, `stage` 0 (STAGE_FULL) except in the ablation harness, which
 // takes the default instantiation only; `polar` and `radii` are the f64
 // tables of ops/fused_search.py::polar_tables, `twiddle` the (16, 16)
-// complex table of ops/fused_search.py::fft_twiddles.  Returns the
-// cudaError_t of the launch (0 = success).
+// complex table of ops/fused_search.py::fft_twiddles.  A non-null
+// `prevmax`, the (N,) f32 thresholds, picks the SHC search (PICK_SHC: one
+// reference, unmasked, full stage), which writes the shift groups each
+// block ran to the (N,) int32 `out_groups`; otherwise both are null.
+// Returns the cudaError_t of the launch (0 = success).
 int cryo_search_launch(const float* images, const float* acc_sx,
                        const float* acc_sy, const double* polar,
                        const double* radii, const float* shifts,
                        const float* ref_fw, const float* twiddle,
-                       const float* mask, int n, int h,
+                       const float* mask, const float* prevmax, int n, int h,
                        int w, int n_rings, int n_shifts, int n_refs,
                        int mirror, int stage, float* out_val, float* out_row,
                        int* out_aidx, int* out_sidx, int* out_ref,
-                       int* out_mirror, void* stream) {
+                       int* out_mirror, int* out_groups, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (prevmax) {
+    if (mask || stage != STAGE_FULL || !out_groups || n_refs != 1)
+      return (int)cudaErrorInvalidValue;
+#define CRYO_SHC(NM)                                                          \
+  launch<NM, false, 1, STAGE_FULL, PICK_SHC>(                                \
+      images, acc_sx, acc_sy, polar, radii, shifts, ref_fw, twiddle,         \
+      nullptr, prevmax, n, h, w, n_rings, n_shifts, n_refs, out_val,         \
+      out_row, out_aidx, out_sidx, out_ref, out_mirror, out_groups, st)
+    const cudaError_t err = mirror ? CRYO_SHC(2) : CRYO_SHC(1);
+#undef CRYO_SHC
+    return (int)err;
+  }
   if (stage != STAGE_FULL) {
     if (!mirror || mask || ref_group(n_refs) != 8)
       return (int)cudaErrorInvalidValue;
 #define CRYO_STAGE(ST)                                                        \
   launch<2, false, 8, ST>(images, acc_sx, acc_sy, polar, radii, shifts,      \
-                          ref_fw, twiddle, mask, n, h, w, n_rings, n_shifts, \
-                          n_refs, out_val, out_row, out_aidx, out_sidx,      \
-                          out_ref, out_mirror, st)
+                          ref_fw, twiddle, mask, nullptr, n, h, w, n_rings,  \
+                          n_shifts, n_refs, out_val, out_row, out_aidx,      \
+                          out_sidx, out_ref, out_mirror, nullptr, st)
     cudaError_t err = cudaErrorInvalidValue;
     if (stage == STAGE_NO_CCF) err = CRYO_STAGE(STAGE_NO_CCF);
     if (stage == STAGE_SAMPLE_ONLY) err = CRYO_STAGE(STAGE_SAMPLE_ONLY);

@@ -125,8 +125,9 @@ def ali2d_base(
     ``snr``.  ``Fourvar`` computes the 2-D Fourier variance of the aligned
     stack each iteration (the FFT-shear engine with bf16 DFTs, as
     ``ali2d_base_tpu``'s ``fourier_variance`` defaults), divides the
-    average's spectrum by it and writes ``varf.hdf``.  ``sampler`` as in ``mref_ali2d``; SHC and eman2
-    run the PyTorch search on either device under "auto"
+    average's spectrum by it and writes ``varf.hdf``.  ``sampler`` as in
+    ``mref_ali2d``; SHC runs the kernel's SHC pick on a CUDA device
+    under "auto", eman2 the PyTorch search on either device
     (``sampler="kernel"`` raises ``ValueError`` there), the matmul
     sampler with ``sampler="matmul"`` in every mode, and the template
     engine with ``sampler="template"`` in every mode but SCF, where it

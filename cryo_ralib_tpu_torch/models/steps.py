@@ -9,17 +9,19 @@ the angle argmax and turns off the parabolic refinement),
 of the raw stack).
 
 Which search runs (``resolve_sampler``): the hand-written CUDA kernel
-takes the standard search on uniform 256-sample rings, full or half
-(mode "F" or "H"); the SHC pick and the eman2 ring scheme have no
-kernel, as the JAX package has no Pallas kernel for them, and run the
-PyTorch search on either device under "auto", and so do the
-per-particle-reference search (``per_particle_ref``) and a geometry
-outside the kernel's gate (``ops/fused_search.py::kernel_gate``: other
-ring lengths, a block larger than the device's shared memory, the int32
-priority bound), as the JAX package's "auto" leaves the Pallas kernel
-there.  Asking for the kernel there raises ``ValueError``; the rule is
-decided from the geometry before any launch, and nothing falls back from
-a kernel that fails to build or launch to the plain search.
+takes the standard search and the SHC pick (``fused_search_shc``, the
+kernel's ``PICK_SHC`` variant, for which the JAX package has no Pallas
+kernel; one reference) on uniform 256-sample rings, full or half (mode
+"F" or "H").  The eman2 ring scheme has no kernel and runs the PyTorch
+search on either device under "auto", and so do SHC with more than one
+reference, the per-particle-reference search
+(``per_particle_ref``) and a geometry outside the kernel's gate
+(``ops/fused_search.py::kernel_gate``: other ring lengths, a block
+larger than the device's shared memory, the int32 priority bound), as
+the JAX package's "auto" leaves the Pallas kernel there.  Asking for the
+kernel there raises ``ValueError``; the rule is decided from the
+geometry before any launch, and nothing falls back from a kernel that
+fails to build or launch to the plain search.
 ``sampler="template"`` runs the template engine
 (``ops/template_search.py``: the search as bf16 matrix products) for the
 standard and the eman2 rings and for SHC, where ``template_supported``
@@ -65,7 +67,8 @@ from ..params import AlignParams, gpu_params_to_align2d
 from ..ops.classavg import class_sum_oe, class_sum_transform_mm
 from ..ops.eman_search import (prepare_ref_spectra_eman,
                                rotational_shift_search_eman)
-from ..ops.fused_search import fused_search, kernel_gate, search_plain
+from ..ops.fused_search import (fused_search, fused_search_shc, kernel_gate,
+                                kernel_plan, search_plain)
 from ..ops.scf import scf_align, zero_shift_cfg
 from ..ops.search import (decode_params, empty_result, merge_ref_slices,
                           prepare_ref_spectra,
@@ -144,10 +147,12 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
     PyTorch search), "template" (the template engine) or "matmul" (the
     matmul sampler).
 
-    "auto" is the kernel for CUDA tensors and plain for CPU tensors,
-    except where there is no kernel: the SHC pick
-    (``random_method="SHC"``), the eman2 ring scheme
-    (``cfg.ring_scheme == "eman2"``), the per-particle-reference search
+    "auto" is the kernel for CUDA tensors and plain for CPU tensors, the
+    standard search and the SHC pick (``random_method="SHC"``) alike,
+    except where there is no kernel: the eman2 ring scheme
+    (``cfg.ring_scheme == "eman2"``), SHC with ``n_refs`` other than one
+    (the kernel's SHC pick is built for the reference-free driver's one
+    reference), the per-particle-reference search
     (``per_particle_ref``) and, on a CUDA device, a geometry
     outside ``kernel_gate`` (``n_refs`` references of ``cfg``'s box;
     ``smem_limit`` defaults to the device's) run plain, which is logged.
@@ -177,14 +182,15 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
                 "template_supported) — use sampler='auto'")
         return "template"
     no_kernel = None
-    if random_method == "SHC":
-        no_kernel = "random_method='SHC' (the kernel has no SHC pick)"
-    elif per_particle_ref:
+    if per_particle_ref:
         no_kernel = ("per_particle_ref (the kernel searches every "
                      "reference)")
     elif cfg is not None and cfg.ring_scheme == "eman2":
         no_kernel = ("ring_scheme='eman2' (the kernel takes uniform "
                      "256-sample rings)")
+    elif random_method == "SHC" and n_refs != 1:
+        no_kernel = (f"random_method='SHC' with {n_refs} references (the "
+                     "kernel's SHC pick is built for one)")
     elif (cfg is not None and sampler != "plain"
           and (sampler == "kernel" or torch.device(device).type == "cuda")):
         gate = kernel_gate(cfg, n_refs, cfg.img_dim, cfg.img_dim,
@@ -364,22 +370,31 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
     ``random_method="SHC"``: each particle takes the first candidate
     above its ``previousmax`` rather than the global argmax; a particle
     with none keeps its params and its ``previousmax`` and counts in
-    ``nope``.  The search is the PyTorch one on either device
-    (``resolve_sampler``), or ``template_search_shc`` with
-    ``sampler="template"`` (``sf`` as in ``align_step``), or
-    ``rotational_shift_search_shc_mm`` with ``sampler="matmul"`` (``fast``
-    as in ``align_step``); ``sampler="kernel"`` raises ``ValueError``.
-    ``mesh`` as in ``align_step``, but every rank of a ref group searches
-    all the references, as the JAX package's SHC step keeps them
-    replicated, and sums its share of the particles (``nope`` too).
+    ``nope``.  The search is ``fused_search_shc`` under "kernel" (the
+    kernel's SHC pick on a CUDA tensor, the plain one on the CPU),
+    ``rotational_shift_search_shc`` under "plain" (``resolve_sampler``),
+    ``template_search_shc`` with ``sampler="template"`` (``sf`` as in
+    ``align_step``), or ``rotational_shift_search_shc_mm`` with
+    ``sampler="matmul"`` (``fast`` as in ``align_step``), each called by
+    its name in this module, where a caller may wrap it.  ``mesh`` as in
+    ``align_step``, but every rank of a ref group searches all the
+    references, as the JAX package's SHC step keeps them replicated, and
+    sums its share of the particles (``nope`` too).
+
+    Where the ``step.search`` span records and the kernel runs (a CUDA
+    tensor), it sets two attributes on the span: ``shc_groups``, the
+    shift groups its blocks ran (a device sum, read when the span's
+    ``attrs`` are read), and ``shc_groups_full``, the groups of a search
+    that ran them all.
     """
     if cfg.ring_scheme != "cuda":
         raise ValueError("random_method='SHC' runs the standard ring "
                          "scheme only (ring_scheme='cuda')")
     sampler = resolve_sampler(sampler, images.device, cfg,
                               random_method="SHC", n_refs=refs.shape[0])
-    with span("step.search", images.device, sampler=sampler,
-              N=images.shape[0], K=refs.shape[0]):
+    n = images.shape[0]
+    with span("step.search", images.device, sampler=sampler, N=n,
+              K=refs.shape[0]) as sp:
         ref_fw = prepare_ref_spectra(refs, cfg)
         if sampler == "template":
             result, found = template_search_shc(images, ref_fw, params, cfg,
@@ -387,6 +402,19 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
         elif sampler == "matmul":
             result, found = rotational_shift_search_shc_mm(
                 images, ref_fw, params, cfg, previousmax, fast=fast)
+        elif sampler == "kernel":
+            count = sp.recording and images.is_cuda
+            groups = (torch.empty(n, dtype=torch.int32, device=images.device)
+                      if count else None)
+            result, found = fused_search_shc(images, ref_fw, params, cfg,
+                                             previousmax, out_groups=groups)
+            if count:
+                with torch.cuda.device(images.device):
+                    group = kernel_plan(cfg.ring_num, cfg.mirror,
+                                        refs.shape[0], cfg.n_shifts,
+                                        *images.shape[1:])["group"]
+                sp.set(shc_groups=groups.sum(),
+                       shc_groups_full=n * -(-cfg.n_shifts // group))
         else:
             result, found = rotational_shift_search_shc(
                 images, ref_fw, params, cfg, previousmax)

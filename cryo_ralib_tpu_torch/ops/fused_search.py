@@ -19,7 +19,11 @@ at :129 with static flags), each with its own launch counter in
   variant (:147-152, :181-183, :289-291, :505-507);
 * ``search_masked`` / ``search_nomirror_masked``: ``angle_mask`` given,
   the ``has_mask=True`` variant (:162-167, :389-394, :439-443, :533-535);
-  the returned row is unmasked (decode with ``refine=False``).
+  the returned row is unmasked (decode with ``refine=False``);
+* ``search_shc`` / ``search_shc_nomirror``: ``fused_search_shc``, the SHC
+  pick of ``rotational_shift_search_shc`` on the kernel's candidates,
+  which no TPU kernel has (the JAX package runs SHC on its plain search);
+  on a CPU tensor it runs that plain search.
 
 Any K runs in one launch, counted under its variant, and under its
 variant and K in ``fused_search.launches_by_k`` (``(variant, K)`` keys,
@@ -54,7 +58,7 @@ from ..config import AlignConfig
 from ..kernels import load_library
 from ..params import AlignParams
 from .search import (SearchResult, plain_shift_chunk, rotational_shift_search,
-                     search_tables)
+                     rotational_shift_search_shc, search_tables)
 
 RING_LEN = 256   # the kernel's angle count (its block has one thread each)
 _NEG_INF = -3.0e38
@@ -73,9 +77,11 @@ def search_plain(images, ref_fw, params: AlignParams, cfg: AlignConfig,
                                    angle_mask=angle_mask)
 
 
-def variant(cfg: AlignConfig, masked: bool) -> str:
-    """The launch-counter key of the kernel variant a search runs."""
-    return ("search" + ("" if cfg.mirror else "_nomirror")
+def variant(cfg: AlignConfig, masked: bool, shc: bool = False) -> str:
+    """The launch-counter key of the kernel variant a search runs (``shc``:
+    the SHC pick, which is never masked)."""
+    return ("search" + ("_shc" if shc else "")
+            + ("" if cfg.mirror else "_nomirror")
             + ("_masked" if masked else ""))
 
 
@@ -271,7 +277,7 @@ def build() -> ctypes.CDLL:
     lib = load_library("search", ["search.cu"])
     ptr = ctypes.c_void_p
     lib.cryo_search_launch.argtypes = (
-        [ptr] * 9 + [ctypes.c_int] * 8 + [ptr] * 6 + [ptr])
+        [ptr] * 10 + [ctypes.c_int] * 8 + [ptr] * 7 + [ptr])
     lib.cryo_search_launch.restype = ctypes.c_int
     lib.cryo_search_plan.argtypes = [ctypes.c_int] * 6 + [ptr] * 2
     lib.cryo_search_plan.restype = ctypes.c_longlong
@@ -424,6 +430,46 @@ def fused_search(images, ref_fw, params: AlignParams, cfg: AlignConfig,
                    fused_search.launches_by_k)
 
 
+def fused_search_shc(images, ref_fw, params: AlignParams, cfg: AlignConfig,
+                     previousmax, out_groups=None):
+    """The SHC search (``random_method="SHC"``) on the kernel's candidates.
+
+    The rule of ``ops/search.py::rotational_shift_search_shc``: each
+    particle takes, of the candidates (mirror, shift, ref) whose row peak
+    is strictly above its ``previousmax``, the one of the lowest priority
+    ``(m * S + s) * K + k``, with that row's first argmax angle.  On a
+    CUDA tensor one launch of the kernel's SHC pick (``csrc/search.cu``,
+    ``PICK_SHC``, built for one reference, as the reference-free driver
+    has; more raise ``ValueError``), whose blocks stop after the first
+    shift group that ends with an unmirrored winner; on a CPU tensor
+    ``rotational_shift_search_shc``.
+
+    Args:
+      images, ref_fw, params, cfg: as ``fused_search`` (no angle mask).
+      previousmax: (N,) float32 thresholds on the device of ``images``.
+      out_groups: optional (N,) int32 tensor there, which receives the
+        shift groups each particle's block ran (the kernel only: given
+        with a CPU tensor it raises ``ValueError``).
+    Returns:
+      ``(SearchResult, found)``, ``found`` an (N,) bool mask; a particle
+      with no passing candidate has value -3e38, a zero row and zero
+      indices.  On the card ``found`` is ``value > previousmax``: a
+      winner's peak passed that test, and -3e38 lies below any threshold
+      that a ccf peak sets.
+    """
+    if images.device.type == "cpu":
+        if out_groups is not None:
+            raise ValueError("out_groups counts the kernel's shift groups; "
+                             "a CPU tensor runs the plain SHC search")
+        return rotational_shift_search_shc(images, ref_fw, params, cfg,
+                                           previousmax)
+    result = _launch(images, ref_fw, params, cfg, None, 0,
+                     fused_search.launches, variant(cfg, False, shc=True),
+                     fused_search.launches_by_k, previousmax=previousmax,
+                     out_groups=out_groups)
+    return result, result.best_val > previousmax
+
+
 # the TPU kernel's ablation stages (fused_search.py:221-233, :329-348)
 # and their codes in csrc/search.cu; "full" is the production search
 STAGES = {"no_ccf": 1, "sample_only": 2, "no_yred": 3}
@@ -455,10 +501,13 @@ def fused_search_stage(images, ref_fw, params: AlignParams,
 
 def _launch(images, ref_fw, params: AlignParams, cfg: AlignConfig,
             angle_mask, stage: int, counts: dict, key: str,
-            by_k: dict | None = None) -> SearchResult:
-    """Check the inputs and launch the kernel on a CUDA tensor; a launch
-    that succeeds adds one to ``counts[key]``, and to ``by_k[(key, K)]``
-    where given (an empty stack launches nothing and counts nothing)."""
+            by_k: dict | None = None, previousmax=None,
+            out_groups=None) -> SearchResult:
+    """Check the inputs and launch the kernel on a CUDA tensor, its SHC
+    pick where ``previousmax`` is given (the groups run go to
+    ``out_groups``, or to a buffer of its own); a launch that succeeds
+    adds one to ``counts[key]``, and to ``by_k[(key, K)]`` where given
+    (an empty stack launches nothing and counts nothing)."""
     if images.device.type != "cuda":
         raise ValueError(f"no search for device {images.device}")
     if cfg.ring_len != RING_LEN or cfg.ring_scheme != "cuda":
@@ -473,6 +522,14 @@ def _launch(images, ref_fw, params: AlignParams, cfg: AlignConfig,
     _check("ref_fw", ref_fw, torch.complex64, (k, r, RING_LEN // 2 + 1), dev)
     _check("params.shift_x", params.shift_x, torch.float32, (n,), dev)
     _check("params.shift_y", params.shift_y, torch.float32, (n,), dev)
+    if previousmax is not None:
+        if k != 1:
+            raise ValueError(f"the kernel's SHC pick takes one reference, "
+                             f"not {k}")
+        _check("previousmax", previousmax, torch.float32, (n,), dev)
+        if out_groups is None:
+            out_groups = torch.empty(n, dtype=torch.int32, device=dev)
+        _check("out_groups", out_groups, torch.int32, (n,), dev)
     if 2 * s * k * RING_LEN >= 2 ** 31:
         raise ValueError("shift grid x refs too large for the kernel's "
                          "int32 priority index")
@@ -499,10 +556,12 @@ def _launch(images, ref_fw, params: AlignParams, cfg: AlignConfig,
             images.data_ptr(), params.shift_x.data_ptr(),
             params.shift_y.data_ptr(), polar.data_ptr(), radii.data_ptr(),
             shifts.data_ptr(), ref_ri.data_ptr(), twiddle.data_ptr(),
-            None if angle_mask is None else angle_mask.data_ptr(),
+            *[None if t is None else t.data_ptr()
+              for t in (angle_mask, previousmax)],
             n, h, w, r, s, k, int(cfg.mirror), stage,
             out_val.data_ptr(), out_row.data_ptr(),
-            *[t.data_ptr() for t in out_i], stream)
+            *[t.data_ptr() for t in out_i],
+            None if out_groups is None else out_groups.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("search kernel launch failed: "
                            + lib.cryo_search_error_string(rc).decode())
@@ -522,7 +581,7 @@ def reset_launches():
 
 
 fused_search.launches = dict.fromkeys(
-    ("search", "search_nomirror", "search_masked", "search_nomirror_masked"),
-    0)
+    ("search", "search_nomirror", "search_masked", "search_nomirror_masked",
+     "search_shc", "search_shc_nomirror"), 0)
 fused_search.launches_by_k = {}
 fused_search_stage.launches = dict.fromkeys(STAGES, 0)

@@ -25,9 +25,10 @@ What one step allocates, per batch of B particles of H x W pixels:
   and the engine's iteration accumulator when streaming;
 * the references and the cached polar, shift and kernel tables;
 * the search's transient, which is over before the transform starts: the
-  kernel's decode (a few (B, 7) gathers); for the PyTorch search (SHC,
-  the eman2 rings, "auto" outside the kernel's gate) its polar samples
-  at ~100 B each (``ops/search.py::PLAIN_SAMPLE_BUDGET``); for SCF the
+  kernel's decode (a few (B, 7) gathers), the SHC pick's too; for the
+  PyTorch search ("plain": the eman2 rings, the CPU, "auto" outside the
+  kernel's gate) its polar samples at ~100 B each
+  (``ops/search.py::PLAIN_SAMPLE_BUDGET``); for SCF the
   scf images (one stack size) besides the rotation search; for the
   template engine (``template_search_bytes``) its bf16 window, its
   template blocks and the largest of its window's translate, its
@@ -193,7 +194,7 @@ def step_footprint(batch: int, n_refs: int, cfg, sampler: str = "kernel",
         tables += ((len(cfg.shift_y_vals) + len(cfg.shift_x_vals)) * q * h
                    * F32)
         search = matmul_search_bytes(batch, n_refs, cfg)
-    elif sampler == "plain" or random_method == "SHC":
+    elif sampler == "plain":
         if cfg.ring_scheme == "eman2":
             samples = min(PLAIN_SAMPLE_BUDGET, batch * q)
         else:

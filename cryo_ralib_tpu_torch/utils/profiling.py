@@ -23,7 +23,9 @@ Spans are recorded only while a ``torch.profiler`` profile records
 opening a span costs one test and returns a shared null context.
 
 A recorded ``Span`` holds its name, its id, its parent's id, its job's
-id, its start and end on ``time.perf_counter_ns`` and its attributes.
+id, its start and end on ``time.perf_counter_ns`` and its attributes
+(``recording`` is True on it, False on the null context, for work done
+only to fill an attribute).
 It also enters ``torch.profiler.record_function(name)``, which puts it
 in the profile's trace beside the kernels.  A span opened with a CUDA
 ``device`` records a pair of timing events on that device's current
@@ -49,12 +51,13 @@ class Span:
     ``parent`` is the enclosing span's ``id`` (None for the job),
     ``job`` the id shared by every span of one driver call."""
 
-    __slots__ = ("name", "id", "parent", "job", "attrs", "t0_ns", "t1_ns",
+    __slots__ = ("name", "id", "parent", "job", "_attrs", "t0_ns", "t1_ns",
                  "_events", "_fn")
+    recording = True
 
     def __init__(self, name: str, device, attrs: dict):
         self.name = name
-        self.attrs = attrs
+        self._attrs = attrs
         self.id = next(_IDS)
         self.parent = self.job = None
         self.t0_ns = self.t1_ns = None
@@ -66,8 +69,18 @@ class Span:
         self._fn = None
 
     def set(self, **attrs):
-        """Add attributes known only once the span is open."""
-        self.attrs.update(attrs)
+        """Add attributes known only once the span is open.  A value may
+        be a one-element tensor on the device (a count the step made
+        there): it becomes a Python number when ``attrs`` is first read,
+        so setting it makes the host wait for nothing."""
+        self._attrs.update(attrs)
+
+    @property
+    def attrs(self) -> dict:
+        for key, value in list(self._attrs.items()):
+            if torch.is_tensor(value):
+                self._attrs[key] = value.item()
+        return self._attrs
 
     def __enter__(self):
         if _REC.open is None:          # the outermost span: a new job
@@ -109,6 +122,8 @@ class Span:
 
 class _NullSpan:
     """The shared context of every span that is not recorded."""
+
+    recording = False
 
     def __enter__(self):
         return self

@@ -250,7 +250,6 @@ def test_cli_fourvar_matches_jax(tmp_path, stacks, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--random_method=SHC", "--sampler=fused"], "sampler='kernel'"),
     (["--ring_scheme=eman2", "--sampler=fused"], "sampler='kernel'"),
     (["--ring_scheme=eman2", "--random_method=SHC"], "eman2"),
 ])
@@ -262,6 +261,20 @@ def test_cli_refused_combinations_raise(tmp_path, stacks, argv, match):
         _run("reffree", "port", _positionals(stacks, "reffree", "mrcs",
                                              str(tmp_path / "o")) + COMMON
              + argv)
+
+
+def test_cli_shc_takes_the_kernel_sampler(tmp_path, stacks):
+    """``--random_method=SHC --sampler=fused`` runs, where the JAX CLI
+    refuses it: the port's kernel has an SHC pick.  On the CPU its search
+    is the plain SHC search, so the files are those of
+    ``--sampler=gather``, bit for bit."""
+    dirs = {s: str(tmp_path / s) for s in ("fused", "gather")}
+    for sampler, d in dirs.items():
+        argv = (_positionals(stacks, "reffree", "mrcs", d) + COMMON
+                + ["--maxit=3", "--random_method=SHC", f"--sampler={sampler}"])
+        assert _run("reffree", "port", argv) == 0
+    _assert_outputs_match(dirs["fused"], dirs["gather"], rel=0.0,
+                          text_atol=0.0)
 
 
 def test_cli_ctf_without_usable_file_exits_2(tmp_path, stacks, capsys):

@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from cryo_ralib_tpu_torch.config import AlignConfig
+from cryo_ralib_tpu_torch.models.engine import AlignmentEngine
 from cryo_ralib_tpu_torch.ops import fused_search as fs
 from cryo_ralib_tpu_torch.ops import search
 from cryo_ralib_tpu_torch.ops.search import decode_params, delta_angle_mask
@@ -473,9 +474,11 @@ def test_scf_align_kernel_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_steps_without_a_kernel_launch_none(cuda_device):
-    """SHC and the eman2 rings run the PyTorch search on the card (the
-    explicit rule of ``resolve_sampler``): no launch is counted, and
-    forcing the kernel raises."""
+    """The eman2 rings, and SHC with two references, run the PyTorch
+    search on the card (the explicit rule of ``resolve_sampler``): no
+    launch is counted, and forcing the kernel raises.  SHC with one
+    reference has the kernel's SHC pick: one launch a step under "auto"
+    and "kernel", none under "plain"."""
     from cryo_ralib_tpu_torch.models.steps import align_step, align_step_shc
 
     nx, n, k = 64, 32, 2
@@ -489,17 +492,206 @@ def test_steps_without_a_kernel_launch_none(cuda_device):
                 shift_rng_y=1.0)
     fs.reset_launches()
     pm = torch.full((n,), 1.0e-23, device=cuda_device)
+    for sampler, launches in (("auto", 1), ("kernel", 2), ("plain", 2)):
+        shc = align_step_shc(imgs, refs[:1], params, gidx, None, pm,
+                             AlignConfig(**geom), n_classes=1,
+                             sampler=sampler)
+        assert int(shc.nope) == 0
+        assert fs.fused_search.launches["search_shc"] == launches, sampler
+    fs.reset_launches()
     shc = align_step_shc(imgs, refs, params, gidx, None, pm,
                          AlignConfig(**geom), n_classes=k)
     assert int(shc.nope) == 0
+    assert not any(fs.fused_search.launches.values())
+    with pytest.raises(ValueError, match="sampler='kernel'"):
+        align_step_shc(imgs, refs, params, gidx, None, pm,
+                       AlignConfig(**geom), n_classes=k, sampler="kernel")
+    cfg = AlignConfig(**geom)
+    with pytest.raises(ValueError, match="one reference"):
+        fs.fused_search_shc(imgs, search.prepare_ref_spectra(refs, cfg),
+                            params, cfg, pm)
     out = align_step(imgs, refs, params, gidx, None,
                      AlignConfig(ring_scheme="eman2", **geom), n_classes=k)
     assert int(out.counts.sum()) == n
     assert not any(fs.fused_search.launches.values())
     with pytest.raises(ValueError, match="sampler='kernel'"):
-        align_step_shc(imgs, refs, params, gidx, None, pm,
-                       AlignConfig(**geom), n_classes=k, sampler="kernel")
-    with pytest.raises(ValueError, match="sampler='kernel'"):
         align_step(imgs, refs, params, gidx, None,
                    AlignConfig(ring_scheme="eman2", **geom), n_classes=k,
                    sampler="kernel")
+
+
+# ---- the SHC pick (``fused_search_shc``, the kernel's PICK_SHC variant)
+
+def _candidate_peaks(imgs, rfw, params, cfg):
+    """(N, M*S*K) row peaks of every SHC candidate, in priority order
+    (mirror, shift, ref), from the plain search's rows."""
+    from cryo_ralib_tpu_torch.ops.ccf import (ccf_rows, ccf_spectra,
+                                              ring_spectra)
+    from cryo_ralib_tpu_torch.ops.polar import polar_resample
+
+    tables = search.search_tables(cfg, imgs.device)
+    peaks = []
+    for s0 in range(0, cfg.n_shifts, 8):
+        grid = tables.shifts[s0:s0 + 8]
+        sx = params.shift_x[:, None] + grid[None, :, 0]
+        sy = params.shift_y[:, None] + grid[None, :, 1]
+        orig, mirr = ccf_spectra(ring_spectra(polar_resample(
+            imgs, tables.polar_coords, sx, sy)), rfw)
+        peaks.append(ccf_rows(orig, mirr if cfg.mirror else None,
+                              cfg.ring_len).amax(-1))
+    return torch.cat(peaks, dim=2).reshape(imgs.shape[0], -1)
+
+
+def _check_shc(got, found, groups, want, found_w, pm, peaks, cfg, k):
+    """The kernel's SHC pick against the plain one: ``found`` and the
+    winners equal, but where a candidate up to either pick has its peak
+    within 1e-5 (relative) of ``previousmax``; values and rows within 1e-5
+    of the row's largest magnitude, angles equal but where the row's two
+    highest bins lie within that of each other; ``out_groups`` the count
+    that the plain pick implies.  Returns the mask of the particles held
+    exactly."""
+    torch.cuda.synchronize()
+    s, total = cfg.n_shifts, peaks.shape[1]
+
+    def prio(r, f):
+        p = (r.best_mirror.long() * s + r.best_sidx.long()) * k + r.best_ref
+        return torch.where(f, p, total - 1)
+
+    upto = torch.maximum(prio(got, found), prio(want, found_w))
+    near = (peaks - pm[:, None]).abs() <= 1e-5 * pm.abs()[:, None]
+    near &= torch.arange(total, device=pm.device)[None] <= upto[:, None]
+    ok = ~near.any(1)
+    assert float(ok.float().mean()) >= 0.9
+    assert torch.equal(found[ok], found_w[ok])
+    for f in ("best_ref", "best_sidx", "best_mirror"):
+        assert torch.equal(getattr(got, f)[ok], getattr(want, f)[ok]), f
+    both = ok & found
+    scale = want.best_row.abs().amax(1)
+    assert bool(((got.best_val - want.best_val).abs()
+                 <= 1e-5 * scale)[both].all())
+    assert bool(((got.best_row - want.best_row).abs().amax(1)
+                 <= 1e-5 * scale)[both].all())
+    top2 = want.best_row.topk(2, dim=1).values
+    clear = both & (top2[:, 0] - top2[:, 1] > 1e-5 * scale)
+    assert torch.equal(got.best_aidx[clear], want.best_aidx[clear])
+    at = want.best_row.gather(1, got.best_aidx.long()[:, None])[:, 0]
+    assert bool((at >= want.best_val - 1e-5 * scale)[both].all())
+    none = ok & ~found
+    assert bool((got.best_val[none] == -3.0e38).all())
+    assert not got.best_row[none].any()
+    for f in ("best_ref", "best_sidx", "best_mirror", "best_aidx"):
+        assert not getattr(got, f)[none].any(), f
+    implied = _implied_groups(want, found_w, s, _shc_group(cfg, k))
+    assert torch.equal(groups[ok], implied[ok])
+    return ok
+
+
+def _shc_group(cfg, k):
+    """The kernel's shifts per group at this geometry."""
+    return fs.kernel_plan(cfg.ring_num, cfg.mirror, k, cfg.n_shifts,
+                          cfg.img_dim, cfg.img_dim)["group"]
+
+
+def _implied_groups(result, found, n_shifts, group):
+    """(N,) shift groups that the kernel's early stop runs to reach the
+    SHC pick ``result``: up to the winner's group where it is unmirrored,
+    else all ``ceil(S / group)`` of them."""
+    stop = torch.div(result.best_sidx, group, rounding_mode="floor") + 1
+    return torch.where(found & (result.best_mirror == 0), stop,
+                       -(-n_shifts // group)).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thresholds", ["init", "none", "near", "closer"])
+@pytest.mark.parametrize("mirror", [True, False], ids=["mirror", "nomirror"])
+def test_kernel_shc_matches_plain(cuda_device, mirror, thresholds):
+    """``fused_search_shc`` (one PICK_SHC launch) against
+    ``rotational_shift_search_shc`` at the headline geometry and K=1 (the
+    kernel's SHC pick takes one reference), with and without the mirror
+    channel: ``previousmax`` 1e-23 (every particle stops after its first
+    shift group), 3e38 (nothing passes:
+    the plain version's fields), 0.98 x each particle's exhaustive peak
+    (picks across the whole grid) and 0.999 x (where a mirrored particle
+    picks a mirrored candidate after every shift group: the ring means
+    keep the unmirrored peaks within 2% of the best)."""
+    cfg = AlignConfig(img_dim=90, ring_num=36, shift_step=1.0,
+                      shift_rng_x=3.0, shift_rng_y=3.0, mirror=mirror)
+    k, n = 1, 64
+    tmpl = asymmetric_templates(k, 90)
+    imgs = scattered_stack(tmpl, n, max_shift=2, noise=0.3, seed=13,
+                           device=cuda_device, mirror=mirror)[0].contiguous()
+    params = _params(n, cuda_device, seed=14)
+    rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
+                                                     device=cuda_device), cfg)
+    pm = {"init": lambda: torch.full((n,), search.PREVIOUSMAX_INIT,
+                                     device=cuda_device),
+          "none": lambda: torch.full((n,), 3.0e38, device=cuda_device),
+          "near": lambda: 0.98 * fs.search_plain(imgs, rfw, params,
+                                                 cfg).best_val,
+          "closer": lambda: 0.999 * fs.search_plain(imgs, rfw, params,
+                                                    cfg).best_val
+          }[thresholds]()
+    key = fs.variant(cfg, False, shc=True)
+    before = fs.fused_search.launches[key]
+    groups = torch.full((n,), -1, dtype=torch.int32, device=cuda_device)
+    got, found = fs.fused_search_shc(imgs, rfw, params, cfg, pm,
+                                     out_groups=groups)
+    assert fs.fused_search.launches[key] == before + 1
+    want, found_w = search.rotational_shift_search_shc(imgs, rfw, params,
+                                                       cfg, pm)
+    ok = _check_shc(got, found, groups, want, found_w, pm,
+                    _candidate_peaks(imgs, rfw, params, cfg), cfg, k)
+    full = -(-cfg.n_shifts // _shc_group(cfg, k))
+    if thresholds == "init":
+        assert bool(found.all()) and bool((groups == 1).all())
+    if thresholds == "none":
+        assert bool(ok.all()) and not bool(found.any())
+        assert bool((groups == full).all())
+        for f in search.SearchResult._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    if thresholds in ("near", "closer"):
+        assert bool(found.all())
+        assert len(set(got.best_sidx.tolist())) >= 4
+        assert int(groups.min()) < int(groups.max())
+    if thresholds == "closer" and mirror:
+        assert bool((got.best_mirror == 1).any())
+        assert bool((groups[got.best_mirror == 1] == full).all())
+
+
+@pytest.mark.cuda
+def test_kernel_shc_streamed_matches_resident(cuda_device):
+    """SHC through the engine on the card: "auto" launches the SHC pick
+    once an iteration on a resident stack and once a batch on a streamed
+    one, and both give the same params and ``previousmax`` bit for bit
+    (a block searches one particle); the plain engine, which launches
+    nothing, leaves nearly every particle at the same mirror and shifts
+    (a pick moves only where a candidate's peak sits at its threshold)."""
+    cfg = AlignConfig(img_dim=90, ring_num=36, shift_step=1.0,
+                      shift_rng_x=3.0, shift_rng_y=3.0)
+    tmpl = asymmetric_templates(1, 90)
+    n, batch, iters = 96, 40, 3
+    imgs = scattered_stack(tmpl, n, max_shift=2, noise=0.3,
+                           seed=15)[0].numpy()
+    refs = imgs.mean(0)[None]
+    out = {}
+    for name, kw in (("resident", {}), ("streamed", {"batch_size": batch}),
+                     ("plain", {"sampler": "plain"})):
+        fs.reset_launches()
+        eng = AlignmentEngine(imgs, cfg, n_classes=1, device=cuda_device,
+                              random_method="SHC", **kw)
+        assert eng.resident == (name != "streamed")
+        for _ in range(iters):
+            eng.iterate(refs)
+        out[name] = (eng.params_np(), eng.previousmax_np(),
+                     fs.fused_search.launches["search_shc"])
+    assert out["resident"][2] == iters
+    assert out["streamed"][2] == iters * -(-n // batch)
+    assert out["plain"][2] == 0
+    for f in AlignParams._fields:
+        assert np.array_equal(getattr(out["resident"][0], f),
+                              getattr(out["streamed"][0], f)), f
+    assert np.array_equal(out["resident"][1], out["streamed"][1])
+    got, want = out["resident"][0], out["plain"][0]
+    same = ((got.mirror == want.mirror) & (got.shift_x == want.shift_x)
+            & (got.shift_y == want.shift_y))
+    assert same.mean() >= 0.9

@@ -28,7 +28,7 @@ from cryo_ralib_tpu_torch.config import AlignConfig
 from cryo_ralib_tpu_torch.models import ali2d_base
 from cryo_ralib_tpu_torch.models import steps
 from cryo_ralib_tpu_torch.models.engine import AlignmentEngine
-from cryo_ralib_tpu_torch.ops import search
+from cryo_ralib_tpu_torch.ops import fused_search, search
 from cryo_ralib_tpu_torch.params import AlignParams, params_from_numpy
 from cryo_ralib_tpu_torch.utils.log import RunLogger
 
@@ -201,9 +201,9 @@ RESOLVE = [
     ("auto", "cuda", "cuda", "", "kernel"),
     ("kernel", "cuda", "cuda", "", "kernel"),
     ("plain", "cuda", "cuda", "", "plain"),
-    ("auto", "cuda", "cuda", "SHC", "plain"),
+    ("auto", "cuda", "cuda", "SHC", "kernel"),
     ("plain", "cuda", "cuda", "SHC", "plain"),
-    ("kernel", "cuda", "cuda", "SHC", ValueError),
+    ("kernel", "cuda", "cuda", "SHC", "kernel"),
     ("auto", "cuda", "cuda", "SCF", "kernel"),
     ("auto", "cpu", "cuda", "SCF", "plain"),
     ("auto", "cuda", "eman2", "", "plain"),
@@ -215,15 +215,18 @@ RESOLVE = [
     ("template", "cuda", "cuda", "SHC", "template"),
     ("template", "cuda", "eman2", "", "template"),
     ("template", "cuda", "cuda", "SCF", ValueError),
+    ("auto", "cpu", "cuda", "SHC", "plain"),
+    ("auto", "cuda", "eman2", "SHC", "plain"),
+    ("kernel", "cuda", "eman2", "SHC", ValueError),
 ]
 
 
 @pytest.mark.parametrize("sampler,device,scheme,method,want", RESOLVE)
 def test_resolve_sampler_rules(sampler, device, scheme, method, want):
-    """The explicit engine rule: the kernel where there is one (mode H
-    and SCF's rotation stage included), the PyTorch search for SHC and
-    eman2 on either device, an error where the kernel is forced there,
-    as JAX's ``sampler="fused"`` raises."""
+    """The explicit engine rule: the kernel where there is one (mode H,
+    SCF's rotation stage and the SHC pick included), the PyTorch search
+    on the CPU and for eman2 on either device, an error where the kernel
+    is forced there, as JAX's ``sampler="fused"`` raises."""
     cfg = _cfgs(ring_scheme=scheme)[1]
     if want is ValueError:
         with pytest.raises(ValueError, match="sampler"):
@@ -239,7 +242,8 @@ def test_resolve_sampler_rules(sampler, device, scheme, method, want):
 ENGINE_ERRORS = [
     (dict(random_method="SHC", delta=15.0), {}, "delta"),
     (dict(random_method="SCF", delta=15.0), dict(mode="H"), "delta"),
-    (dict(random_method="SHC", sampler="kernel"), {}, "sampler='kernel'"),
+    (dict(random_method="SHC", sampler="kernel"), dict(ring_len=128),
+     "sampler='kernel'"),
     (dict(sampler="kernel"), dict(ring_scheme="eman2"), "sampler='kernel'"),
     (dict(random_method="SHC"), dict(ring_scheme="eman2"), "standard ring"),
     (dict(random_method="XYZ"), {}, "unsupported random_method"),
@@ -254,6 +258,99 @@ def test_engine_refuses_what_jax_refuses(kw, geom, match):
     with pytest.raises(ValueError, match=match):
         AlignmentEngine(data, _cfgs(**geom)[1], n_classes=1, device="cpu",
                         **kw)
+
+
+@pytest.mark.parametrize("sampler,want", [("auto", "plain"),
+                                           ("kernel", ValueError)])
+def test_shc_outside_the_kernel_gate_stays_plain(sampler, want):
+    """SHC takes the kernel only where ``kernel_gate`` admits the
+    geometry: a device whose shared memory holds no block of it runs the
+    plain SHC search under "auto" and refuses "kernel"."""
+    cfg = _cfgs()[1]
+    assert steps.resolve_sampler(sampler, "cuda", cfg, "SHC") == "kernel"
+    if want is ValueError:
+        with pytest.raises(ValueError, match="sampler='kernel'"):
+            steps.resolve_sampler(sampler, "cuda", cfg, "SHC",
+                                  smem_limit=48 * 1024)
+    else:
+        assert steps.resolve_sampler(sampler, "cuda", cfg, "SHC",
+                                     smem_limit=48 * 1024) == want
+
+
+@pytest.mark.parametrize("sampler,want", [("auto", "plain"),
+                                           ("kernel", ValueError)])
+def test_shc_with_more_than_one_reference_stays_plain(sampler, want):
+    """The kernel's SHC pick is built for one reference (the
+    reference-free driver's): SHC with more on a CUDA device runs the
+    plain search under "auto" and refuses "kernel", while the standard
+    search with as many takes the kernel."""
+    cfg = _cfgs()[1]
+    assert steps.resolve_sampler(sampler, "cuda", cfg, "", n_refs=8) == \
+        "kernel"
+    if want is ValueError:
+        with pytest.raises(ValueError, match="SHC' with 8 references"):
+            steps.resolve_sampler(sampler, "cuda", cfg, "SHC", n_refs=8)
+    else:
+        assert steps.resolve_sampler(sampler, "cuda", cfg, "SHC",
+                                     n_refs=8) == want
+
+
+def test_steps_call_the_kernel_shc_search_by_a_search_shc_name(monkeypatch):
+    """``align_step_shc`` under "kernel" calls the kernel's SHC search as
+    the module global ``models.steps.fused_search_shc``, a name that
+    holds ``search_shc``: a caller that wraps every such global (the
+    benchmark's capture) sees each SHC search, whichever runs."""
+    names = sorted(n for n, f in vars(steps).items()
+                   if "search_shc" in n and callable(f))
+    assert "fused_search_shc" in names
+    assert steps.fused_search_shc is fused_search.fused_search_shc
+    calls = []
+
+    def wrapped(images, ref_fw, params, cfg, previousmax, *a, **k):
+        calls.append(images.shape[0])
+        return fused_search.fused_search_shc(images, ref_fw, params, cfg,
+                                             previousmax, *a, **k)
+
+    monkeypatch.setattr(steps, "fused_search_shc", wrapped)
+    _, cfg, refs, imgs, _, tp = _case(1, 3)
+    pm = torch.full((N,), search.PREVIOUSMAX_INIT)
+    out = steps.align_step_shc(torch.as_tensor(imgs), torch.as_tensor(refs),
+                               tp, torch.arange(N), None, pm, cfg,
+                               n_classes=1, sampler="kernel")
+    assert calls == [N] and int(out.nope) == 0
+
+
+@pytest.mark.parametrize("thresholds", ["init", "mixed", "high"])
+@pytest.mark.parametrize("mirror", [True, False], ids=["mirror", "nomirror"])
+def test_fused_search_shc_on_the_cpu_is_the_plain_search(thresholds, mirror):
+    """On a CPU tensor ``fused_search_shc`` is ``rotational_shift_search_shc``
+    bit for bit; it has no kernel whose shift groups ``out_groups`` could
+    count, so asking for them raises."""
+    _, cfg, refs, imgs, _, tp = _case(3, 5, mirror=mirror)
+    imgs = torch.as_tensor(imgs)
+    rfw = search.prepare_ref_spectra(torch.as_tensor(refs), cfg)
+    peak = search.rotational_shift_search(imgs, rfw, tp, cfg).best_val
+    factor = {"init": None, "high": torch.full((N,), 1.1),
+              "mixed": torch.as_tensor(np.random.default_rng(0).choice(
+                  [0.5, 0.9, 1.1], N), dtype=torch.float32)}[thresholds]
+    pm = (torch.full((N,), search.PREVIOUSMAX_INIT) if factor is None
+          else peak * factor)
+    got, found = fused_search.fused_search_shc(imgs, rfw, tp, cfg, pm)
+    want, found_w = search.rotational_shift_search_shc(imgs, rfw, tp, cfg, pm)
+    assert torch.equal(found, found_w)
+    for f in search.SearchResult._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    with pytest.raises(ValueError, match="out_groups"):
+        fused_search.fused_search_shc(
+            imgs, rfw, tp, cfg, pm,
+            out_groups=torch.zeros(N, dtype=torch.int32))
+    if thresholds == "init":
+        assert found.all()
+    if thresholds == "high":
+        assert not found.any()
+        assert (got.best_val == -3.0e38).all() and not got.best_row.any()
+    if thresholds == "mixed":
+        assert found.any() and not found.all()
 
 
 def test_engine_shc_previousmax_round_trip():

@@ -130,3 +130,33 @@ def test_the_spans_are_user_annotations_of_the_trace(tmp_path):
     assert len(profiling.last_job()) == sum(
         1 for e in events if e.get("cat") == "user_annotation"
         and e["name"] in PROGRAM_SPANS)
+
+
+def test_the_kernel_shc_search_counts_its_shift_groups():
+    """The SHC step's ``step.search`` span carries the shift groups that
+    the kernel's blocks ran only where the kernel ran: on the CPU,
+    "kernel" runs the plain pick and the span holds no count.  The count
+    is set as a one-element tensor (a device sum on the card) and read as
+    an int when the span's ``attrs`` are read."""
+    imgs, _ = _stack()
+    with _profile():
+        ali2d_base(imgs, ou=12, xr=1, ts=1, maxit=MAXIT, device="cpu",
+                   log=RunLogger(None, quiet=True), random_method="SHC",
+                   sampler="kernel")
+    spans = profiling.last_job()
+    assert spans[0].attrs["sampler"] == "kernel"
+    searches = [s for s in spans if s.name == "step.search"]
+    assert len(searches) == MAXIT
+    for s in searches:
+        assert "shc_groups" not in s.attrs
+        assert "shc_groups_full" not in s.attrs
+    with _profile():
+        with profiling.job():
+            with profiling.span("step.search") as sp:
+                assert sp.recording
+                sp.set(shc_groups=torch.ones(N, dtype=torch.int32).sum(),
+                       shc_groups_full=3 * N)
+    assert not profiling.span("step.search").recording
+    attrs = profiling.last_job()[1].attrs
+    assert type(attrs["shc_groups"]) is int and attrs["shc_groups"] == N
+    assert attrs["shc_groups_full"] == 3 * N
