@@ -227,55 +227,61 @@ def mref_ali2d(
                            for j in range(numref)]
 
                 # ---- reference update on the host
-                ave_fsc = None
-                c_fsc = 0
-                frsc = None
-                new_refs = np.empty_like(refi)
-                vanished = []
-                if ctf_ctx is not None:
-                    # Wiener-restored combined averages replace the sums over
-                    # the counts; the FSC below still takes the raw even/odd
-                    # halves
-                    wiener = ctf_ctx.restore(sums[:, 0] + sums[:, 1], assign)
-                for j in range(numref):
-                    if counts[j] < 4:
-                        # vanished class: reseed with a random particle, sent
-                        # by the rank that holds it
-                        pick = rng.randint(0, n - 1)
-                        members[j] = [pick]
-                        owner = block_owner(pick, n, mesh)
-                        new_refs[j] = broadcast_refs(
-                            data[pick - start].cpu().numpy()
-                            if start <= pick < stop
-                            else np.zeros_like(new_refs[j]), mesh, src=owner)
-                        vanished.append(j)
-                    elif not root:
-                        continue
-                    else:
-                        cur = fsc(sums[j, 0], sums[j, 1], 1.0)
-                        if write_dir:
-                            write_fsc(os.path.join(outdir, "drm%03d%04d.txt"
-                                                   % (it, j)), *cur)
-                        new_refs[j] = (
-                            wiener[j] if ctf_ctx is not None else
-                            (sums[j, 0] + sums[j, 1]) / float(counts[j]))
-                        if ave_fsc is None:
-                            ave_fsc = np.array(cur[1], np.float64)
-                            c_fsc = 1
+                with span("driver.refs", classes=numref) as refs_span:
+                    ave_fsc = None
+                    c_fsc = 0
+                    frsc = None
+                    new_refs = np.empty_like(refi)
+                    vanished = []
+                    if ctf_ctx is not None:
+                        # Wiener-restored combined averages replace the sums
+                        # over the counts; the FSC below still takes the raw
+                        # even/odd halves
+                        wiener = ctf_ctx.restore(sums[:, 0] + sums[:, 1],
+                                                 assign)
+                    for j in range(numref):
+                        if counts[j] < 4:
+                            # vanished class: reseed with a random particle,
+                            # sent by the rank that holds it
+                            pick = rng.randint(0, n - 1)
+                            members[j] = [pick]
+                            owner = block_owner(pick, n, mesh)
+                            new_refs[j] = broadcast_refs(
+                                data[pick - start].cpu().numpy()
+                                if start <= pick < stop
+                                else np.zeros_like(new_refs[j]), mesh,
+                                src=owner)
+                            vanished.append(j)
+                        elif not root:
+                            continue
                         else:
-                            ave_fsc += np.asarray(cur[1])
-                            c_fsc += 1
-                        frsc = cur
-                if ave_fsc is not None and ave_fsc.sum() != 0:
-                    ave_fsc /= float(c_fsc)
-                    frsc = (frsc[0], ave_fsc, frsc[2])
+                            cur = fsc(sums[j, 0], sums[j, 1], 1.0)
+                            if write_dir:
+                                write_fsc(os.path.join(
+                                    outdir, "drm%03d%04d.txt" % (it, j)),
+                                    *cur)
+                            new_refs[j] = (
+                                wiener[j] if ctf_ctx is not None else
+                                (sums[j, 0] + sums[j, 1]) / float(counts[j]))
+                            if ave_fsc is None:
+                                ave_fsc = np.array(cur[1], np.float64)
+                                c_fsc = 1
+                            else:
+                                ave_fsc += np.asarray(cur[1])
+                                c_fsc += 1
+                            frsc = cur
+                    if ave_fsc is not None and ave_fsc.sum() != 0:
+                        ave_fsc /= float(c_fsc)
+                        frsc = (frsc[0], ave_fsc, frsc[2])
 
-                for j in range(numref if root else 0):
-                    filtered = (user_func([mask, center, new_refs[j], frsc])[0]
-                                if frsc is not None else new_refs[j])
-                    new_refs[j] = normalize_mask(
-                        torch.as_tensor(np.asarray(filtered, np.float32)),
-                        mask_host, no_sigma=True).numpy()
+                    for j in range(numref if root else 0):
+                        filtered = (
+                            user_func([mask, center, new_refs[j], frsc])[0]
+                            if frsc is not None else new_refs[j])
+                        new_refs[j] = normalize_mask(
+                            torch.as_tensor(np.asarray(filtered, np.float32)),
+                            mask_host, no_sigma=True).numpy()
+                    refs_span.set(vanished=len(vanished))
                 if write_dir:
                     write_class_averages(
                         os.path.join(outdir, "aqm%03d.hdf" % it),

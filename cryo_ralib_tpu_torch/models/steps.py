@@ -209,6 +209,17 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
     return sampler
 
 
+def _search_size(images, cfg: AlignConfig, sampler: str, k: int) -> dict:
+    """The ``step.search`` span's size counters: the box, the rings, the
+    shifts and mirror channels searched, and ``ref_groups``, the groups
+    of 8 references (one of one at K=1) that each of the kernel's blocks
+    loops over, 0 where another search runs."""
+    kernel = sampler == "kernel" and images.is_cuda
+    return dict(box=images.shape[-1], rings=cfg.ring_num,
+                shifts=cfg.n_shifts, mirrors=2 if cfg.mirror else 1,
+                ref_groups=-(-k // 8) if kernel else 0)
+
+
 def align_step(images, refs, params: AlignParams, global_index, valid,
                cfg: AlignConfig, *, n_classes: int, update_ref: bool = True,
                sampler: str = "auto", fast: bool = True, angle_mask=None,
@@ -250,8 +261,10 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
     part = _ref_part(refs, mesh)
     sampler = resolve_sampler(sampler, images.device, cfg,
                               n_refs=max(1, part.refs.shape[0]))
+    k = part.refs.shape[0]
     with span("step.search", images.device, sampler=sampler,
-              N=images.shape[0], K=part.refs.shape[0]):
+              N=images.shape[0], K=k,
+              **_search_size(images, cfg, sampler, k)):
         result = _search(images, part.refs, params, cfg, sampler, fast,
                          angle_mask, sf)
     if part.reduce is not None:
@@ -394,7 +407,8 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
                               random_method="SHC", n_refs=refs.shape[0])
     n = images.shape[0]
     with span("step.search", images.device, sampler=sampler, N=n,
-              K=refs.shape[0]) as sp:
+              K=refs.shape[0],
+              **_search_size(images, cfg, sampler, refs.shape[0])) as sp:
         ref_fw = prepare_ref_spectra(refs, cfg)
         if sampler == "template":
             result, found = template_search_shc(images, ref_fw, params, cfg,
@@ -448,10 +462,12 @@ def align_step_scf(images, refs, params: AlignParams, global_index, valid,
     if cfg.ring_scheme != "cuda":
         raise ValueError("random_method='SCF' runs the standard ring "
                          "scheme only (ring_scheme='cuda')")
-    sampler = resolve_sampler(sampler, images.device, zero_shift_cfg(cfg),
+    rot_cfg = zero_shift_cfg(cfg)
+    sampler = resolve_sampler(sampler, images.device, rot_cfg,
                               random_method="SCF")
     with span("step.search", images.device, sampler=sampler,
-              N=images.shape[0], K=1):
+              N=images.shape[0], K=1,
+              **_search_size(images, rot_cfg, sampler, 1)):
         new_params, peak = scf_align(images, refs[0], cfg, sampler=sampler,
                                      fast=fast)
     return _finish_step(images, new_params, peak, global_index, valid,

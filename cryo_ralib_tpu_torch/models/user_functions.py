@@ -7,6 +7,8 @@ is ``[mask, center, raw average, fsc curve]`` and each function returns
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -15,11 +17,21 @@ from ..ops.filters import filt_tanl
 from ..ops.fsc import fit_tanh
 
 
+@lru_cache(maxsize=4)
+def _fit(freqs: bytes, values: bytes) -> tuple:
+    return fit_tanh((np.frombuffer(freqs), np.frombuffer(values)))
+
+
 def ref_ali2d(ref_data):
     """Tangent low-pass the raw average at the FSC-fitted cutoff; center
-    it (``ops/center.py::center_2D``) when the center flag is positive."""
+    it (``ops/center.py::center_2D``) when the center flag is positive.
+    The fit depends on the curve alone, which ``mref_ali2d`` passes alike
+    for every class of an iteration, so it is made once per curve (at
+    K=64 the 64 identical Nelder-Mead fits were nine tenths of the
+    host's reference update)."""
     _mask, center, tavg, frsc = ref_data
-    fl, aa = fit_tanh(frsc)
+    fl, aa = _fit(np.asarray(frsc[0], np.float64).tobytes(),
+                  np.asarray(frsc[1], np.float64).tobytes())
     out = filt_tanl(torch.as_tensor(np.asarray(tavg, np.float32)), fl, aa)
     cs = [0.0, 0.0]
     if center is not None and center > 0:

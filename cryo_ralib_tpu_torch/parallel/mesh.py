@@ -39,7 +39,9 @@ The backend is chosen by a rule, never by catching a failure:
 A rank's device is ``cuda:{LOCAL_RANK % device_count}`` unless the caller
 asks for the CPU.  Every collective runs under the process group's
 ``timeout``, so a rank that dies fails the others instead of hanging
-them.
+them.  The class sums' all-reduce, the params' gather and the
+references' broadcast each record a ``mesh.collective`` span
+(``utils/profiling.py``) where they run over more than one rank.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from __future__ import annotations
 import datetime
 import logging
 import os
+from contextlib import nullcontext
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,6 +57,7 @@ import torch
 import torch.distributed as dist
 
 from ..params import AlignParams
+from ..utils.profiling import span
 
 _log = logging.getLogger(__name__)
 
@@ -337,8 +341,10 @@ def all_reduce_sums(mesh: ParticleMesh | None, *tensors):
     """Sum each tensor over the ranks, in place, where it lies (CUDA
     tensors through NCCL or gloo, CPU tensors through gloo)."""
     if _multi(mesh):
-        for t in tensors:
-            dist.all_reduce(t, group=mesh.group)
+        with span("mesh.collective", mesh.device, op="all_reduce_sums",
+                  bytes=sum(t.numel() * t.element_size() for t in tensors)):
+            for t in tensors:
+                dist.all_reduce(t, group=mesh.group)
     return tensors
 
 
@@ -375,7 +381,9 @@ def broadcast_refs(refs, mesh: ParticleMesh | None, src: int = 0):
     if not _multi(mesh):
         return refs
     t = torch.from_numpy(np.ascontiguousarray(refs).copy())
-    dist.broadcast(t, src, group=mesh.group)
+    with span("mesh.collective", mesh.device, op="broadcast_refs",
+              bytes=t.numel() * t.element_size()):
+        dist.broadcast(t, src, group=mesh.group)
     return t.numpy()
 
 
@@ -417,7 +425,10 @@ def gather_params(params: AlignParams, n: int,
                               else f).cpu() for f in params]
     packed = torch.stack([f.contiguous().view(torch.int32) for f in fields],
                          dim=1)
-    full = gather_rows(packed, n, mesh)
+    with (span("mesh.collective", mesh.device, op="gather_params",
+               bytes=4 * len(fields) * n)
+          if mesh is not None and mesh.dp > 1 else nullcontext()):
+        full = gather_rows(packed, n, mesh)
     return AlignParams(*[full[:, i].contiguous().view(f.dtype).numpy()
                          for i, f in enumerate(fields)])
 

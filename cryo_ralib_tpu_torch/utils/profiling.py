@@ -8,14 +8,28 @@ happens:
 ``job``              one call of ``mref_ali2d`` or ``ali2d_base``
 ``driver.prepare``   the stack's upload and normalisation (device time)
 ``driver.update``    an iteration's host work outside the engine
+``driver.refs``      ``mref_ali2d``'s per-class reference update inside
+                     ``driver.update``: reseeding, FSC, average or
+                     Wiener, user function, normalisation (``classes``,
+                     ``vanished``)
 ``driver.fourvar``   ``ali2d_base``'s Fourier variance (device time)
 ``driver.raw_sums``  ``ali2d_base``'s first sums of the raw stack (device)
 ``engine.iterate``   one ``AlignmentEngine.iterate``
 ``engine.step``      one step: the resident stack or one streamed batch
-``step.search``      a step's search (device time)
+``step.search``      a step's search (device time; ``N``, ``K``, ``box``,
+                     ``rings``, ``shifts``, ``mirrors`` and
+                     ``ref_groups``, the kernel's groups of 8 references
+                     a block loops over, 0 on any other search)
 ``step.sums``        a step's transform and class sums (device time)
 ``engine.reduce``    the iteration's all-reduce and host reads
+``mesh.collective``  one collective of a mesh of more than one rank:
+                     the class sums' all-reduce, the params' gather, a
+                     references' broadcast (device time; ``op``,
+                     ``bytes``)
 ===================  ====================================================
+
+``SPANS`` names them: a reader of a span can tell a program that
+declares it from one that predates it.
 
 Spans are recorded only while a ``torch.profiler`` profile records
 (``trace(logdir)`` or any other): the decision is taken once, as a
@@ -43,6 +57,12 @@ import time
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
+
+
+SPANS = ("job", "driver.prepare", "driver.update", "driver.refs",
+         "driver.fourvar", "driver.raw_sums", "engine.iterate",
+         "engine.step", "step.search", "step.sums", "engine.reduce",
+         "mesh.collective")
 
 
 class Span:

@@ -148,6 +148,48 @@ def test_kernel_large_k_matches_plain(cuda_device):
     _check(got, fs.search_plain(imgs, rfw, params, cfg))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 60])
+def test_kernel_winners_in_the_last_ref_group(cuda_device, k):
+    """Every particle made from a reference of the kernel's last group of
+    8 (references 56-63 at K=64; 56-59 at K=60, a group of 4), and the
+    references before that group at a tenth of their amplitude, so that
+    no particle's best candidate lies outside it (the ccf is not
+    normalised, so a stronger template of another group could win): each
+    block's loop reaches that group, the winners lie in it and equal the
+    plain version's, the launch counts under its K, and a step's
+    ``step.search`` span records the eight groups."""
+    from cryo_ralib_tpu_torch.models.steps import align_step
+    from cryo_ralib_tpu_torch.utils import profiling
+
+    cfg = AlignConfig(img_dim=90, ring_num=36, shift_step=1.0,
+                      shift_rng_x=3.0, shift_rng_y=3.0)
+    tmpl = blob_stack(64, 90, blobs=6, noise=0.0, seed=64)[:k]
+    n = 128
+    imgs = scattered_stack(tmpl[56:], n, max_shift=1, noise=0.1, seed=13,
+                           device=cuda_device)[0].contiguous()
+    tmpl[:56] *= 0.1
+    params = _params(n, cuda_device, seed=6)
+    refs = torch.as_tensor(tmpl, device=cuda_device)
+    rfw = search.prepare_ref_spectra(refs, cfg)
+    before = fs.fused_search.launches_by_k.get(("search", k), 0)
+    got = fs.fused_search(imgs, rfw, params, cfg)
+    assert fs.fused_search.launches_by_k[("search", k)] == before + 1
+    _check(got, fs.search_plain(imgs, rfw, params, cfg))
+    assert int(got.best_ref.min()) >= 56
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.job():
+            align_step(imgs, refs, params,
+                       torch.arange(n, device=cuda_device), None, cfg,
+                       n_classes=k)
+    searches = [s for s in profiling.last_job() if s.name == "step.search"]
+    assert len(searches) == 1
+    assert searches[0].attrs["sampler"] == "kernel"
+    assert searches[0].attrs["ref_groups"] == 8
+    assert searches[0].attrs["K"] == k
+
+
 # (img_dim, rings, xr, refs, mirror): shift grids of 49, 25, 9 and 1
 # shifts (a ragged last group of shifts where G does not divide S), 256 px
 # at ou=100 (one shift per group), 160 px at ou=48 (at K=4 the image read

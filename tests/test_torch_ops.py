@@ -238,6 +238,36 @@ def test_ref_ali2d_user_function(center_flag):
     assert (gcs != [0.0, 0.0]) == bool(center_flag)
 
 
+def test_ref_ali2d_fits_each_curve_once(monkeypatch):
+    """``mref_ali2d`` passes one FSC curve for every class of an
+    iteration: the tanh fit runs once per curve, and each class's filter
+    is the one an unshared fit gives, bit for bit."""
+    from cryo_ralib_tpu_torch.ops.filters import filt_tanl
+    from cryo_ralib_tpu_torch.ops.fsc import fit_tanh
+
+    calls = []
+
+    def counted(curve, *a, **k):
+        calls.append(curve)
+        return fit_tanh(curve, *a, **k)
+
+    monkeypatch.setattr(user_functions, "fit_tanh", counted)
+    user_functions._fit.cache_clear()
+    rng = np.random.default_rng(11)
+    freqs = np.arange(17, dtype=np.float32) / 32.0
+    curves = [(freqs, np.clip(c - 4.0 * freqs, 0.0, 1.0), np.ones(17))
+              for c in (1.2, 1.6)]
+    mask = masks.model_circle(14, 32)
+    for n, frsc in enumerate(curves, 1):
+        for _ in range(3):
+            avg = rng.standard_normal((32, 32)).astype(np.float32)
+            got, _cs = user_functions.ref_ali2d([mask, -1, avg, frsc])
+            want = filt_tanl(torch.as_tensor(avg), *fit_tanh(frsc)).numpy()
+            assert np.array_equal(got, want)
+        assert len(calls) == n
+    user_functions._fit.cache_clear()
+
+
 def test_pixel_error_2D():
     rng = np.random.default_rng(12)
     p1 = tuple(rng.uniform(-5, 365, 20) if i == 0 else rng.uniform(-3, 3, 20)

@@ -4,6 +4,9 @@ the table of the module docstring puts it, and the spans appear in the
 profile's Chrome trace as user annotations."""
 
 import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -17,14 +20,28 @@ from cryo_ralib_tpu_torch.utils.synthetic import (asymmetric_templates,
                                                   scattered_stack)
 
 NX, K, N, MAXIT = 32, 2, 24, 2
-PROGRAM_SPANS = ("job", "driver.prepare", "driver.update", "driver.fourvar",
-                 "driver.raw_sums", "engine.iterate", "engine.step",
-                 "step.search", "step.sums", "engine.reduce")
+PROGRAM_SPANS = ("job", "driver.prepare", "driver.update", "driver.refs",
+                 "driver.fourvar", "driver.raw_sums", "engine.iterate",
+                 "engine.step", "step.search", "step.sums", "engine.reduce",
+                 "mesh.collective")
+# a collective runs where its caller is: the sums' all-reduce in
+# engine.reduce, the params' gather in driver.update and at the job's
+# end, a reference broadcast in driver.update (a reseeded class inside
+# driver.refs)
 PARENT = {"driver.prepare": "job", "driver.update": "job",
+          "driver.refs": "driver.update",
           "driver.fourvar": "driver.update",
           "driver.raw_sums": "driver.update", "engine.iterate": "job",
           "engine.step": "engine.iterate", "step.search": "engine.step",
-          "step.sums": "engine.step", "engine.reduce": "engine.iterate"}
+          "step.sums": "engine.step", "engine.reduce": "engine.iterate",
+          "mesh.collective": ("engine.reduce", "driver.update",
+                              "driver.refs", "job")}
+# the spans a one-process job of each driver records
+SINGLE = {"mref": set(PROGRAM_SPANS) - {"driver.fourvar", "driver.raw_sums",
+                                        "mesh.collective"},
+          "reffree_fourvar": set(PROGRAM_SPANS) - {"driver.refs",
+                                                   "mesh.collective"}}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True)
@@ -98,7 +115,7 @@ def test_a_profiled_job_records_every_span_in_place(case):
     assert set(names) <= set(PROGRAM_SPANS)
     for s in spans[1:]:
         parent = by_id[s.parent]
-        assert parent.name == PARENT[s.name], (s, parent)
+        assert parent.name in _parents(s.name), (s, parent)
         assert parent.t0_ns <= s.t0_ns <= s.t1_ns <= parent.t1_ns
     assert names.count("engine.iterate") == MAXIT
     assert names.count("engine.reduce") == MAXIT
@@ -111,6 +128,20 @@ def test_a_profiled_job_records_every_span_in_place(case):
     assert names.count("driver.raw_sums") == (1 if reffree else 0)
     assert names.count("driver.fourvar") == (
         MAXIT if case == "reffree_fourvar" else 0)
+    refs = [s for s in spans if s.name == "driver.refs"]
+    assert len(refs) == (0 if reffree else MAXIT)
+    assert all(s.attrs["classes"] == K and s.attrs["vanished"] == 0
+               for s in refs)
+    assert "mesh.collective" not in names
+    for s in spans:
+        if s.name == "step.search":
+            assert {key: s.attrs[key] for key in (
+                "box", "rings", "shifts", "mirrors", "ref_groups")} == {
+                "box": NX, "rings": 12,
+                # mref_ali2d's yr defaults to 0, ali2d_base's to xr; SCF's
+                # rotation search is at one shift
+                "shifts": 1 if case == "reffree_scf" else 9 if reffree else 3,
+                "mirrors": 2, "ref_groups": 0}
     steps = [s for s in spans if s.name == "engine.step"]
     assert [(s.attrs["start"], s.attrs["end"]) for s in steps[:batches]] == (
         [(0, 10), (10, 20), (20, N)] if batches == 3 else [(0, N)])
@@ -119,14 +150,28 @@ def test_a_profiled_job_records_every_span_in_place(case):
         assert s.device_ms() == s.host_ms >= 0
 
 
-def test_the_spans_are_user_annotations_of_the_trace(tmp_path):
+def _parents(name: str) -> tuple:
+    want = PARENT[name]
+    return want if isinstance(want, tuple) else (want,)
+
+
+def test_the_declared_spans_are_the_table():
+    assert profiling.SPANS == PROGRAM_SPANS
+    assert set(PARENT) == set(PROGRAM_SPANS) - {"job"}
+    # every span but the mesh's is recorded by one driver in one process
+    assert SINGLE["mref"] | SINGLE["reffree_fourvar"] == (
+        set(PROGRAM_SPANS) - {"mesh.collective"})
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE))
+def test_the_spans_are_user_annotations_of_the_trace(tmp_path, case):
     with profiling.trace(str(tmp_path)):
-        _run("reffree_fourvar")
+        _run(case)
     with open(tmp_path / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     annotated = {e["name"] for e in events
                  if e.get("cat") == "user_annotation"}
-    assert set(PROGRAM_SPANS) <= annotated
+    assert SINGLE[case] <= annotated
     assert len(profiling.last_job()) == sum(
         1 for e in events if e.get("cat") == "user_annotation"
         and e["name"] in PROGRAM_SPANS)
@@ -160,3 +205,77 @@ def test_the_kernel_shc_search_counts_its_shift_groups():
     attrs = profiling.last_job()[1].attrs
     assert type(attrs["shc_groups"]) is int and attrs["shc_groups"] == N
     assert attrs["shc_groups_full"] == 3 * N
+
+
+MESH_WORKER = r"""
+import json, sys
+rank, world, store, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from cryo_ralib_tpu_torch.models import mref_ali2d
+from cryo_ralib_tpu_torch.parallel.mesh import initialize_distributed, shutdown
+from cryo_ralib_tpu_torch.utils import profiling
+from cryo_ralib_tpu_torch.utils.log import RunLogger
+data = np.load(sys.argv[5])
+mesh = initialize_distributed(rank=rank, world_size=world,
+                              init_method="file://" + store, device="cpu",
+                              timeout=60)
+try:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        mref_ali2d(data["imgs"], data["refs"], ou=12, xr=1, ts=1,
+                   maxit=%(maxit)d, device="cpu", mesh=mesh,
+                   log=RunLogger(None, quiet=True))
+    spans = profiling.last_job()
+    by_id = {s.id: s.name for s in spans}
+    rec = [{"name": s.name, "parent": by_id.get(s.parent),
+            "attrs": {k: v for k, v in s.attrs.items()
+                      if k in ("op", "bytes")}} for s in spans]
+    with open(out, "w") as f:
+        json.dump(rec, f)
+finally:
+    shutdown()
+""" % {"maxit": MAXIT}
+
+
+def test_a_mesh_job_records_its_collectives(tmp_path):
+    """Two gloo ranks record a ``mesh.collective`` span around the class
+    sums' all-reduce of every iteration, the params' gathers and the
+    references' broadcasts, with ``op`` and ``bytes``; a job on a mesh of
+    one rank records none."""
+    imgs, refs = _stack()
+    inputs = str(tmp_path / "inputs.npz")
+    np.savez(inputs, imgs=imgs, refs=refs)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    runs = [(r, 2, "two") for r in range(2)] + [(0, 1, "one")]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_WORKER, str(r), str(w),
+         str(tmp_path / (tag + ".store")),
+         str(tmp_path / f"{tag}{r}.json"), inputs],
+        env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for r, w, tag in runs]
+    for p in procs:
+        _, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err.decode()[-3000:]
+    h = NX
+    for r in range(2):
+        with open(tmp_path / f"two{r}.json") as f:
+            spans = json.load(f)
+        coll = [s for s in spans if s["name"] == "mesh.collective"]
+        ops = [s["attrs"]["op"] for s in coll]
+        assert ops.count("all_reduce_sums") == MAXIT
+        assert ops.count("gather_params") == MAXIT + 1
+        assert ops.count("broadcast_refs") == MAXIT
+        for s in coll:
+            assert s["parent"] in _parents("mesh.collective"), s
+            assert s["attrs"]["bytes"] == {
+                "all_reduce_sums": 8 * K * 2 * h * h + 8 * (K + 3),
+                "gather_params": 4 * 5 * N,
+                "broadcast_refs": 4 * K * h * h}[s["attrs"]["op"]]
+    with open(tmp_path / "one0.json") as f:
+        spans = json.load(f)
+    assert spans and not [s for s in spans if s["name"] == "mesh.collective"]
