@@ -11,9 +11,11 @@ Phases (any failure raises and the script exits non-zero):
   2. build the search kernel (csrc/search.cu, nvcc for sm_90a; eight
      instantiations: mirror or not, angle mask or not, ref group 8 or 1,
      the three ablation stages of the default one, and the SHC pick's
-     two: mirror or not, one reference); print ptxas'
-     registers and spills and each shape's launch plan (shifts per
-     group, image staged in shared memory, shared memory per block);
+     two: mirror or not, one reference) and the class-sum kernel
+     (csrc/class_sums.cu: its two passes, the first staged in shared
+     memory or not); print ptxas' registers and spills and each shape's
+     launch plan (shifts per group, image staged in shared memory,
+     shared memory per block);
   3. kernel vs its plain PyTorch version at 90 px / ou=36 / K=8 / xr=3
      and 160 px / ou=48 / K=4 / xr=2, 512 particles with integer and
      fractional accumulated shifts: structured stacks must give identical
@@ -67,8 +69,15 @@ Phases (any failure raises and the script exits non-zero):
      last criterion is at least half the first;
   7b. one headline align_step (N=16384, K=8) broken down by stage in
      CUDA-event ms (prepare_ref_spectra, search, decode_params,
-     transform_batch, class_sum_oe), and the host part of a phase-6
-     mref_ali2d iteration (its seconds per iteration less align_step);
+     fused_class_sums: the class-sum kernel), and the host part of a
+     phase-6 mref_ali2d iteration (its seconds per iteration less
+     align_step);
+  7c. the class-sum kernel (csrc/class_sums.cu, fused_class_sums) at the
+     main paths' shapes (N=16384 and 105,247, 90 px, K=1, 8 and 64):
+     its sums against the plain route's (within 1e-12 of the largest,
+     counts equal, two calls bit for bit), its ms (CUDA events) beside
+     its bound (one read of the stack at 3.35 TB/s) and the plain
+     route's ms (the class_sums record);
   8. the device loops: make_mref_device_loop on phase 6's stack (K=8, 6
      iterations, cutoff 0.25) and ref_free_alignment_2d on run A's stack
      (K=1, 10 iterations), each once as a main path, then timed as
@@ -115,7 +124,8 @@ Phases (any failure raises and the script exits non-zero):
   11. stacks larger than the card (90 px, K=8, ou=36, xr=yr=3, ts=1):
      a. one headline align_step (N=16384): its peak device memory
         (max_memory_allocated) beside the planner's model, which must not
-        be below it nor over twice it, and its time;
+        be below it nor, less the plain route's transform block that it
+        charges on the card too, over twice it, and its time;
      b. 2^18 particles (8.49 GB): the planner's own pick; the engine on
         one preprocessed stack resident and streamed in 8 batches of
         32768 (8 launches per streamed iteration), s/iteration of both,
@@ -249,8 +259,10 @@ search_k32.  The
 last lines are the slice's JSON line (loop rates, stage breakdown, CLI
 times, phase 13), the stage ablation's JSON line, the card, the kernels'
 JSON record (with each instantiation's registers, spill bytes and shared
-memory per block, and the launches of each path, the ranks' among them)
-and the run's verdict.
+memory per block, and the launches of each path, the ranks' among them),
+the class-sum kernel's record (its shapes' ms, bounds and plain ms, its
+registers, spills and shared memory, and its launches on the main paths
+of this process) and the run's verdict.
 """
 
 import contextlib
@@ -273,6 +285,7 @@ N_SLICE = 16384
 MAXIT = 6
 K_LARGE = 64
 K_SPLIT = 32     # a rank's slice of K_LARGE on the (dp=1, ref=2) mesh
+N_RIB80S = 105247   # the rib80s stack of the benchmark's cells
 DST = 15.0
 SOURCE = "cryo_ralib_tpu_torch/csrc/search.cu"
 REPLACES = "cryo_ralib_tpu/ops/fused_search.py:129"
@@ -343,6 +356,27 @@ def ptxas_table(report: str) -> dict:
                       line)
         if m:
             cur = out.setdefault(tuple(map(int, m.groups())), {})
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and cur is not None:
+            cur["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def class_sums_ptxas(report: str) -> dict:
+    """{kernel: {"registers", "spill_bytes"}} of the class-sum kernel's
+    two passes (pass 1 staged in shared memory or read through the
+    cache), from nvcc's -Xptxas -v report."""
+    names = {"chunk_sums_kernelILb1E": "chunk_sums_staged",
+             "chunk_sums_kernelILb0E": "chunk_sums_cached",
+             "slot_sums_kernel": "slot_sums"}
+    out, cur = {}, None
+    for line in report.splitlines():
+        for key, name in names.items():
+            if key in line:
+                cur = out.setdefault(name, {})
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and cur is not None:
             cur["spill_bytes"] = int(m.group(1))
@@ -658,16 +692,12 @@ def stage_breakdown(imgs, tmpl, cfg, dev) -> dict:
     params), its stages in CUDA-event ms, and the whole step."""
     from cryo_ralib_tpu_torch.models.steps import align_step
     from cryo_ralib_tpu_torch.ops import fused_search as fs
-    from cryo_ralib_tpu_torch.ops.classavg import class_sum_oe
+    from cryo_ralib_tpu_torch.ops.classavg import fused_class_sums
     from cryo_ralib_tpu_torch.ops.search import (decode_params,
                                                  prepare_ref_spectra)
-    from cryo_ralib_tpu_torch.ops.transform import (transform_batch,
-                                                    transform_block)
     from cryo_ralib_tpu_torch.params import AlignParams
 
     n, k = imgs.shape[0], tmpl.shape[0]
-    block = transform_block(*imgs.shape[1:])
-    out = torch.empty_like(imgs)
     refs = torch.as_tensor(tmpl, device=dev)
     params = AlignParams.zeros(n, dev)
     gidx = torch.arange(n, device=dev)
@@ -679,23 +709,57 @@ def stage_breakdown(imgs, tmpl, cfg, dev) -> dict:
         mark("search")
         p = decode_params(res, params, cfg)
         mark("decode_params")
-        # by blocks, as _finish_step runs them (there each block's
-        # transform is followed by its class sums)
-        for s in range(0, n, block):
-            sl = slice(s, s + block)
-            out[sl] = transform_batch(imgs[sl], AlignParams(*[f[sl]
-                                                              for f in p]))
-        mark("transform_batch")
-        for s in range(0, n, block):
-            sl = slice(s, s + block)
-            class_sum_oe(out[sl], p.ref_id[sl], k, global_index=gidx[sl])
-        mark("class_sum_oe")
+        fused_class_sums(imgs, p, k, global_index=gidx)
+        mark("fused_class_sums")
 
     out = events_ms(stages)
     out["align_step"] = events_ms(lambda mark: (
         align_step(imgs, refs, params, gidx, None, cfg, n_classes=k),
         mark("align_step")))["align_step"]
     return out
+
+
+def class_sums_phase(dev, card) -> list:
+    """Phase 7c: the class-sum kernel against its plain route at the main
+    paths' shapes (random params, every class in use), and both timed."""
+    from cryo_ralib_tpu_torch.ops.classavg import (class_sums_plain,
+                                                   fused_class_sums)
+    from cryo_ralib_tpu_torch.params import params_from_numpy
+
+    rows = []
+    nx = HEADLINE["nx"]
+    for n in (N_SLICE, N_RIB80S):
+        gen = torch.Generator(device=dev).manual_seed(n)
+        imgs = torch.randn((n, nx, nx), generator=gen, device=dev)
+        gidx = torch.arange(n, device=dev)
+        for k in (1, HEADLINE["k"], K_LARGE):
+            rng = np.random.default_rng(n + k)
+            params = params_from_numpy(
+                {"angle": rng.uniform(0, 360, n).astype(np.float32),
+                 "shift_x": rng.uniform(-3, 3, n).astype(np.float32),
+                 "shift_y": rng.uniform(-3, 3, n).astype(np.float32),
+                 "mirror": rng.integers(0, 2, n).astype(np.int32),
+                 "ref_id": rng.integers(0, k, n).astype(np.int32)}, dev)
+            got, counts = fused_class_sums(imgs, params, k, gidx)
+            again, _ = fused_class_sums(imgs, params, k, gidx)
+            want, want_counts = class_sums_plain(imgs, params, k, gidx)
+            err = float((got - want).abs().max() / want.abs().max())
+            label = f"class sums N={n} {nx}px K={k}"
+            check(err <= 1e-12, f"{label}: {err:.3e} from the plain route")
+            check(bool(torch.equal(counts, want_counts)), f"{label}: counts")
+            check(bool(torch.equal(again, got)), f"{label}: two calls differ")
+            ms = cuda_ms(lambda: fused_class_sums(imgs, params, k, gidx), 10)
+            plain_ms = cuda_ms(
+                lambda: class_sums_plain(imgs, params, k, gidx), 2)
+            bound_ms = 1e3 * 4 * n * nx * nx / HBM_RATE
+            rows.append({"n": n, "k": k, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": "bytes",
+                         "share": bound_ms / ms, "max_rel_err": err})
+            log(f"{label}: kernel {ms:.3f} ms ({100 * bound_ms / ms:.1f}% of "
+                f"its bound {bound_ms:.3f} ms), plain {plain_ms:.2f} ms, "
+                f"{err:.2e} from the plain route  [{card}]")
+        del imgs
+    return rows
 
 
 def time_loop(label, run, args, n_iter: int):
@@ -1166,21 +1230,29 @@ def streaming_phase(dev, card, main_path, imgs, tmpl, cls, stack_a) -> dict:
     align_step(imgs, refs, zeros, gidx, None, cfg, n_classes=k)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base + held
-    model = step_footprint(N_SLICE, k, cfg).total
+    fp = step_footprint(N_SLICE, k, cfg)
+    model = fp.total
+    # the planner charges the plain route's transform block on the card
+    # too, where the class-sum kernel takes none of it (so that every
+    # batch plan stays as it was): the rest of the model is what has to
+    # stay within twice the peak
+    model_rest = model - max(fp.search, fp.transform) + fp.search
     step_ms = events_ms(lambda mark: (
         align_step(imgs, refs, zeros, gidx, None, cfg, n_classes=k),
         mark("align_step")))["align_step"]
     out["peak_cut"] = {"peak_bytes": peak, "model_bytes": model,
+                       "model_bytes_without_transform": model_rest,
                        "align_step_ms": step_ms}
     log(f"11a align_step N={N_SLICE} 90px K={k}: peak "
         f"{peak / 2**30:.3f} GiB (max_memory_allocated over the step, with "
         f"its images, refs and params), the planner's model "
-        f"{model / 2**30:.3f} GiB (ratio {model / peak:.3f}); step "
+        f"{model / 2**30:.3f} GiB (ratio {model / peak:.3f}), "
+        f"{model_rest / 2**30:.3f} GiB without the transform block; step "
         f"{step_ms:.2f} ms (CUDA events, mean of 3; {STEP_MS_PR5} ms "
         f"before the cut)  [{card}]")
     check(model >= peak, f"11a: the model {model} is below the peak {peak}")
-    check(model <= 2 * peak, f"11a: the model {model} is over twice the "
-          f"peak {peak}")
+    check(model_rest <= 2 * peak, f"11a: the model {model_rest} without "
+          f"the transform block is over twice the peak {peak}")
 
     # ---- 11b. 2^18 particles: resident, and streamed in 8 batches
     log(f"11b host memory before the phase: MemAvailable {mem_available()}")
@@ -2698,7 +2770,7 @@ def matmul_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1,
     log(f"15a class sums N={n} 90px K={k} by blocks: FFT shear "
         f"(class_sum_transform_mm, bf16 DFTs) {shear_ms:.2f} ms, peak "
         f"{shear_peak / 2**30:.3f} GiB (model {model / 2**30:.3f}); "
-        f"bilinear transform_batch + class_sum_oe {bilinear_ms:.2f} ms, peak "
+        f"bilinear (the class-sum kernel) {bilinear_ms:.2f} ms, peak "
         f"{bilinear_peak / 2**30:.3f} GiB (CUDA events, mean of 3); card vs "
         f"CPU on {N_CHECK}: {sums_err:.2e} of the largest sum  [{card}]")
     check(bool(torch.equal(counts.cpu(), want_c)), "15a: counts")
@@ -2894,6 +2966,7 @@ def main():
                                              ref_free_alignment_2d)
     from cryo_ralib_tpu_torch.models.mref import mref_ali2d
     from cryo_ralib_tpu_torch.models.reffree import ali2d_base
+    from cryo_ralib_tpu_torch.ops import classavg as ca
     from cryo_ralib_tpu_torch.ops import fused_search as fs
     from cryo_ralib_tpu_torch.ops.ctf_ops import CtfContext
     from cryo_ralib_tpu_torch.ops.search import (
@@ -2913,6 +2986,13 @@ def main():
         if ("registers" in line or "spill" in line or "smem" in line
                 or "entry function" in line):
             log("  ptxas: " + line.strip())
+    ca.build()
+    cs_info = kernels.build_log["class_sums"]
+    cs_regs = class_sums_ptxas(cs_info["ptxas"])
+    log(f"build: class-sum kernel in {cs_info['seconds']:.2f} s "
+        f"(cached={cs_info['cached']}); registers, spill bytes: {cs_regs}")
+    check(len(cs_regs) == 3, f"ptxas reports {len(cs_regs)} class-sum "
+          "kernels")
     regs = ptxas_table(info["ptxas"])
     log(f"  registers, spill bytes by (NMIRR, MASK, KG, STAGE, PICK): "
         f"{regs}")
@@ -3189,19 +3269,24 @@ def main():
     ms, plain_ms = times["search"][:2]
 
     launches = {}   # kernel entry -> {main path: launches}
+    sums_launches = {}   # main path -> class-sum kernel launches
 
     def main_path(label, fn, expect, entry=None):
         """Run one main path between a reset and a read of the launch
         counters; ``entry`` names the record its default-variant
         launches belong to (the K=64 shape has its own)."""
         fs.reset_launches()
+        sums0 = ca.fused_class_sums.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         got = dict(fs.fused_search.launches)
-        log(f"{label}: launches {got}")
+        n_sums = ca.fused_class_sums.launches - sums0
+        if n_sums:
+            sums_launches[label] = n_sums
+        log(f"{label}: launches {got}, class sums {n_sums}")
         for key, want in expect.items():
             check(got[key] == want, f"{label}: {key} launched {got[key]} "
                   f"times, not {want}")
@@ -3295,6 +3380,8 @@ def main():
     step_ms = slice_json["align_step_ms"]["align_step"]
     slice_json["mref_ali2d_s_per_iteration"] = mref_s_it
     slice_json["mref_ali2d_host_ms"] = 1e3 * mref_s_it - step_ms
+    # ---- 7c. the class-sum kernel at the main paths' shapes
+    sums_rows = class_sums_phase(dev, card)
     log(f"align_step N={N_SLICE} 90px K=8 by stage (CUDA events, mean of "
         f"3): {json.dumps(slice_json['align_step_ms'])}; mref_ali2d "
         f"iteration (phase 6) {1e3 * mref_s_it:.2f} ms, so its host part "
@@ -3446,6 +3533,16 @@ def main():
     print(json.dumps(ablation))
     log(card)
     print(json.dumps({"kernels": records}))
+    check(sum(sums_launches.values()) > 0,
+          "class sums: no launch on a main path")
+    print(json.dumps({"class_sums": {
+        "name": "class_sums", "route": "cuda",
+        "source": "cryo_ralib_tpu_torch/csrc/class_sums.cu",
+        "replaces": None, "launches": sum(sums_launches.values()),
+        "launches_by_path": sums_launches, "shapes": sums_rows,
+        "ptxas": cs_regs,
+        "smem_bytes": ca.build().cryo_class_sums_smem(HEADLINE["nx"],
+                                                       HEADLINE["nx"])}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,7 +22,9 @@ PyTorch version with ``"plain"`` or on the CPU; a ``cfg`` with
 built once when the loop is built, as the JAX loops hoist them, and
 ``sampler="matmul"`` the matmul sampler; those two sum their classes by
 the FFT shear (``class_sum_transform_mm``), the others by the bilinear
-``transform_batch`` + ``class_sum_oe``, as the JAX loops do.
+``transform_batch`` + ``class_sum_oe``, as the JAX loops do (one launch
+of the class-sum kernel an iteration on a CUDA device,
+``ops/classavg.py::fused_class_sums``, which makes no host sync either).
 In the multireference loop a class with fewer than 4 members keeps its
 previous reference, where ``mref_ali2d`` reseeds it from a random
 particle: the host RNG has no place in the loop.

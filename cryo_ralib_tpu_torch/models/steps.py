@@ -33,14 +33,17 @@ every mode.  "auto" never picks either.
 The end of every step (``_finish_step``) transforms and class-sums the
 particles.  Under "template" and "matmul" it is the JAX package's
 ``class_sum_transform_mm`` (the FFT shear, bf16 DFTs with ``fast``, the
-sums taken on the spectra), as the JAX steps sum for those samplers.
-Under "kernel" and "plain" it is the bilinear ``transform_batch`` +
-``class_sum_oe``, the JAX package's ``gather`` step, which is the port's
-semantic target; the JAX ``fused`` step, which "kernel" stands for,
-sums by the FFT shear instead: the one place where a port's sampler sums
-otherwise than its JAX counterpart.  Both go in blocks of particles
-(``transform_block``, ``shear_block``), adding the blocks' sums on the
-device, so the peak does not grow with the stack.
+sums taken on the spectra, in blocks of ``shear_block`` particles), as
+the JAX steps sum for those samplers.  Under "kernel" and "plain" it is
+the bilinear ``transform_batch`` + ``class_sum_oe``, the JAX package's
+``gather`` step, which is the port's semantic target, through
+``ops/classavg.py::fused_class_sums``: on a CUDA tensor one launch of
+the class-sum kernel (``csrc/class_sums.cu``, the same samples and the
+f64 sums in a fixed order, the transformed images never written), on
+the CPU its plain version, by blocks of ``transform_block`` particles;
+the JAX ``fused`` step, which "kernel" stands for, sums by the FFT shear
+instead: the one place where a port's sampler sums otherwise than its
+JAX counterpart.
 
 Under a 2-D mesh (``mesh=`` a ``ParticleMesh`` with ``ref > 1``,
 ``parallel/mesh.py::make_mesh_2d``) a step searches the rank's slice of
@@ -64,7 +67,8 @@ import torch
 
 from ..config import AlignConfig
 from ..params import AlignParams, gpu_params_to_align2d
-from ..ops.classavg import class_sum_oe, class_sum_transform_mm
+from ..ops.classavg import (class_sum_oe, class_sum_transform_mm,
+                            fused_class_sums)
 from ..ops.eman_search import (prepare_ref_spectra_eman,
                                rotational_shift_search_eman)
 from ..ops.fused_search import (fused_search, fused_search_shc, kernel_gate,
@@ -77,7 +81,6 @@ from ..ops.search import (decode_params, empty_result, merge_ref_slices,
                           rotational_shift_search_shc_mm)
 from ..ops.template_search import (template_search, template_search_shc,
                                    template_supported)
-from ..ops.transform import transform_batch, transform_block
 from ..parallel.mesh import ref_reduce, ref_slice
 from ..utils.profiling import span
 
@@ -307,13 +310,17 @@ def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
                  fast: bool = True, mesh=None) -> StepOutput:
     """Transform by the new params, sum the classes even/odd, and the
     centering sums: the end of every kind of step.  ``shear`` sums by the
-    FFT shear (``class_sum_transform_mm``, bf16 DFTs with ``fast``), else
-    by the bilinear transform; either goes in blocks of particles whose
-    sums add up on the device.  Under a ``ref`` split (``mesh``) only the
-    rank's share of the particles (``ref_slice``) is transformed and
-    summed; the params and peaks stay whole."""
-    with span("step.sums", images.device, shear=shear):
-        n, h, w = images.shape
+    FFT shear (``class_sum_transform_mm``, bf16 DFTs with ``fast``, in
+    blocks of particles whose sums add up on the device), else by the
+    bilinear transform (``fused_class_sums``: one launch of the class-sum
+    kernel on a CUDA tensor, its plain version on the CPU).  The
+    ``step.sums`` span says which ran: ``sums="kernel"`` or ``"plain"``.
+    Under a ``ref`` split (``mesh``) only the rank's share of the
+    particles (``ref_slice``) is transformed and summed; the params and
+    peaks stay whole."""
+    route = "kernel" if images.is_cuda and not shear else "plain"
+    with span("step.sums", images.device, shear=shear, sums=route):
+        n = images.shape[0]
         if global_index is None:
             global_index = torch.arange(n, device=images.device)
         if valid is not None:
@@ -326,26 +333,14 @@ def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
             summed = AlignParams(*[f[sl] for f in new_params])
         else:
             summed = new_params
-        n = b - a
         if shear:
             sums, counts = class_sum_transform_mm(
                 images, summed, n_classes, global_index=global_index,
                 valid=valid, fast=fast)
-            return _step_output(new_params, summed, sums, counts, peak, valid)
-        block = transform_block(h, w)
-        sums = counts = None
-        for start in range(0, max(n, 1), block):
-            sl = slice(start, start + block)
-            part = AlignParams(*[f[sl] for f in summed])
-            s_b, c_b = class_sum_oe(transform_batch(images[sl], part),
-                                    part.ref_id, n_classes,
-                                    global_index=global_index[sl],
-                                    valid=None if valid is None else valid[sl])
-            if sums is None:
-                sums, counts = s_b, c_b
-            else:
-                sums += s_b
-                counts += c_b
+        else:
+            sums, counts = fused_class_sums(
+                images, summed, n_classes, global_index=global_index,
+                valid=valid)
         return _step_output(new_params, summed, sums, counts, peak, valid)
 
 

@@ -15,9 +15,13 @@ What one step allocates, per batch of B particles of H x W pixels:
 * the search's outputs and the params: the kernel's (B, 256) winning
   rows and five scalars per particle, the params in and out, the peaks
   and the centering sums' temporaries (``PER_PARTICLE_BYTES``);
-* the transform block of ``_finish_step``: ``transform_block`` particles
-  at ``TRANSFORM_BYTES_PER_PIXEL`` each pixel, the same for any batch
-  larger than the block; for the template engine and the matmul sampler,
+* the transform block of ``_finish_step``'s plain route:
+  ``transform_block`` particles at ``TRANSFORM_BYTES_PER_PIXEL`` each
+  pixel, the same for any batch larger than the block, charged on a
+  CUDA device too, where the class-sum kernel takes far less (its plan
+  and its f64 partial sums, about an eighth of a byte a pixel of the
+  batch), so that every batch plan stays as it was; for the template
+  engine and the matmul sampler,
   whose steps sum by the FFT shear (``class_sum_transform_mm``),
   ``shear_block`` particles at ``SHEAR_BYTES_PER_PIXEL`` each padded
   pixel and the (4K, P, F) spectral slot sums;

@@ -20,7 +20,9 @@ happens:
                      ``rings``, ``shifts``, ``mirrors`` and
                      ``ref_groups``, the kernel's groups of 8 references
                      a block loops over, 0 on any other search)
-``step.sums``        a step's transform and class sums (device time)
+``step.sums``        a step's transform and class sums (device time;
+                     ``shear``, and ``sums``: "kernel" where the
+                     class-sum kernel ran, else "plain")
 ``engine.reduce``    the iteration's all-reduce and host reads
 ``mesh.collective``  one collective of a mesh of more than one rank:
                      the class sums' all-reduce, the params' gather, a

@@ -737,3 +737,150 @@ def test_kernel_shc_streamed_matches_resident(cuda_device):
     same = ((got.mirror == want.mirror) & (got.shift_x == want.shift_x)
             & (got.shift_y == want.shift_y))
     assert same.mean() >= 0.9
+
+
+# ---- the class-sum kernel (``fused_class_sums``, csrc/class_sums.cu)
+
+def _sum_case(n, k, box, dev, seed, mirrors=True, valid=False):
+    """Particles, random params (``mirrors`` or none) and an odd-started
+    global index on ``dev``; ``valid`` drops about a fifth of them."""
+    rng = np.random.default_rng(seed)
+    params = params_from_numpy(
+        {"angle": rng.uniform(0, 360, n).astype(np.float32),
+         "shift_x": rng.uniform(-3, 3, n).astype(np.float32),
+         "shift_y": rng.uniform(-3, 3, n).astype(np.float32),
+         "mirror": (rng.integers(0, 2, n) if mirrors
+                    else np.zeros(n)).astype(np.int32),
+         "ref_id": rng.integers(0, k, n).astype(np.int32)}, dev)
+    images = torch.as_tensor(
+        rng.standard_normal((n, box, box)).astype(np.float32), device=dev)
+    gidx = torch.arange(n, device=dev) + 11
+    mask = (torch.as_tensor((rng.random(n) > 0.2).astype(np.float32),
+                            device=dev) if valid else None)
+    return images, params, gidx, mask
+
+
+def _plain_sums(images, params, k, gidx, mask):
+    from cryo_ralib_tpu_torch.ops.classavg import class_sum_oe
+    from cryo_ralib_tpu_torch.ops.transform import transform_batch
+
+    return class_sum_oe(transform_batch(images, params), params.ref_id, k,
+                        global_index=gidx, valid=mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid", [False, True], ids=["all", "valid"])
+@pytest.mark.parametrize("mirrors", [True, False],
+                         ids=["mirrors", "nomirror"])
+@pytest.mark.parametrize("k", [1, 8, 64])
+@pytest.mark.parametrize("box", [90, 160])
+def test_class_sum_kernel_matches_plain(cuda_device, box, k, mirrors, valid):
+    """The sums within 1e-12 of the largest magnitude (f64 sums in
+    another order), the counts equal, two calls bit for bit; an odd N."""
+    from cryo_ralib_tpu_torch.ops.classavg import fused_class_sums
+
+    images, params, gidx, mask = _sum_case(3001, k, box, cuda_device,
+                                           seed=box + k, mirrors=mirrors,
+                                           valid=valid)
+    got, counts = fused_class_sums(images, params, k, gidx, mask)
+    want, want_counts = _plain_sums(images, params, k, gidx, mask)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+    assert torch.equal(counts, want_counts)
+    again, again_counts = fused_class_sums(images, params, k, gidx, mask)
+    assert torch.equal(again, got) and torch.equal(again_counts, counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 64])
+@pytest.mark.parametrize("box", [90, 75, 160])
+def test_class_sum_kernel_samples_are_transform_batch_bit_for_bit(
+        cuda_device, box, k):
+    """One particle a slot: each slot's sum is that particle's transformed
+    image, which must equal ``transform_batch``'s on the card exactly."""
+    from cryo_ralib_tpu_torch.ops.classavg import fused_class_sums
+    from cryo_ralib_tpu_torch.ops.transform import transform_batch
+
+    n = 2 * k
+    images, params, _, _ = _sum_case(n, k, box, cuda_device, seed=k)
+    params = params._replace(ref_id=torch.arange(
+        n, dtype=torch.int32, device=cuda_device) // 2)
+    gidx = torch.arange(n, device=cuda_device)
+    got, counts = fused_class_sums(images, params, k, gidx)
+    want = transform_batch(images, params)
+    assert torch.equal(got.reshape(n, box, box).float(), want)
+    assert bool((counts == 2).all())
+
+
+@pytest.mark.cuda
+def test_class_sum_kernel_sums_a_ref_share(cuda_device):
+    """Under a ``ref`` split each rank sums its ``ref_slice`` share as the
+    plain route sums it, and the shares add up to the whole."""
+    from types import SimpleNamespace
+
+    from cryo_ralib_tpu_torch.models.steps import _finish_step
+    from cryo_ralib_tpu_torch.parallel.mesh import ref_slice
+
+    n, k = 1001, 8
+    images, params, gidx, mask = _sum_case(n, k, 90, cuda_device, seed=3,
+                                           valid=True)
+    peak = torch.zeros(n, device=cuda_device)
+    whole = _finish_step(images, params, peak, gidx, mask, k)
+    total = torch.zeros_like(whole.class_sums)
+    for rank in range(3):
+        mesh = SimpleNamespace(ref=3, ref_rank=rank)
+        a, b = ref_slice(n, mesh)
+        out = _finish_step(images, params, peak, gidx, mask, k, mesh=mesh)
+        want, want_counts = _plain_sums(
+            images[a:b], AlignParams(*[f[a:b] for f in params]), k,
+            gidx[a:b], mask[a:b])
+        assert (out.class_sums - want).abs().max() <= (
+            1e-12 * want.abs().max())
+        assert torch.equal(out.counts, want_counts)
+        total += out.class_sums
+    assert (total - whole.class_sums).abs().max() <= (
+        1e-12 * whole.class_sums.abs().max())
+
+
+@pytest.mark.cuda
+def test_class_sum_kernel_launches_once_a_step(cuda_device):
+    """``launches`` counts one per ``_finish_step`` call that sums
+    particles, none for an empty stack (zero sums and counts); a traced
+    job's ``step.sums`` spans say ``sums="kernel"``; a launch makes no
+    host sync."""
+    from cryo_ralib_tpu_torch.models.mref import mref_ali2d
+    from cryo_ralib_tpu_torch.models.steps import _finish_step
+    from cryo_ralib_tpu_torch.ops.classavg import fused_class_sums
+    from cryo_ralib_tpu_torch.utils import profiling
+    from cryo_ralib_tpu_torch.utils.log import RunLogger
+
+    images, params, gidx, _ = _sum_case(301, 4, 90, cuda_device, seed=4)
+    before = fused_class_sums.launches
+    for _ in range(2):
+        _finish_step(images, params, torch.zeros(301, device=cuda_device),
+                     gidx, None, 4)
+    assert fused_class_sums.launches == before + 2
+    empty = _finish_step(images[:0], AlignParams(*[f[:0] for f in params]),
+                         torch.zeros(0, device=cuda_device), gidx[:0], None,
+                         4)
+    assert fused_class_sums.launches == before + 2
+    assert not empty.class_sums.any() and not empty.counts.any()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused_class_sums(images, params, 4, gidx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    tmpl = asymmetric_templates(2, 48)
+    imgs = scattered_stack(tmpl, 64, max_shift=1, seed=6)[0].numpy()
+    before = fused_class_sums.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        mref_ali2d(imgs, tmpl, ou=16, xr=1, ts=1, maxit=2,
+                   device=cuda_device, log=RunLogger(None, quiet=True))
+    spans = [s for s in profiling.last_job() if s.name == "step.sums"]
+    assert len(spans) == 2
+    assert all(s.attrs["sums"] == "kernel" for s in spans)
+    assert fused_class_sums.launches == before + 2

@@ -34,6 +34,7 @@ from cryo_ralib_tpu_torch.models import ali2d_base
 from cryo_ralib_tpu_torch.models import steps
 from cryo_ralib_tpu_torch.models.engine import AlignmentEngine
 from cryo_ralib_tpu_torch.models.mref import mref_ali2d
+from cryo_ralib_tpu_torch.ops import classavg
 from cryo_ralib_tpu_torch.parallel import batching
 from cryo_ralib_tpu_torch.params import AlignParams
 from cryo_ralib_tpu_torch.utils import profiling
@@ -200,9 +201,10 @@ def test_finish_step_blocks_equal_one_block(block, monkeypatch):
     x = torch.as_tensor(imgs)
     gidx = torch.arange(N) + 3     # an odd offset: parity from the index
     peak = torch.as_tensor(rng.normal(size=N).astype(np.float32))
-    monkeypatch.setattr(steps, "transform_block", lambda h, w: 10 ** 6)
+    # the blocks of _finish_step's plain route (a CPU tensor)
+    monkeypatch.setattr(classavg, "transform_block", lambda h, w: 10 ** 6)
     want = steps._finish_step(x, params, peak, gidx, None, K)
-    monkeypatch.setattr(steps, "transform_block", lambda h, w: block)
+    monkeypatch.setattr(classavg, "transform_block", lambda h, w: block)
     got = steps._finish_step(x, params, peak, gidx, None, K)
     np.testing.assert_array_equal(got.counts.numpy(), want.counts.numpy())
     sums = want.class_sums.numpy()

@@ -150,6 +150,16 @@ def test_a_profiled_job_records_every_span_in_place(case):
         assert s.device_ms() == s.host_ms >= 0
 
 
+@pytest.mark.parametrize("case", ["mref", "reffree_shc", "reffree_scf"])
+def test_the_sums_span_names_the_plain_route_on_the_cpu(case):
+    with _profile():
+        _run(case)
+    sums = [s for s in profiling.last_job() if s.name == "step.sums"]
+    assert len(sums) == MAXIT
+    assert all(s.attrs["sums"] == "plain" and s.attrs["shear"] is False
+               for s in sums)
+
+
 def _parents(name: str) -> tuple:
     want = PARENT[name]
     return want if isinstance(want, tuple) else (want,)
