@@ -987,7 +987,7 @@ def modes_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, mir_a,
     from cryo_ralib_tpu_torch.io.mrc import write_mrc
     from cryo_ralib_tpu_torch.models.mref import mref_ali2d
     from cryo_ralib_tpu_torch.models.reffree import ali2d_base
-    from cryo_ralib_tpu_torch.models.steps import resolve_sampler
+    from cryo_ralib_tpu_torch.models.steps import resolve_route
     from cryo_ralib_tpu_torch.ops.scf import scf_align
     from cryo_ralib_tpu_torch.utils.log import RunLogger
     from cryo_ralib_tpu_torch.utils.synthetic import scattered_stack
@@ -1029,7 +1029,7 @@ def modes_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, mir_a,
 
     # ---- 10b. SHC: the kernel's SHC pick, by the engine rule
     n_shc = 4
-    engine = resolve_sampler("auto", dev, geometry(HEADLINE), "SHC")
+    engine = resolve_route("auto", dev, geometry(HEADLINE), "SHC").search
     lines = ListLogger()
     res, seconds = main_path("reffree SHC", lambda: ali2d_base(
         stack_a, maxit=n_shc, random_method="SHC", log=lines, **rf_kw),
@@ -1075,7 +1075,7 @@ def modes_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, mir_a,
     cfg_e = AlignConfig(img_dim=HEADLINE["nx"], ring_num=HEADLINE["ou"],
                         ring_scheme="eman2", shift_rng_x=HEADLINE["xr"],
                         shift_rng_y=HEADLINE["xr"])
-    engine = resolve_sampler("auto", dev, cfg_e)
+    engine = resolve_route("auto", dev, cfg_e).search
     check(engine == "plain", f"eman2 engine {engine}")
     res, seconds = main_path("mref eman2", lambda: mref_ali2d(
         imgs, tmpl, ou=HEADLINE["ou"], xr=HEADLINE["xr"], yr=HEADLINE["xr"],
@@ -1203,7 +1203,7 @@ def streaming_phase(dev, card, main_path, imgs, tmpl, cls, stack_a) -> dict:
                                                     host_stack, plan_batch)
     from cryo_ralib_tpu_torch.models.mref import mref_ali2d
     from cryo_ralib_tpu_torch.models.reffree import ali2d_base
-    from cryo_ralib_tpu_torch.models.steps import align_step
+    from cryo_ralib_tpu_torch.models.steps import align_step, resolve_route
     from cryo_ralib_tpu_torch.ops import fused_search as fs
     from cryo_ralib_tpu_torch.ops.masks import model_circle, normalize_mask
     from cryo_ralib_tpu_torch.parallel.batching import (device_memory_bytes,
@@ -1230,7 +1230,8 @@ def streaming_phase(dev, card, main_path, imgs, tmpl, cls, stack_a) -> dict:
     align_step(imgs, refs, zeros, gidx, None, cfg, n_classes=k)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base + held
-    fp = step_footprint(N_SLICE, k, cfg)
+    fp = step_footprint(N_SLICE, resolve_route("kernel", dev, cfg, n_refs=k),
+                        cfg)
     model = fp.total
     # the planner charges the plain route's transform block on the card
     # too, where the class-sum kernel takes none of it (so that every
@@ -1260,7 +1261,8 @@ def streaming_phase(dev, card, main_path, imgs, tmpl, cls, stack_a) -> dict:
     log(f"11b stack: {big.shape} float32, {big.nbytes / 1e9:.2f} GB on the "
         f"host; MemAvailable {mem_available()}")
     budget = device_memory_bytes(dev)
-    picked = plan_batch(N_STREAM, k, cfg, dev, log=log)
+    picked = plan_batch(N_STREAM, resolve_route("auto", dev, cfg, n_refs=k),
+                        cfg, dev, log=log)
     log(f"11b the planner, unprompted: batch {picked} "
         f"({'resident' if picked >= N_STREAM else 'streamed'}) of "
         f"{budget / 2**30:.2f} GiB usable  [{card}]")
@@ -2433,7 +2435,7 @@ def template_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1,
     from cryo_ralib_tpu_torch.models import make_mref_device_loop
     from cryo_ralib_tpu_torch.models.mref import mref_ali2d
     from cryo_ralib_tpu_torch.models.reffree import ali2d_base
-    from cryo_ralib_tpu_torch.models.steps import align_step
+    from cryo_ralib_tpu_torch.models.steps import align_step, resolve_route
     from cryo_ralib_tpu_torch.ops import fused_search as fs
     from cryo_ralib_tpu_torch.ops import template_search as ts
     from cryo_ralib_tpu_torch.ops.search import prepare_ref_spectra
@@ -2656,7 +2658,8 @@ def template_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1,
                sampler="template", sf=sf)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base + held
-    model = step_footprint(N_SLICE, k, cfg, sampler="template").total
+    model = step_footprint(N_SLICE, resolve_route("template", dev, cfg,
+                                                  n_refs=k), cfg).total
     out["footprint"] = {"peak_bytes": peak, "model_bytes": model}
     log(f"14e template align_step N={N_SLICE} K={k}: peak "
         f"{peak / 2**30:.3f} GiB (with its images, refs, params and splat "
@@ -2719,7 +2722,8 @@ def matmul_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1,
     from cryo_ralib_tpu_torch.config import AlignConfig
     from cryo_ralib_tpu_torch.models.mref import mref_ali2d
     from cryo_ralib_tpu_torch.models.reffree import _even_odd_sums, ali2d_base
-    from cryo_ralib_tpu_torch.models.steps import _finish_step, align_step
+    from cryo_ralib_tpu_torch.models.steps import (_finish_step, align_step,
+                                                   resolve_route)
     from cryo_ralib_tpu_torch.ops import search as srch
     from cryo_ralib_tpu_torch.ops.classavg import class_sum_transform_mm
     from cryo_ralib_tpu_torch.ops.fourvar import fourier_variance
@@ -2750,14 +2754,14 @@ def matmul_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1,
     sub = imgs[:N_CHECK].contiguous()
 
     # ---- 15a. the FFT-shear class sums beside the bilinear ones
-    def sums_of(shear):
-        return lambda: _finish_step(imgs, prm, peak, gidx, None, k, shear)
+    def sums_of(route):
+        return lambda: _finish_step(imgs, prm, peak, gidx, None, k, route)
 
-    shear_ms, bilinear_ms = cuda_ms(sums_of(True), 3), cuda_ms(sums_of(False),
-                                                               3)
+    shear_ms = cuda_ms(sums_of("shear"), 3)
+    bilinear_ms = cuda_ms(sums_of("kernel"), 3)
     held = imgs.nbytes + gidx.nbytes + sum(f.nbytes for f in prm)
-    shear_peak = step_peak(sums_of(True), held)
-    bilinear_peak = step_peak(sums_of(False), held)
+    shear_peak = step_peak(sums_of("shear"), held)
+    bilinear_peak = step_peak(sums_of("kernel"), held)
     model = shear_sum_bytes(n, k, HEADLINE["nx"]) + held
     got, counts = class_sum_transform_mm(sub, AlignParams(
         *[f[:N_CHECK] for f in prm]), k, fast=True)
@@ -2923,7 +2927,8 @@ def matmul_phase(dev, card, main_path, imgs, tmpl, cls, stack_a, tmpl1,
     step_p = step_peak(lambda: align_step(imgs, refs0, zeros, gidx, None,
                                           cfg, n_classes=k,
                                           sampler="matmul"), held)
-    model = step_footprint(n, k, cfg, sampler="matmul").total
+    model = step_footprint(n, resolve_route("matmul", dev, cfg, n_refs=k),
+                           cfg).total
     out["footprint"] = {"peak_bytes": step_p, "model_bytes": model}
     log(f"15f matmul align_step N={n} K={k}: peak {step_p / 2**30:.3f} GiB "
         f"(with its images, refs and params), the planner's model "

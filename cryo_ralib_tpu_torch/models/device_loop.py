@@ -13,18 +13,12 @@ from host memory, no shape that depends on the data), so the card never
 waits for the host.  The tables an iteration reads are copied to the
 device when the loop is built.
 
-The search is the hand-written CUDA kernel on a CUDA device
-(``sampler="auto"`` or ``"kernel"``; mode "H" included) and its plain
-PyTorch version with ``"plain"`` or on the CPU; a ``cfg`` with
-``ring_scheme="eman2"`` runs the eman2 PyTorch search on either device;
-``sampler="template"`` runs the template engine
-(``ops/template_search.py``) for either ring scheme, its splat spectra
-built once when the loop is built, as the JAX loops hoist them, and
-``sampler="matmul"`` the matmul sampler; those two sum their classes by
-the FFT shear (``class_sum_transform_mm``), the others by the bilinear
-``transform_batch`` + ``class_sum_oe``, as the JAX loops do (one launch
-of the class-sum kernel an iteration on a CUDA device,
-``ops/classavg.py::fused_class_sums``, which makes no host sync either).
+The loop resolves its route once when it is built
+(``models/steps.py::resolve_route``: the search, "auto" the CUDA kernel
+on a CUDA device, and the class sums, the FFT shear under "template" and
+"matmul" as the JAX loops sum, else the class-sum kernel, which makes no
+host sync either) and warms the route's tables there, the template
+engine's splat spectra included, as the JAX loops hoist them.
 In the multireference loop a class with fewer than 4 members keeps its
 previous reference, where ``mref_ali2d`` reseeds it from a random
 particle: the host RNG has no place in the loop.
@@ -52,15 +46,9 @@ from ..config import AlignConfig
 from ..params import AlignParams
 from ..parallel.mesh import (all_reduce_sums, gather_params, ref_slice,
                              shard_stack)
-from ..ops.eman_search import eman_mm_tables, eman_tables
 from ..ops.filters import device_freq_grid, filt_tanl_dyn
-from ..ops.fused_search import kernel_tables
-from ..ops.polar_mm import polar_tables, product_route
-from ..ops.search import search_tables
-from ..ops.template_search import splat_spectra_groups
-from ..ops.transform import dft_tables, shear_pad
 from .engine import resolve_device
-from .steps import SHEAR_SUMS, align_step, resolve_sampler
+from .steps import align_step, resolve_route
 
 
 def _schedule(values, n_iter: int, default: float, device) -> torch.Tensor:
@@ -74,29 +62,17 @@ def _schedule(values, n_iter: int, default: float, device) -> torch.Tensor:
 
 def _build(cfg: AlignConfig, n_iter: int, cutoffs, falloffs, device,
            sampler: str, n_refs: int = 1, mesh=None):
-    """Device (the mesh's where there is one), sampler, the (n_iter,)
-    cutoff / falloff schedules on the device and the template engine's
-    splat spectra (None for the other searches), with the search's
-    tables copied there."""
+    """Device (the mesh's where there is one), the loop's route (resolved
+    once), the (n_iter,) cutoff / falloff schedules on the device and the
+    template engine's splat spectra (None for the other searches), with
+    the route's tables and the filter's grid copied there."""
     device = resolve_device(device if mesh is None else mesh.device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    k0, k1 = ref_slice(n_refs, mesh)
-    sampler = resolve_sampler(sampler, device, cfg, n_refs=max(1, k1 - k0))
-    search_tables(cfg, device)
+    route = resolve_route(sampler, device, cfg, n_refs=n_refs, mesh=mesh)
+    sf = route.warm(cfg, device)
     device_freq_grid(cfg.img_dim, cfg.img_dim, device)
-    if cfg.ring_scheme == "eman2":
-        eman_tables(cfg, device)
-    elif sampler == "kernel" and device.type == "cuda":
-        kernel_tables(cfg, device)
-    if sampler in SHEAR_SUMS:
-        dft_tables(shear_pad(cfg.img_dim), device)
-        product_route(device)
-    if sampler == "matmul":
-        (eman_mm_tables if cfg.ring_scheme == "eman2"
-         else polar_tables)(cfg, device)
-    sf = splat_spectra_groups(cfg, device) if sampler == "template" else None
-    return (device, sampler, _schedule(cutoffs, n_iter, 0.0, device),
+    return (device, route, _schedule(cutoffs, n_iter, 0.0, device),
             _schedule(falloffs, n_iter, 0.1, device), sf)
 
 
@@ -136,8 +112,8 @@ def make_device_loop(cfg: AlignConfig, n_iter: int, cutoffs, falloffs=None,
     (under a mesh, the rank's block of each; the average is the whole
     stack's, on every rank).
     """
-    device, sampler, cut, fall, sf = _build(cfg, n_iter, cutoffs, falloffs,
-                                            device, sampler, mesh=mesh)
+    device, route, cut, fall, sf = _build(cfg, n_iter, cutoffs, falloffs,
+                                          device, sampler, mesh=mesh)
 
     def run(images, avg0, params: AlignParams, gidx, valid):
         avg = torch.as_tensor(avg0, dtype=torch.float32, device=device)
@@ -146,7 +122,7 @@ def make_device_loop(cfg: AlignConfig, n_iter: int, cutoffs, falloffs=None,
         for i in range(n_iter):
             out = align_step(images, filt_tanl_dyn(avg, cut[i], fall[i])[None],
                              params, gidx, valid, cfg, n_classes=1,
-                             update_ref=False, sampler=sampler, fast=fast,
+                             update_ref=False, sampler=route, fast=fast,
                              sf=sf, mesh=mesh)
             params = out.params
             sums = _reduce(mesh, out.class_sums)[0]
@@ -166,15 +142,15 @@ def make_mref_device_loop(cfg: AlignConfig, n_iter: int, n_classes: int,
 
     Returns ``run(images, refs0, params, gidx, valid) -> (params, refs)``.
     """
-    device, sampler, cut, fall, sf = _build(cfg, n_iter, cutoffs, falloffs,
-                                            device, sampler, n_classes, mesh)
+    device, route, cut, fall, sf = _build(cfg, n_iter, cutoffs, falloffs,
+                                          device, sampler, n_classes, mesh)
 
     def run(images, refs0, params: AlignParams, gidx, valid):
         refs = torch.as_tensor(refs0, dtype=torch.float32, device=device)
         for i in range(n_iter):
             out = align_step(images, filt_tanl_dyn(refs, cut[i], fall[i]),
                              params, gidx, valid, cfg, n_classes=n_classes,
-                             sampler=sampler, fast=fast, sf=sf, mesh=mesh)
+                             sampler=route, fast=fast, sf=sf, mesh=mesh)
             params = out.params
             sums, counts = _reduce(mesh, out.class_sums, out.counts)
             new_refs = ((sums[:, 0] + sums[:, 1])

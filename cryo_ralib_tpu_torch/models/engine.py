@@ -43,14 +43,13 @@ import torch
 from ..config import AlignConfig
 from ..params import AlignParams, params_from_numpy
 from ..ops.search import PREVIOUSMAX_INIT, delta_angle_mask
-from ..ops.template_search import splat_spectra_groups
 from ..parallel.batching import plan_batch_size
 from ..parallel.mesh import (all_reduce_sums, check_ref_split,
                              gather_params, gather_rows, ref_group_min,
                              shard_range, shard_stack)
 from ..utils.profiling import span
-from .steps import (align_step, align_step_scf, align_step_shc,
-                    resolve_sampler, searched_refs)
+from .steps import (Route, align_step, align_step_scf, align_step_shc,
+                    resolve_route)
 
 
 def resolve_device(device) -> torch.device:
@@ -64,25 +63,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def plan_batch(n: int, n_classes: int, cfg: AlignConfig, device,
-               sampler: str = "auto", random_method: str = "",
+def plan_batch(n: int, route: Route, cfg: AlignConfig, device,
                batch_size: int | None = None, log=None, mesh=None) -> int:
     """The engine's batch for a stack (or a rank's block) of ``n``:
-    ``batch_size`` where given, else the planner's for the search that
-    will run (over the references that the rank searches of the
-    ``n_classes``, ``searched_refs``), with the card's memory shared by
-    the ranks of ``mesh`` that share it; a batch of ``n`` or more means
-    resident.  Under a ``ref`` split the ranks of a ref group take the
-    least of their plans: each plans from the memory its card has free,
-    and they must step through the same batches, since each batch's
-    merge is a collective of the group.  ``log`` (a callable) gets the
-    plan."""
+    ``batch_size`` where given, else the planner's for the job's
+    ``route`` (``resolve_route``: its search over the references that
+    the rank searches), with the card's memory shared by the ranks of
+    ``mesh`` that share it; a batch of ``n`` or more means resident.
+    Under a ``ref`` split the ranks of a ref group take the least of
+    their plans: each plans from the memory its card has free, and they
+    must step through the same batches, since each batch's merge is a
+    collective of the group.  ``log`` (a callable) gets the plan."""
     if batch_size is None:
-        k = searched_refs(n_classes, mesh, random_method)
-        search = resolve_sampler(sampler, device, cfg, random_method,
-                                 n_refs=k)
-        own = plan_batch_size(n, k, cfg, device=device, sampler=search,
-                              random_method=random_method, log=log,
+        own = plan_batch_size(n, route, cfg, device=device, log=log,
                               ranks_on_device=1 if mesh is None
                               else mesh.ranks_on_device)
         batch_size = ref_group_min(own, mesh)
@@ -145,10 +138,12 @@ class IterationResult:
 class AlignmentEngine:
     """Per-iteration executor owning the stack, batching and params.
 
-    ``data`` is an (N, H, W) float32 array or tensor.  ``batch_size``
-    None asks the planner (``plan_batch``); a batch at or above N keeps
-    the stack resident on ``device``, a smaller one streams it from
-    pinned host memory (``.batch``, ``.resident``).  ``delta`` (``--dst``)
+    ``data`` is an (N, H, W) float32 array or tensor.  ``sampler``, a
+    name resolved once or the job's ``Route``, is every step's
+    ``.route``.  ``batch_size`` None asks the planner (``plan_batch``); a
+    batch at or above N keeps the stack resident on ``device``, a smaller
+    one streams it from pinned host memory (``.batch``, ``.resident``).
+    ``delta`` (``--dst``)
     is the discrete-angle step that ``iterate(discrete=True)`` searches;
     its angle mask is built once, on the device.  ``random_method`` is
     "" (the standard search), "SHC" or "SCF"; ``delta`` is defined for
@@ -163,7 +158,7 @@ class AlignmentEngine:
     multiple of ``mesh.ref`` (``ValueError`` otherwise)."""
 
     def __init__(self, data, cfg: AlignConfig, n_classes: int,
-                 device="cuda", sampler: str = "auto",
+                 device="cuda", sampler: str | Route = "auto",
                  update_ref: bool = True, delta: float = 0.0,
                  random_method: str = "", batch_size: int | None = None,
                  mesh=None):
@@ -177,7 +172,6 @@ class AlignmentEngine:
         self.n_local = int(data.shape[0])
         self.cfg = cfg
         self.n_classes = n_classes
-        self.sampler = sampler
         self.update_ref = update_ref
         self.delta = float(delta)
         self.random_method = random_method
@@ -188,23 +182,21 @@ class AlignmentEngine:
             raise ValueError("delta (--dst) is only defined for the "
                              "standard search, not random_method=%r"
                              % random_method)
-        # fail at construction where the first iteration would
-        self.search = resolve_sampler(
-            sampler, self.device, cfg, random_method,
-            n_refs=searched_refs(n_classes, mesh, random_method))
-        # the template engine's splat spectra depend on cfg only: built
-        # once per engine, as the JAX engine hoists them out of its step
-        self._sf = (splat_spectra_groups(cfg, self.device)
-                    if self.search == "template" else None)
-        self._iterations = 0
         if random_method and cfg.ring_scheme != "cuda":
             raise ValueError(f"random_method={random_method!r} runs the "
                              "standard ring scheme only (ring_scheme='cuda')")
+        # fail at construction where the first iteration would
+        self.route = (sampler if isinstance(sampler, Route) else
+                      resolve_route(sampler, self.device, cfg, random_method,
+                                    n_classes, mesh))
+        # the tables and the template engine's splat spectra, once per
+        # engine, as the JAX engine hoists them out of its step
+        self._sf = self.route.warm(cfg, self.device)
+        self._iterations = 0
         self._angle_mask = None
         m = self.n_local
-        self.batch = plan_batch(
-            m, n_classes, cfg, self.device, sampler, random_method,
-            batch_size, mesh=mesh)
+        self.batch = plan_batch(m, self.route, cfg, self.device, batch_size,
+                                mesh=mesh)
         self.resident = self.batch >= m
         shc = random_method == "SHC"
         if self.resident:
@@ -298,7 +290,7 @@ class AlignmentEngine:
 
     def _step(self, imgs, refs, params, gidx, prevmax, mask):
         """One step on a batch: (StepOutput, new previousmax, nope)."""
-        kw = dict(n_classes=self.n_classes, sampler=self.sampler,
+        kw = dict(n_classes=self.n_classes, sampler=self.route,
                   mesh=self.mesh)
         if self.random_method == "SCF":
             return (align_step_scf(imgs, refs, params, gidx, None, self.cfg,

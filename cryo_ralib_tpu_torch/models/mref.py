@@ -56,6 +56,7 @@ from ..utils.profiling import job, span
 from .checkpoint import load_checkpoint, save_checkpoint
 from .engine import (AlignmentEngine, plan_batch, prepare_stack,
                      resolve_device)
+from .steps import resolve_route
 from .user_functions import factory
 
 
@@ -100,13 +101,10 @@ def mref_ali2d(
 
     Flags as ``mref_ali2d_tpu``: ``yr < 0`` means ``yr = xr``; ``ou=-1``
     means ``nx//2 - 2``; ``maxit=0`` means 10 iterations; ``center`` is
-    -1 or 0 (none) or 1 (center each reference).  ``sampler`` picks the
-    search: "auto" (the CUDA kernel on a CUDA device, the plain version
-    on the CPU), "kernel", "plain", "template" (the template engine,
-    ``ops/template_search.py``) or "matmul" (the matmul sampler,
-    ``ops/search.py::rotational_shift_search_mm``); the last two take
-    every flag here (the eman2 rings, CTF, a mesh) and sum the classes by
-    the FFT shear, as the JAX package does.  ``ring_scheme="eman2"`` searches
+    -1 or 0 (none) or 1 (center each reference).  ``sampler`` ("auto",
+    "kernel", "plain", "template" or "matmul") is resolved once per job
+    (``models/steps.py::resolve_route``); the last two take every flag
+    here (the eman2 rings, CTF, a mesh).  ``ring_scheme="eman2"`` searches
     the variable-length Numrinit rings with ``ringwe`` weights, through
     the PyTorch search on either device (``sampler="kernel"`` raises
     ``ValueError`` there).  ``CTF=True`` premultiplies the particles by
@@ -183,8 +181,9 @@ def mref_ali2d(
 
         local, _gidx = shard_stack(images, mesh)
         start, stop = shard_range(n, mesh)
-        batch = plan_batch(stop - start, numref, cfg, device, sampler, "",
-                           batch_size, log=log.add, mesh=mesh)
+        route = resolve_route(sampler, device, cfg, "", numref, mesh)
+        batch = plan_batch(stop - start, route, cfg, device, batch_size,
+                           log=log.add, mesh=mesh)
         with span("driver.prepare", device,
                   bytes=4 * int(np.prod(local.shape))):
             data = prepare_stack(local, device, batch >= stop - start, prep)
@@ -194,8 +193,8 @@ def mref_ali2d(
         rng = _random.Random(rand_seed)
         engine = AlignmentEngine(StackShard(data, start, n), cfg,
                                  n_classes=numref, device=device,
-                                 sampler=sampler, batch_size=batch, mesh=mesh)
-        job_span.set(sampler=engine.search, resident=engine.resident,
+                                 sampler=route, batch_size=batch, mesh=mesh)
+        job_span.set(sampler=route.search, resident=engine.resident,
                      batch=engine.batch)
         if not engine.resident:
             log.add("streaming %d particles in batches of %d"

@@ -59,6 +59,7 @@ from ..utils.profiling import job, span
 from .checkpoint import load_checkpoint, save_checkpoint
 from .engine import (PREP_BLOCK, AlignmentEngine, plan_batch, prepare_stack,
                      resolve_device)
+from .steps import resolve_route
 from .user_functions import factory
 
 
@@ -125,14 +126,10 @@ def ali2d_base(
     ``snr``.  ``Fourvar`` computes the 2-D Fourier variance of the aligned
     stack each iteration (the FFT-shear engine with bf16 DFTs, as
     ``ali2d_base_tpu``'s ``fourier_variance`` defaults), divides the
-    average's spectrum by it and writes ``varf.hdf``.  ``sampler`` as in
-    ``mref_ali2d``; SHC runs the kernel's SHC pick on a CUDA device
-    under "auto", eman2 the PyTorch search on either device
-    (``sampler="kernel"`` raises ``ValueError`` there), the matmul
-    sampler with ``sampler="matmul"`` in every mode, and the template
-    engine with ``sampler="template"`` in every mode but SCF, where it
-    raises ``ValueError`` as in the JAX package.  ``batch_size`` and ``mesh`` as in
-    ``mref_ali2d``; a 2-D mesh with ``ref > 1`` raises ``ValueError``.
+    average's spectrum by it and writes ``varf.hdf``.  ``sampler``,
+    ``batch_size`` and ``mesh`` as in ``mref_ali2d`` (SHC runs the
+    kernel's SHC pick under "auto"; SCF refuses "template"); a 2-D mesh
+    with ``ref > 1`` raises ``ValueError``.
     """
     with job(driver="ali2d_base", n=int(images.shape[0]), K=1) as job_span:
         check_ref_split(1, mesh)
@@ -200,17 +197,18 @@ def ali2d_base(
 
         local, _gidx = shard_stack(images, mesh)
         start, stop = shard_range(n, mesh)
-        batch = plan_batch(stop - start, 1, cfg, device, sampler,
-                           random_method, batch_size, log=log.add, mesh=mesh)
+        route = resolve_route(sampler, device, cfg, random_method, 1, mesh)
+        batch = plan_batch(stop - start, route, cfg, device, batch_size,
+                           log=log.add, mesh=mesh)
         with span("driver.prepare", device,
                   bytes=4 * int(np.prod(local.shape))):
             data = prepare_stack(local, device, batch >= stop - start, prep)
         engine = AlignmentEngine(StackShard(data, start, n), cfg, n_classes=1,
-                                 device=device, sampler=sampler,
+                                 device=device, sampler=route,
                                  update_ref=False, delta=dst,
                                  random_method=random_method, batch_size=batch,
                                  mesh=mesh)
-        job_span.set(sampler=engine.search, resident=engine.resident,
+        job_span.set(sampler=route.search, resident=engine.resident,
                      batch=engine.batch)
         if dst:
             log.add("Discrete angle used         : %d" % int(dst))

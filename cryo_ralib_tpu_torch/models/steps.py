@@ -8,40 +8,23 @@ the angle argmax and turns off the parabolic refinement),
 (self-correlation alignment), and ``raw_sum_step`` (the even/odd sums
 of the raw stack).
 
-Which search runs (``resolve_sampler``): the hand-written CUDA kernel
-takes the standard search and the SHC pick (``fused_search_shc``, the
-kernel's ``PICK_SHC`` variant, for which the JAX package has no Pallas
-kernel; one reference) on uniform 256-sample rings, full or half (mode
-"F" or "H").  The eman2 ring scheme has no kernel and runs the PyTorch
-search on either device under "auto", and so do SHC with more than one
-reference, the per-particle-reference search
-(``per_particle_ref``) and a geometry outside the kernel's gate
-(``ops/fused_search.py::kernel_gate``: other ring lengths, a block
-larger than the device's shared memory, the int32 priority bound), as
-the JAX package's "auto" leaves the Pallas kernel there.  Asking for the
-kernel there raises ``ValueError``; the rule is decided from the
-geometry before any launch, and nothing falls back from a kernel that
-fails to build or launch to the plain search.
-``sampler="template"`` runs the template engine
-(``ops/template_search.py``: the search as bf16 matrix products) for the
-standard and the eman2 rings and for SHC, where ``template_supported``
-admits the geometry, and raises ``ValueError`` elsewhere (SCF has no
-template variant, as in JAX); ``sampler="matmul"`` runs the matmul
-sampler (the polar samples as tent products, ``ops/polar_mm.py``) in
-every mode.  "auto" never picks either.
+Which search runs, how the classes are summed and the kernel's launch
+plan are one ``Route``: ``resolve_route`` decides it once per job from
+the sampler's name, the device and the geometry, before any launch (the
+rule of what the kernel runs is ``ops/fused_search.py::kernel_gate``),
+and the steps, the engine, the device loops, the batch planner
+(``parallel/batching.py``) and the spans read it; a step given a name
+resolves it once per call.  Nothing falls back from a kernel that fails
+to build or launch to the plain search.
 
 The end of every step (``_finish_step``) transforms and class-sums the
-particles.  Under "template" and "matmul" it is the JAX package's
-``class_sum_transform_mm`` (the FFT shear, bf16 DFTs with ``fast``, the
-sums taken on the spectra, in blocks of ``shear_block`` particles), as
-the JAX steps sum for those samplers.  Under "kernel" and "plain" it is
-the bilinear ``transform_batch`` + ``class_sum_oe``, the JAX package's
-``gather`` step, which is the port's semantic target, through
-``ops/classavg.py::fused_class_sums``: on a CUDA tensor one launch of
-the class-sum kernel (``csrc/class_sums.cu``, the same samples and the
-f64 sums in a fixed order, the transformed images never written), on
-the CPU its plain version, by blocks of ``transform_block`` particles;
-the JAX ``fused`` step, which "kernel" stands for, sums by the FFT shear
+particles by the route's ``sums``: "shear" under "template" and
+"matmul", the JAX package's ``class_sum_transform_mm`` (the FFT shear),
+as the JAX steps sum for them; else the bilinear ``transform_batch`` +
+``class_sum_oe`` of the JAX ``gather`` step, the port's semantic
+target, in one launch of the class-sum kernel (``csrc/class_sums.cu``)
+on a CUDA device ("kernel") or by its plain version ("plain").  The JAX
+``fused`` step, which "kernel" stands for, sums by the FFT shear
 instead: the one place where a port's sampler sums otherwise than its
 JAX counterpart.
 
@@ -61,6 +44,7 @@ run as they did, bit for bit.
 from __future__ import annotations
 
 import logging
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
@@ -68,26 +52,27 @@ import torch
 from ..config import AlignConfig
 from ..params import AlignParams, gpu_params_to_align2d
 from ..ops.classavg import (class_sum_oe, class_sum_transform_mm,
-                            fused_class_sums)
-from ..ops.eman_search import (prepare_ref_spectra_eman,
+                            class_sums_plain, fused_class_sums)
+from ..ops.eman_search import (eman_mm_tables, eman_tables,
+                               prepare_ref_spectra_eman,
                                rotational_shift_search_eman)
-from ..ops.fused_search import (fused_search, fused_search_shc, kernel_gate,
-                                kernel_plan, search_plain)
+from ..ops.fused_search import (KernelPlan, fused_search, fused_search_shc,
+                                kernel_gate, kernel_tables, launch_plan,
+                                search_plain)
+from ..ops.polar_mm import polar_tables as polar_mm_tables, product_route
 from ..ops.scf import scf_align, zero_shift_cfg
 from ..ops.search import (decode_params, empty_result, merge_ref_slices,
                           prepare_ref_spectra,
                           rotational_shift_search_mm,
                           rotational_shift_search_shc,
-                          rotational_shift_search_shc_mm)
-from ..ops.template_search import (template_search, template_search_shc,
-                                   template_supported)
+                          rotational_shift_search_shc_mm, search_tables)
+from ..ops.template_search import (splat_spectra_groups, template_search,
+                                   template_search_shc, template_supported)
+from ..ops.transform import dft_tables, shear_pad
 from ..parallel.mesh import ref_reduce, ref_slice
 from ..utils.profiling import span
 
 _log = logging.getLogger(__name__)
-
-# the samplers whose steps sum their classes by the FFT shear
-SHEAR_SUMS = ("template", "matmul")
 
 
 class StepOutput(NamedTuple):
@@ -132,40 +117,81 @@ def _ref_part(refs, mesh) -> _RefPart:
                    lambda t, op: ref_reduce(mesh, t, op))
 
 
-def searched_refs(n_refs: int, mesh, random_method: str = "") -> int:
-    """The references that a rank searches of ``n_refs``: its slice under
-    a ``ref`` split for the standard search, all of them for SHC and SCF,
-    which keep them whole on every rank (as the JAX package's SHC step
-    keeps them replicated)."""
-    if mesh is None or random_method:
-        return n_refs
-    return max(1, n_refs // mesh.ref)
+@dataclass(frozen=True)
+class Route:
+    """What every step of a job runs, decided once (``resolve_route``)."""
+
+    search: str     # "kernel", "plain", "template" or "matmul"
+    sums: str       # "kernel" (the class-sum kernel), "plain" or "shear"
+    refs: int       # the references a rank searches (its ``ref`` slice)
+    method: str = ""                 # the random_method
+    plan: KernelPlan | None = None   # the kernel's, where it launches
+
+    def warm(self, cfg: AlignConfig, device):
+        """Copy the tables that the route's steps read to ``device`` once
+        (each table's function caches it); returns the template engine's
+        splat spectra, every step's ``sf=`` (None for the other searches)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        search_tables(cfg, device)
+        if cfg.ring_scheme == "eman2":
+            eman_tables(cfg, device)
+        elif self.plan is not None:
+            kernel_tables(cfg, device)
+        if self.sums == "shear":
+            dft_tables(shear_pad(cfg.img_dim), device)
+            product_route(device)
+        if self.search == "matmul":
+            (eman_mm_tables if cfg.ring_scheme == "eman2"
+             else polar_mm_tables)(cfg, device)
+        return (splat_spectra_groups(cfg, device)
+                if self.search == "template" else None)
 
 
-def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
-                    random_method: str = "", n_refs: int = 1,
-                    smem_limit: int | None = None,
-                    per_particle_ref: bool = False) -> str:
-    """The search a step runs: "kernel" (the CUDA kernel), "plain" (the
-    PyTorch search), "template" (the template engine) or "matmul" (the
-    matmul sampler).
+def resolve_route(sampler: str, device, cfg: AlignConfig,
+                  random_method: str = "", n_refs: int = 1, mesh=None,
+                  smem_limit: int | None = None,
+                  per_particle_ref: bool = False) -> Route:
+    """The route of a job's steps on ``device``: the search that
+    ``sampler`` names, its class sums ("template" and "matmul" sum by
+    the FFT shear), the references a rank searches of ``n_refs`` under
+    ``mesh`` and the kernel's launch plan.  Nothing is built or launched.
 
-    "auto" is the kernel for CUDA tensors and plain for CPU tensors, the
-    standard search and the SHC pick (``random_method="SHC"``) alike,
-    except where there is no kernel: the eman2 ring scheme
-    (``cfg.ring_scheme == "eman2"``), SHC with ``n_refs`` other than one
-    (the kernel's SHC pick is built for the reference-free driver's one
-    reference), the per-particle-reference search
-    (``per_particle_ref``) and, on a CUDA device, a geometry
-    outside ``kernel_gate`` (``n_refs`` references of ``cfg``'s box;
-    ``smem_limit`` defaults to the device's) run plain, which is logged.
-    "kernel" asked for there raises ``ValueError`` naming the rule.
-    "template" is taken only as asked, on either device, and raises
-    ``ValueError`` under SCF, for ``per_particle_ref`` and outside
-    ``template_supported`` (``n_refs`` references), as the JAX package's
-    steps raise.  "matmul" is taken only as asked, in every mode and on
-    either device (the JAX package's matmul sampler has no gate).
+    "auto" is the kernel on a CUDA device and plain on the CPU, the
+    standard search and the SHC pick alike, except where there is no
+    kernel: the eman2 rings, SHC with more than one reference (the
+    kernel's SHC pick is built for one), ``per_particle_ref`` and, on a
+    CUDA device, a geometry outside ``kernel_gate`` (``smem_limit``
+    defaults to the device's; SCF's rotation stage is one reference at
+    zero shift) run plain, which is logged; "kernel" there raises
+    ``ValueError`` naming the rule.  "template" and "matmul" are taken
+    only as asked, on either device: "template" raises ``ValueError``
+    under SCF, for ``per_particle_ref`` and outside
+    ``template_supported``, as the JAX package's steps raise; "matmul"
+    has no gate, as the JAX package's.
     """
+    k0, k1 = (0, n_refs) if random_method else ref_slice(n_refs, mesh)
+    refs = max(1, k1 - k0)
+    # SCF's rotation stage is a standard search of one reference at zero
+    # shift
+    gate_cfg, gate_refs = ((zero_shift_cfg(cfg), 1) if random_method == "SCF"
+                           else (cfg, refs))
+    search = _search_of(sampler, device, gate_cfg, random_method, gate_refs,
+                        smem_limit, per_particle_ref)
+    cuda = torch.device(device).type == "cuda"
+    sums = ("shear" if search in ("template", "matmul")
+            else "kernel" if cuda else "plain")
+    plan = (launch_plan(gate_cfg, gate_refs, cfg.img_dim, cfg.img_dim,
+                        smem_limit, device)
+            if search == "kernel" and cuda else None)
+    return Route(search, sums, refs, random_method, plan)
+
+
+def _search_of(sampler: str, device, cfg: AlignConfig, random_method: str,
+               n_refs: int, smem_limit: int | None,
+               per_particle_ref: bool) -> str:
+    """``resolve_route``'s search, on ``n_refs`` references of ``cfg``."""
     if sampler not in ("auto", "kernel", "plain", "template", "matmul"):
         raise ValueError(f"sampler must be 'auto', 'kernel', 'plain', "
                          f"'template' or 'matmul', not {sampler!r}")
@@ -178,7 +204,7 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
         if per_particle_ref:
             raise ValueError("sampler='template' searches every reference "
                              "(no per_particle_ref)")
-        if cfg is not None and not template_supported(cfg, n_refs):
+        if not template_supported(cfg, n_refs):
             raise ValueError(
                 "sampler='template' on a configuration outside the template "
                 "engine's geometry gate (ops.template_search."
@@ -188,13 +214,13 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
     if per_particle_ref:
         no_kernel = ("per_particle_ref (the kernel searches every "
                      "reference)")
-    elif cfg is not None and cfg.ring_scheme == "eman2":
+    elif cfg.ring_scheme == "eman2":
         no_kernel = ("ring_scheme='eman2' (the kernel takes uniform "
                      "256-sample rings)")
     elif random_method == "SHC" and n_refs != 1:
         no_kernel = (f"random_method='SHC' with {n_refs} references (the "
                      "kernel's SHC pick is built for one)")
-    elif (cfg is not None and sampler != "plain"
+    elif (sampler != "plain"
           and (sampler == "kernel" or torch.device(device).type == "cuda")):
         gate = kernel_gate(cfg, n_refs, cfg.img_dim, cfg.img_dim,
                            smem_limit, device)
@@ -212,21 +238,26 @@ def resolve_sampler(sampler: str, device, cfg: AlignConfig | None = None,
     return sampler
 
 
-def _search_size(images, cfg: AlignConfig, sampler: str, k: int) -> dict:
+def _as_route(sampler, images, cfg: AlignConfig, method: str, n_refs: int,
+              mesh) -> Route:
+    """``sampler`` where it is a ``Route``, else resolved for ``images``."""
+    return (sampler if isinstance(sampler, Route) else resolve_route(
+        sampler, images.device, cfg, method, n_refs, mesh))
+
+
+def _search_size(images, cfg: AlignConfig, route: Route, k: int) -> dict:
     """The ``step.search`` span's size counters: the box, the rings, the
-    shifts and mirror channels searched, and ``ref_groups``, the groups
-    of 8 references (one of one at K=1) that each of the kernel's blocks
-    loops over, 0 where another search runs."""
-    kernel = sampler == "kernel" and images.is_cuda
+    shifts and mirror channels searched, and ``ref_groups``, the kernel's
+    (0 where another search runs or the rank searches no reference)."""
     return dict(box=images.shape[-1], rings=cfg.ring_num,
                 shifts=cfg.n_shifts, mirrors=2 if cfg.mirror else 1,
-                ref_groups=-(-k // 8) if kernel else 0)
+                ref_groups=route.plan.ref_groups if route.plan and k else 0)
 
 
 def align_step(images, refs, params: AlignParams, global_index, valid,
                cfg: AlignConfig, *, n_classes: int, update_ref: bool = True,
-               sampler: str = "auto", fast: bool = True, angle_mask=None,
-               sf=None, mesh=None) -> StepOutput:
+               sampler: str | Route = "auto", fast: bool = True,
+               angle_mask=None, sf=None, mesh=None) -> StepOutput:
     """One alignment iteration over a resident stack.
 
     Args:
@@ -241,7 +272,8 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
       sampler: "kernel" = the CUDA search kernel (CUDA tensors only),
         "plain" = its PyTorch version, "template" = the template engine,
         "matmul" = the matmul sampler, "auto" = kernel on CUDA, plain on
-        the CPU.
+        the CPU (``resolve_route``, once per call); or the job's
+        ``Route``, used as it is.
       fast: bf16 products with f32 sums in the matmul sampler and in the
         FFT-shear class sums (the JAX package's ``fast``).
       angle_mask: optional (L,) float32 additive angle mask on the
@@ -261,14 +293,13 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
     ``cfg.mode == "H"`` searches half
     rings, through the kernel on a CUDA tensor like mode "F".
     """
+    route = _as_route(sampler, images, cfg, "", refs.shape[0], mesh)
     part = _ref_part(refs, mesh)
-    sampler = resolve_sampler(sampler, images.device, cfg,
-                              n_refs=max(1, part.refs.shape[0]))
     k = part.refs.shape[0]
-    with span("step.search", images.device, sampler=sampler,
+    with span("step.search", images.device, sampler=route.search,
               N=images.shape[0], K=k,
-              **_search_size(images, cfg, sampler, k)):
-        result = _search(images, part.refs, params, cfg, sampler, fast,
+              **_search_size(images, cfg, route, k)):
+        result = _search(images, part.refs, params, cfg, route.search, fast,
                          angle_mask, sf)
     if part.reduce is not None:
         result = merge_ref_slices(result, part.k0, cfg.n_shifts,
@@ -276,7 +307,7 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
     new_params = decode_params(result, params, cfg, update_ref=update_ref,
                                refine=angle_mask is None)
     return _finish_step(images, new_params, result.best_val, global_index,
-                        valid, n_classes, sampler in SHEAR_SUMS, fast, mesh)
+                        valid, n_classes, route.sums, fast, mesh)
 
 
 def _search(images, refs, params: AlignParams, cfg: AlignConfig,
@@ -306,20 +337,20 @@ def _search(images, refs, params: AlignParams, cfg: AlignConfig,
 
 
 def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
-                 n_classes: int, shear: bool = False,
-                 fast: bool = True, mesh=None) -> StepOutput:
+                 n_classes: int, sums: str, fast: bool = True,
+                 mesh=None) -> StepOutput:
     """Transform by the new params, sum the classes even/odd, and the
-    centering sums: the end of every kind of step.  ``shear`` sums by the
-    FFT shear (``class_sum_transform_mm``, bf16 DFTs with ``fast``, in
-    blocks of particles whose sums add up on the device), else by the
-    bilinear transform (``fused_class_sums``: one launch of the class-sum
-    kernel on a CUDA tensor, its plain version on the CPU).  The
-    ``step.sums`` span says which ran: ``sums="kernel"`` or ``"plain"``.
-    Under a ``ref`` split (``mesh``) only the rank's share of the
-    particles (``ref_slice``) is transformed and summed; the params and
-    peaks stay whole."""
-    route = "kernel" if images.is_cuda and not shear else "plain"
-    with span("step.sums", images.device, shear=shear, sums=route):
+    centering sums: the end of every kind of step, by the route's
+    ``sums``: "shear" (``class_sum_transform_mm``, bf16 DFTs with
+    ``fast``), "kernel" (``fused_class_sums``) or "plain"
+    (``class_sums_plain``).  The ``step.sums`` span says ``shear``, and
+    ``sums="kernel"`` where the kernel ran, else ``"plain"``.  Under a
+    ``ref`` split (``mesh``) only the rank's share of the particles
+    (``ref_slice``) is transformed and summed; the params and peaks stay
+    whole."""
+    shear = sums == "shear"
+    with span("step.sums", images.device, shear=shear,
+              sums="kernel" if sums == "kernel" else "plain"):
         n = images.shape[0]
         if global_index is None:
             global_index = torch.arange(n, device=images.device)
@@ -334,14 +365,15 @@ def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
         else:
             summed = new_params
         if shear:
-            sums, counts = class_sum_transform_mm(
+            class_sums, counts = class_sum_transform_mm(
                 images, summed, n_classes, global_index=global_index,
                 valid=valid, fast=fast)
         else:
-            sums, counts = fused_class_sums(
-                images, summed, n_classes, global_index=global_index,
-                valid=valid)
-        return _step_output(new_params, summed, sums, counts, peak, valid)
+            class_sums, counts = (
+                fused_class_sums if sums == "kernel" else class_sums_plain)(
+                    images, summed, n_classes, global_index, valid)
+        return _step_output(new_params, summed, class_sums, counts, peak,
+                            valid)
 
 
 def _step_output(new_params: AlignParams, summed: AlignParams, sums, counts,
@@ -372,7 +404,7 @@ class ShcStepOutput(NamedTuple):
 
 def align_step_shc(images, refs, params: AlignParams, global_index, valid,
                    previousmax, cfg: AlignConfig, *, n_classes: int,
-                   sampler: str = "auto", fast: bool = True,
+                   sampler: str | Route = "auto", fast: bool = True,
                    sf=None, mesh=None) -> ShcStepOutput:
     """One SHC (stochastic hill climbing) iteration,
     ``random_method="SHC"``: each particle takes the first candidate
@@ -380,7 +412,8 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
     with none keeps its params and its ``previousmax`` and counts in
     ``nope``.  The search is ``fused_search_shc`` under "kernel" (the
     kernel's SHC pick on a CUDA tensor, the plain one on the CPU),
-    ``rotational_shift_search_shc`` under "plain" (``resolve_sampler``),
+    ``rotational_shift_search_shc`` under "plain" (``resolve_route``;
+    ``sampler`` as in ``align_step``),
     ``template_search_shc`` with ``sampler="template"`` (``sf`` as in
     ``align_step``), or ``rotational_shift_search_shc_mm`` with
     ``sampler="matmul"`` (``fast`` as in ``align_step``), each called by
@@ -390,40 +423,35 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
     sums its share of the particles (``nope`` too).
 
     Where the ``step.search`` span records and the kernel runs (a CUDA
-    tensor), it sets two attributes on the span: ``shc_groups``, the
+    device), it sets two attributes on the span: ``shc_groups``, the
     shift groups its blocks ran (a device sum, read when the span's
     ``attrs`` are read), and ``shc_groups_full``, the groups of a search
-    that ran them all.
+    that ran them all (of the route's plan).
     """
     if cfg.ring_scheme != "cuda":
         raise ValueError("random_method='SHC' runs the standard ring "
                          "scheme only (ring_scheme='cuda')")
-    sampler = resolve_sampler(sampler, images.device, cfg,
-                              random_method="SHC", n_refs=refs.shape[0])
+    route = _as_route(sampler, images, cfg, "SHC", refs.shape[0], mesh)
     n = images.shape[0]
-    with span("step.search", images.device, sampler=sampler, N=n,
+    with span("step.search", images.device, sampler=route.search, N=n,
               K=refs.shape[0],
-              **_search_size(images, cfg, sampler, refs.shape[0])) as sp:
+              **_search_size(images, cfg, route, refs.shape[0])) as sp:
         ref_fw = prepare_ref_spectra(refs, cfg)
-        if sampler == "template":
+        if route.search == "template":
             result, found = template_search_shc(images, ref_fw, params, cfg,
                                                 previousmax, sf=sf)
-        elif sampler == "matmul":
+        elif route.search == "matmul":
             result, found = rotational_shift_search_shc_mm(
                 images, ref_fw, params, cfg, previousmax, fast=fast)
-        elif sampler == "kernel":
-            count = sp.recording and images.is_cuda
+        elif route.search == "kernel":
+            count = sp.recording and route.plan is not None
             groups = (torch.empty(n, dtype=torch.int32, device=images.device)
                       if count else None)
             result, found = fused_search_shc(images, ref_fw, params, cfg,
                                              previousmax, out_groups=groups)
             if count:
-                with torch.cuda.device(images.device):
-                    group = kernel_plan(cfg.ring_num, cfg.mirror,
-                                        refs.shape[0], cfg.n_shifts,
-                                        *images.shape[1:])["group"]
-                sp.set(shc_groups=groups.sum(),
-                       shc_groups_full=n * -(-cfg.n_shifts // group))
+                sp.set(shc_groups=groups.sum(), shc_groups_full=n * -(
+                    -cfg.n_shifts // route.plan.group))
         else:
             result, found = rotational_shift_search_shc(
                 images, ref_fw, params, cfg, previousmax)
@@ -432,7 +460,7 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
                                for new, old in zip(decoded, params)])
     new_prevmax = torch.where(found, result.best_val, previousmax)
     step = _finish_step(images, new_params, new_prevmax, global_index, valid,
-                        n_classes, sampler in SHEAR_SUMS, fast, mesh)
+                        n_classes, route.sums, fast, mesh)
     missed = ~found if valid is None else (~found) & (valid > 0)
     a, b = ref_slice(missed.shape[0], mesh)
     return ShcStepOutput(step, new_prevmax, missed[a:b].sum())
@@ -440,7 +468,7 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
 
 def align_step_scf(images, refs, params: AlignParams, global_index, valid,
                    cfg: AlignConfig, *, n_classes: int,
-                   sampler: str = "auto", fast: bool = True,
+                   sampler: str | Route = "auto", fast: bool = True,
                    mesh=None) -> StepOutput:
     """One SCF (self-correlation) iteration, ``random_method="SCF"``:
     rotation from the shift-invariant scf ring spectra, translation from
@@ -450,20 +478,19 @@ def align_step_scf(images, refs, params: AlignParams, global_index, valid,
     shift, so on a CUDA tensor it launches the kernel;
     ``sampler="matmul"`` runs both stages and the class sums as the JAX
     package's matmul step (``fast`` as in ``align_step``);
-    ``sampler="template"`` raises ``ValueError``, as in the JAX package.
+    ``sampler="template"`` raises ``ValueError``, as in the JAX package
+    (``sampler`` as in ``align_step``).
     SCF searches ``refs[0]`` alone, so under a ``ref`` split (``mesh``)
     every rank of a ref group aligns its block whole and sums its share.
     """
     if cfg.ring_scheme != "cuda":
         raise ValueError("random_method='SCF' runs the standard ring "
                          "scheme only (ring_scheme='cuda')")
-    rot_cfg = zero_shift_cfg(cfg)
-    sampler = resolve_sampler(sampler, images.device, rot_cfg,
-                              random_method="SCF")
-    with span("step.search", images.device, sampler=sampler,
+    route = _as_route(sampler, images, cfg, "SCF", refs.shape[0], mesh)
+    with span("step.search", images.device, sampler=route.search,
               N=images.shape[0], K=1,
-              **_search_size(images, rot_cfg, sampler, 1)):
-        new_params, peak = scf_align(images, refs[0], cfg, sampler=sampler,
-                                     fast=fast)
+              **_search_size(images, zero_shift_cfg(cfg), route, 1)):
+        new_params, peak = scf_align(images, refs[0], cfg,
+                                     sampler=route.search, fast=fast)
     return _finish_step(images, new_params, peak, global_index, valid,
-                        n_classes, sampler in SHEAR_SUMS, fast, mesh)
+                        n_classes, route.sums, fast, mesh)

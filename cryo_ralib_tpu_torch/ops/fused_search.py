@@ -40,9 +40,12 @@ mode H, where the TPU kernel gates itself off for its half-plane window
 ``tools/torch_search_ablate.py``, with counters of their own in
 ``fused_search_stage.launches``; ``fused_search`` never reaches them.
 ``kernel_plan`` reports a launch's shifts per group, whether the image
-is staged in shared memory, and the block's shared memory.  The
-``plan_*`` functions are a CPU model of the kernel's FFT plan for the
-tests; the search never calls them.
+is staged in shared memory, and the block's shared memory;
+``launch_plan`` the same from its CPU copy, and ``kernel_gate`` the one
+rule of what the kernel runs, which ``models/steps.py::resolve_route``
+reads once per job and ``_launch`` at every launch.  The ``plan_*``
+functions are a CPU model of the kernel's FFT plan for the tests; the
+search never calls them.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from __future__ import annotations
 import ctypes
 import math
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -345,6 +349,26 @@ def plan_model(n_rings: int, mirror: bool, n_refs: int, n_shifts: int,
             "smem_bytes": _smem_bytes(n_rings, n_mirr, kg, g_ldg)}
 
 
+class KernelPlan(NamedTuple):
+    """``kernel_plan``'s fields, and the groups of 8 references (one of
+    one at K=1) that each block loops over."""
+
+    group: int
+    image_in_smem: bool
+    smem_bytes: int
+    ref_groups: int
+
+
+def launch_plan(cfg: AlignConfig, n_refs: int, h: int, w: int,
+                smem_limit: int | None = None, device="cuda") -> KernelPlan:
+    """``plan_model``'s plan of a launch on ``n_refs`` references of
+    ``cfg``, under ``smem_limit`` (by default ``device``'s): no build."""
+    limit = device_smem_limit(device) if smem_limit is None else smem_limit
+    return KernelPlan(**plan_model(cfg.ring_num, cfg.mirror, n_refs,
+                                   cfg.n_shifts, h, w, limit),
+                      ref_groups=-(-n_refs // 8))
+
+
 def device_smem_limit(device) -> int:
     """The opt-in shared memory per block of ``device`` (a CUDA device),
     or of any sm_90 device where CUDA is not available."""
@@ -367,18 +391,11 @@ def kernel_gate(cfg: AlignConfig, n_refs: int, h: int, w: int,
         return (f"{cfg.n_shifts} shifts x {n_refs} refs (over the kernel's "
                 "int32 priority index)")
     limit = device_smem_limit(device) if smem_limit is None else smem_limit
-    smem = plan_model(cfg.ring_num, cfg.mirror, n_refs, cfg.n_shifts, h, w,
-                      limit)["smem_bytes"]
+    smem = launch_plan(cfg, n_refs, h, w, limit).smem_bytes
     if smem > limit:
         return (f"ring_num={cfg.ring_num} needs {smem} B of shared memory "
                 f"per block, the device allows {limit}")
     return None
-
-
-def kernel_supported(cfg: AlignConfig, n_refs: int, h: int, w: int,
-                     smem_limit: int | None = None, device="cuda") -> bool:
-    """Whether the kernel runs this geometry (``kernel_gate`` is None)."""
-    return kernel_gate(cfg, n_refs, h, w, smem_limit, device) is None
 
 
 def _check(name, t, dtype, shape, device):
@@ -505,14 +522,11 @@ def _launch(images, ref_fw, params: AlignParams, cfg: AlignConfig,
             out_groups=None) -> SearchResult:
     """Check the inputs and launch the kernel on a CUDA tensor, its SHC
     pick where ``previousmax`` is given (the groups run go to
-    ``out_groups``, or to a buffer of its own); a launch that succeeds
-    adds one to ``counts[key]``, and to ``by_k[(key, K)]`` where given
-    (an empty stack launches nothing and counts nothing)."""
+    ``out_groups``, or to a buffer of its own; ``kernel_gate`` raises); a
+    launch that succeeds adds one to ``counts[key]``, and to
+    ``by_k[(key, K)]`` where given (an empty stack counts nothing)."""
     if images.device.type != "cuda":
         raise ValueError(f"no search for device {images.device}")
-    if cfg.ring_len != RING_LEN or cfg.ring_scheme != "cuda":
-        raise NotImplementedError(
-            "the search kernel takes ring_len=256 uniform rings only")
     dev = images.device
     n, h, w = images.shape
     k = ref_fw.shape[0]
@@ -530,16 +544,9 @@ def _launch(images, ref_fw, params: AlignParams, cfg: AlignConfig,
         if out_groups is None:
             out_groups = torch.empty(n, dtype=torch.int32, device=dev)
         _check("out_groups", out_groups, torch.int32, (n,), dev)
-    if 2 * s * k * RING_LEN >= 2 ** 31:
-        raise ValueError("shift grid x refs too large for the kernel's "
-                         "int32 priority index")
-
-    with torch.cuda.device(dev):
-        smem = kernel_plan(r, cfg.mirror, k, s, h, w)["smem_bytes"]
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"ring_num={r} needs {smem} B of shared memory per "
-                         f"block, the device allows {limit}")
+    gate = kernel_gate(cfg, k, h, w, device=dev)
+    if gate is not None:
+        raise ValueError("the search kernel does not take " + gate)
 
     polar, radii, twiddle = kernel_tables(cfg, dev)
     shifts = search_tables(cfg, dev).shifts

@@ -2,8 +2,10 @@
 
 Counterpart of ``cryo_ralib_tpu/parallel/batching.py`` (the reference's
 ``pre_align_size_check`` and its power-of-two batch search): the
-footprint is a closed-form function of (batch, K, config, search) over
-what the port allocates, and ``plan_batch_size`` picks the largest
+footprint is a closed-form function of (batch, route, config) over what
+the port allocates, the route (``models/steps.py::resolve_route``)
+giving the search, the class sums, the references searched and the
+``random_method``; and ``plan_batch_size`` picks the largest
 power-of-two batch that fits the device's memory; a stack that fits
 whole stays resident, a larger one streams through the same step in
 batches (``models/engine.py``).
@@ -15,16 +17,14 @@ What one step allocates, per batch of B particles of H x W pixels:
 * the search's outputs and the params: the kernel's (B, 256) winning
   rows and five scalars per particle, the params in and out, the peaks
   and the centering sums' temporaries (``PER_PARTICLE_BYTES``);
-* the transform block of ``_finish_step``'s plain route:
+* the class sums' transform: for the route's "plain" sums
   ``transform_block`` particles at ``TRANSFORM_BYTES_PER_PIXEL`` each
-  pixel, the same for any batch larger than the block, charged on a
-  CUDA device too, where the class-sum kernel takes far less (its plan
-  and its f64 partial sums, about an eighth of a byte a pixel of the
-  batch), so that every batch plan stays as it was; for the template
-  engine and the matmul sampler,
-  whose steps sum by the FFT shear (``class_sum_transform_mm``),
-  ``shear_block`` particles at ``SHEAR_BYTES_PER_PIXEL`` each padded
-  pixel and the (4K, P, F) spectral slot sums;
+  pixel, the same for any batch larger than the block, charged for its
+  "kernel" sums too (the class-sum kernel takes about an eighth of a
+  byte a pixel of the batch), so that every batch plan stays as it was;
+  for its "shear" sums (``class_sum_transform_mm``) ``shear_block``
+  particles at ``SHEAR_BYTES_PER_PIXEL`` each padded pixel and the
+  (4K, P, F) spectral slot sums;
 * the class sums: the (K, 2, H, W) accumulator and one block's sums,
   and the engine's iteration accumulator when streaming;
 * the references and the cached polar, shift and kernel tables;
@@ -165,15 +165,14 @@ def shear_sum_bytes(batch: int, n_refs: int, h: int) -> int:
             + 2 * 4 * n_refs * pad * (pad // 2 + 1) * 2 * F32)
 
 
-def step_footprint(batch: int, n_refs: int, cfg, sampler: str = "kernel",
-                   random_method: str = "",
+def step_footprint(batch: int, route, cfg,
                    streamed: bool = False) -> StepFootprint:
-    """The device memory of one ``align_step`` (``align_step_shc`` /
-    ``align_step_scf`` under ``random_method``) on ``batch`` particles
-    against ``n_refs`` references; ``sampler`` is the search that runs
-    ("kernel", "plain", "template" or "matmul", ``resolve_sampler``);
-    ``streamed`` charges the second image buffer and the engine's
-    accumulator."""
+    """The device memory of one step of ``route`` (``align_step``, or
+    ``align_step_shc`` / ``align_step_scf`` under its ``method``) on
+    ``batch`` particles against its ``refs`` references, with its
+    ``search`` and ``sums``; ``streamed`` charges the second image
+    buffer and the engine's accumulator."""
+    n_refs = route.refs
     h = w = cfg.img_dim
     img = h * w * F32
     q = cfg.ring_num * cfg.ring_len
@@ -181,7 +180,7 @@ def step_footprint(batch: int, n_refs: int, cfg, sampler: str = "kernel",
     images = bufs * batch * img
     outputs = batch * PER_PARTICLE_BYTES + (bufs - 1) * batch * 5 * F32
     block = min(transform_block(h, w), batch)
-    if sampler in ("template", "matmul"):
+    if route.sums == "shear":
         transform = shear_sum_bytes(batch, n_refs, h)
     else:
         transform = block * h * w * TRANSFORM_BYTES_PER_PIXEL
@@ -190,15 +189,15 @@ def step_footprint(batch: int, n_refs: int, cfg, sampler: str = "kernel",
     tables = (n_refs * (img + q * F32 + 2 * cfg.ring_num * 129 * 8)
               + q * 2 * F32 + cfg.n_shifts * 2 * F32 + RING_LEN * 2 * 8
               + cfg.ring_num * 8)
-    if sampler == "template":
+    if route.search == "template":
         tables += _splat_spectra_bytes(cfg)
         search = template_search_bytes(batch, n_refs, cfg)
-    elif sampler == "matmul":
+    elif route.search == "matmul":
         # the constant tents: (n_dy, Q, H) and (n_dx, Q, W)
         tables += ((len(cfg.shift_y_vals) + len(cfg.shift_x_vals)) * q * h
                    * F32)
         search = matmul_search_bytes(batch, n_refs, cfg)
-    elif sampler == "plain":
+    elif route.search == "plain":
         if cfg.ring_scheme == "eman2":
             samples = min(PLAIN_SAMPLE_BUDGET, batch * q)
         else:
@@ -206,7 +205,7 @@ def step_footprint(batch: int, n_refs: int, cfg, sampler: str = "kernel",
         search = PLAIN_BYTES_PER_SAMPLE * samples
     else:
         search = batch * DECODE_BYTES
-    if random_method == "SCF":
+    if route.method == "SCF":
         # the scf images; stage 2's maps are per transform block
         search += batch * img
         transform += block * img * 8
@@ -214,13 +213,12 @@ def step_footprint(batch: int, n_refs: int, cfg, sampler: str = "kernel",
                          search)
 
 
-def plan_batch_size(n: int, n_refs: int, cfg, limit_bytes: int | None = None,
-                    occupancy: float = 0.8, device=None,
-                    sampler: str = "kernel", random_method: str = "",
-                    log=None, ranks_on_device: int = 1) -> int:
-    """The stack whole (``n``) where its resident footprint fits
-    ``occupancy * limit``, else the largest power-of-two batch whose
-    streamed footprint fits (at least 1).
+def plan_batch_size(n: int, route, cfg, limit_bytes: int | None = None,
+                    occupancy: float = 0.8, device=None, log=None,
+                    ranks_on_device: int = 1) -> int:
+    """The stack whole (``n``) where the resident footprint of a step of
+    ``route`` fits ``occupancy * limit``, else the largest power-of-two
+    batch whose streamed footprint fits (at least 1).
 
     ``limit_bytes`` defaults to ``device_memory_bytes(device)`` divided
     by ``ranks_on_device``: under a mesh ``n`` is the rank's block, and
@@ -240,8 +238,7 @@ def plan_batch_size(n: int, n_refs: int, cfg, limit_bytes: int | None = None,
     budget = int(limit_bytes * occupancy)
 
     def fits(b, streamed):
-        return step_footprint(b, n_refs, cfg, sampler, random_method,
-                              streamed).total <= budget
+        return step_footprint(b, route, cfg, streamed).total <= budget
 
     if fits(n, False):
         batch, streamed = n, False
@@ -250,8 +247,7 @@ def plan_batch_size(n: int, n_refs: int, cfg, limit_bytes: int | None = None,
         while batch * 2 < n and fits(batch * 2, True):
             batch *= 2
     if log is not None:
-        fp = step_footprint(batch, n_refs, cfg, sampler, random_method,
-                            streamed)
+        fp = step_footprint(batch, route, cfg, streamed)
         mode = (f"streamed in batches of {batch}" if streamed
                 else "resident")
         log(f"batch plan: {n} particles {mode} (budget {budget / 2**30:.2f}"

@@ -121,7 +121,8 @@ def test_fused_class_sums_on_the_cpu_is_the_plain_route():
     want = class_sums_plain(images, params, 3, gidx, mask)
     assert fused_class_sums.launches == before
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    step = _finish_step(images, params, torch.zeros(40), gidx, mask, 3)
+    step = _finish_step(images, params, torch.zeros(40), gidx, mask, 3,
+                        "plain")
     assert torch.equal(step.class_sums, want[0])
     assert fused_class_sums.launches == before
     with pytest.raises(ValueError, match="no class-sum kernel"):

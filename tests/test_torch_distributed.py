@@ -333,6 +333,7 @@ def test_mesh_needs_a_process_group(monkeypatch):
 def test_planner_shares_the_card_among_its_ranks(monkeypatch):
     """Ranks that share a card plan at once and each sees the card free:
     the planner divides what it reads by the ranks on the card."""
+    from cryo_ralib_tpu_torch.models.steps import resolve_route
     from cryo_ralib_tpu_torch.parallel import batching
 
     cfg = AlignConfig(img_dim=90, ring_num=36, shift_rng_x=3.0,
@@ -341,11 +342,13 @@ def test_planner_shares_the_card_among_its_ranks(monkeypatch):
     monkeypatch.setattr(batching, "device_memory_bytes",
                         lambda device=None: free)
     n = 10 ** 6
-    one = batching.plan_batch_size(n, 8, cfg, device="cuda")
-    two = batching.plan_batch_size(n, 8, cfg, device="cuda",
+    route = resolve_route("kernel", "cuda", cfg, n_refs=8)
+    one = batching.plan_batch_size(n, route, cfg, device="cuda")
+    two = batching.plan_batch_size(n, route, cfg, device="cuda",
                                    ranks_on_device=2)
-    assert one == batching.plan_batch_size(n, 8, cfg, limit_bytes=free)
-    assert two == batching.plan_batch_size(n, 8, cfg, limit_bytes=free // 2)
+    assert one == batching.plan_batch_size(n, route, cfg, limit_bytes=free)
+    assert two == batching.plan_batch_size(n, route, cfg,
+                                           limit_bytes=free // 2)
     assert two < one < n
 
 

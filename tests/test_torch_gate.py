@@ -3,7 +3,8 @@
 ``sampler="auto"`` on a CUDA device runs the PyTorch search, and logs
 it, where the kernel cannot run the geometry (``kernel_gate``: another
 ring length, a block over the device's shared memory, the int32
-priority bound); ``sampler="kernel"`` raises ``ValueError`` there.  No
+priority bound); ``sampler="kernel"`` raises ``ValueError`` there.  The
+route (``resolve_route``) carries the kernel's plan where it runs.  No
 card is needed: the device is the string "cuda" and the shared memory
 limit is passed.  ``plan_model`` (the CPU copy of the kernel's launch
 plan) is held to the plans that ``kernel_plan`` read on an H100.
@@ -65,37 +66,46 @@ def test_outside_the_gate_auto_is_plain_and_kernel_raises(geom, k, limit,
     cfg = _cfg(**geom)
     reason = fs.kernel_gate(cfg, k, 90, 90, smem_limit=limit)
     assert reason is not None and words in reason
-    assert not fs.kernel_supported(cfg, k, 90, 90, smem_limit=limit)
     with caplog.at_level(logging.INFO, logger=steps.__name__):
-        got = steps.resolve_sampler("auto", "cuda", cfg, n_refs=k,
-                                    smem_limit=limit)
-    assert got == "plain"
+        got = steps.resolve_route("auto", "cuda", cfg, n_refs=k,
+                                  smem_limit=limit)
+    # the PyTorch search, the class-sum kernel, no launch plan
+    assert (got.search, got.sums, got.plan) == ("plain", "kernel", None)
     assert any("search engine: plain" in r.getMessage() and words
                in r.getMessage() for r in caplog.records)
-    assert steps.resolve_sampler("auto", "cpu", cfg, n_refs=k,
-                                 smem_limit=limit) == "plain"
-    assert steps.resolve_sampler("plain", "cuda", cfg, n_refs=k,
-                                 smem_limit=limit) == "plain"
-    with pytest.raises(ValueError, match="gate.*" + words.split("=")[0]):
-        steps.resolve_sampler("kernel", "cuda", cfg, n_refs=k,
-                              smem_limit=limit)
+    assert steps.resolve_route("auto", "cpu", cfg, n_refs=k,
+                               smem_limit=limit).search == "plain"
+    assert steps.resolve_route("plain", "cuda", cfg, n_refs=k,
+                               smem_limit=limit).search == "plain"
+    for dev in ("cuda", "cpu"):
+        with pytest.raises(ValueError,
+                           match="gate.*" + words.split("=")[0]):
+            steps.resolve_route("kernel", dev, cfg, n_refs=k,
+                                smem_limit=limit)
 
 
 @pytest.mark.parametrize("k", [1, 8, 64])
 def test_inside_the_gate_auto_is_the_kernel(k):
     cfg = _cfg()
     assert fs.kernel_gate(cfg, k, 90, 90, smem_limit=H100_SMEM) is None
-    assert steps.resolve_sampler("auto", "cuda", cfg, n_refs=k,
-                                 smem_limit=H100_SMEM) == "kernel"
-    assert steps.resolve_sampler("auto", "cpu", cfg, n_refs=k) == "plain"
+    route = steps.resolve_route("auto", "cuda", cfg, n_refs=k,
+                                smem_limit=H100_SMEM)
+    assert (route.search, route.sums, route.refs) == ("kernel", "kernel", k)
+    # the plan is plan_model's, with the kernel's groups of 8 references
+    # (one group of one at K=1)
+    assert route.plan._asdict() == {
+        **fs.plan_model(36, True, k, 49, 90, 90, H100_SMEM),
+        "ref_groups": {1: 1, 8: 1, 64: 8}[k]}
+    cpu = steps.resolve_route("auto", "cpu", cfg, n_refs=k)
+    assert (cpu.search, cpu.sums, cpu.plan) == ("plain", "plain", None)
     # the smallest block the kernel takes: one shift per group, the image
     # read through the cache
     small = fs.plan_model(36, True, k, 1, 90, 90, 10 ** 9)["smem_bytes"]
     small -= 4 * 90 * 90
-    assert steps.resolve_sampler("auto", "cuda", cfg, n_refs=k,
-                                 smem_limit=small) == "kernel"
-    assert steps.resolve_sampler("auto", "cuda", cfg, n_refs=k,
-                                 smem_limit=small - 1) == "plain"
+    assert steps.resolve_route("auto", "cuda", cfg, n_refs=k,
+                               smem_limit=small).search == "kernel"
+    assert steps.resolve_route("auto", "cuda", cfg, n_refs=k,
+                               smem_limit=small - 1).search == "plain"
 
 
 class ListLog:

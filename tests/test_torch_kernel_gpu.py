@@ -302,7 +302,8 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
                       device=cuda_device)
     params = AlignParams.zeros(2, cuda_device)
     cfg = AlignConfig(img_dim=64, ring_num=20)
-    with pytest.raises(NotImplementedError, match="256"):
+    # a geometry outside kernel_gate raises through its rule
+    with pytest.raises(ValueError, match="256"):
         fs.fused_search(imgs, rfw, params,
                         AlignConfig(img_dim=64, ring_num=20, ring_len=128))
     with pytest.raises(ValueError, match="shape"):
@@ -517,7 +518,7 @@ def test_scf_align_kernel_matches_plain(cuda_device):
 @pytest.mark.cuda
 def test_steps_without_a_kernel_launch_none(cuda_device):
     """The eman2 rings, and SHC with two references, run the PyTorch
-    search on the card (the explicit rule of ``resolve_sampler``): no
+    search on the card (the explicit rule of ``resolve_route``): no
     launch is counted, and forcing the kernel raises.  SHC with one
     reference has the kernel's SHC pick: one launch a step under "auto"
     and "kernel", none under "plain"."""
@@ -826,12 +827,13 @@ def test_class_sum_kernel_sums_a_ref_share(cuda_device):
     images, params, gidx, mask = _sum_case(n, k, 90, cuda_device, seed=3,
                                            valid=True)
     peak = torch.zeros(n, device=cuda_device)
-    whole = _finish_step(images, params, peak, gidx, mask, k)
+    whole = _finish_step(images, params, peak, gidx, mask, k, "kernel")
     total = torch.zeros_like(whole.class_sums)
     for rank in range(3):
         mesh = SimpleNamespace(ref=3, ref_rank=rank)
         a, b = ref_slice(n, mesh)
-        out = _finish_step(images, params, peak, gidx, mask, k, mesh=mesh)
+        out = _finish_step(images, params, peak, gidx, mask, k, "kernel",
+                           mesh=mesh)
         want, want_counts = _plain_sums(
             images[a:b], AlignParams(*[f[a:b] for f in params]), k,
             gidx[a:b], mask[a:b])
@@ -859,11 +861,11 @@ def test_class_sum_kernel_launches_once_a_step(cuda_device):
     before = fused_class_sums.launches
     for _ in range(2):
         _finish_step(images, params, torch.zeros(301, device=cuda_device),
-                     gidx, None, 4)
+                     gidx, None, 4, "kernel")
     assert fused_class_sums.launches == before + 2
     empty = _finish_step(images[:0], AlignParams(*[f[:0] for f in params]),
                          torch.zeros(0, device=cuda_device), gidx[:0], None,
-                         4)
+                         4, "kernel")
     assert fused_class_sums.launches == before + 2
     assert not empty.class_sums.any() and not empty.counts.any()
     torch.cuda.synchronize()

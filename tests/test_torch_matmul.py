@@ -452,7 +452,7 @@ def test_cli_matmul_writes_the_jax_file_set(tmp_path):
 def test_every_jax_sampler_is_taken():
     """No ``--sampler``, ``sampler=`` or ``engine=`` value that the JAX
     package accepts raises in the port: every ``--sampler`` choice maps
-    to a search that ``resolve_sampler`` takes in every mode JAX takes
+    to a search that ``resolve_route`` takes in every mode JAX takes
     it; "matmul" is taken only as asked (SHC, SCF, eman2, a
     per-particle reference, on either device), "auto" never picks it."""
     _, cfg = _cfgs()
@@ -465,16 +465,16 @@ def test_every_jax_sampler_is_taken():
         "auto", "fused", "template", "matmul", "gather"}
     assert cli_common.SAMPLERS["matmul"] == "matmul"
     for dev in ("cpu", "cuda"):
-        assert steps.resolve_sampler("matmul", dev, cfg) == "matmul"
-        assert steps.resolve_sampler("matmul", dev, cfg, "SHC") == "matmul"
-        assert steps.resolve_sampler("matmul", dev, cfg_h, "SCF") == "matmul"
-        assert steps.resolve_sampler("matmul", dev, cfg_e) == "matmul"
-        assert steps.resolve_sampler("matmul", dev, cfg,
-                                     per_particle_ref=True) == "matmul"
+        for c, rm in ((cfg, ""), (cfg, "SHC"), (cfg_h, "SCF"), (cfg_e, "")):
+            route = steps.resolve_route("matmul", dev, c, rm)
+            assert (route.search, route.sums) == ("matmul", "shear")
+        assert steps.resolve_route("matmul", dev, cfg,
+                                   per_particle_ref=True).search == "matmul"
         for rm in ("", "SHC"):
-            assert steps.resolve_sampler("auto", dev, cfg, rm) != "matmul"
+            assert steps.resolve_route("auto", dev, cfg,
+                                       rm).search != "matmul"
     with pytest.raises(ValueError, match="sampler"):
-        steps.resolve_sampler("fft", "cpu", cfg)
+        steps.resolve_route("fft", "cpu", cfg)
     img = torch.zeros((2, 16, 16))
     for engine in ("auto", "quadri", "shear"):
         from cryo_ralib_tpu_torch.ops.transform import rot_shift2d
@@ -493,9 +493,12 @@ def test_step_footprint_matmul_branch():
     cfg = AlignConfig(img_dim=90, ring_num=36, shift_rng_x=3.0,
                       shift_rng_y=3.0)
     n = 16384
-    fp = batching.step_footprint(n, 8, cfg, sampler="matmul")
-    kern = batching.step_footprint(n, 8, cfg, sampler="kernel")
-    tmpl = batching.step_footprint(n, 8, cfg, sampler="template")
+    route = steps.resolve_route("matmul", "cpu", cfg, n_refs=8)
+    fp = batching.step_footprint(n, route, cfg)
+    kern = batching.step_footprint(
+        n, steps.resolve_route("kernel", "cuda", cfg, n_refs=8), cfg)
+    tmpl = batching.step_footprint(
+        n, steps.resolve_route("template", "cpu", cfg, n_refs=8), cfg)
     blk = search.mm_block(n, 8, cfg)
     assert 1 < blk < n
     assert search.mm_search_bytes(blk, 8, cfg) <= search.MM_SEARCH_BUDGET
@@ -507,6 +510,5 @@ def test_step_footprint_matmul_branch():
         n, 8, 90) != kern.transform
     assert fp.tables - kern.tables == 14 * 36 * 256 * 90 * 4
     limit = int(fp.total / 0.8) - 1
-    b = batching.plan_batch_size(n, 8, cfg, limit_bytes=limit,
-                                 sampler="matmul")
+    b = batching.plan_batch_size(n, route, cfg, limit_bytes=limit)
     assert b < n and b & (b - 1) == 0

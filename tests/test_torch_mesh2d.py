@@ -54,7 +54,7 @@ from cryo_ralib_tpu_torch.models import (make_device_loop,
                                          make_mref_device_loop)
 from cryo_ralib_tpu_torch.models.engine import AlignmentEngine
 from cryo_ralib_tpu_torch.models.mref import mref_ali2d
-from cryo_ralib_tpu_torch.models.steps import searched_refs
+from cryo_ralib_tpu_torch.models.steps import resolve_route
 from cryo_ralib_tpu_torch.ops.ccf import ccf_rows, ccf_spectra, ring_spectra
 from cryo_ralib_tpu_torch.ops.fused_search import search_plain
 from cryo_ralib_tpu_torch.ops.polar import polar_resample
@@ -331,6 +331,7 @@ from cryo_ralib_tpu_torch.models.reffree import ali2d_base
 from cryo_ralib_tpu_torch.params import AlignParams
 from cryo_ralib_tpu_torch.parallel import make_mesh_2d
 from cryo_ralib_tpu_torch.models.engine import plan_batch
+from cryo_ralib_tpu_torch.models.steps import resolve_route
 from cryo_ralib_tpu_torch.parallel import batching
 from cryo_ralib_tpu_torch.parallel.mesh import (
     StackShard, gather_params, initialize_distributed, shard_range,
@@ -386,18 +387,20 @@ for tag, (dp, ref) in LAYOUTS.items():
     def memory(k):
         # the card's memory at which the planner picks own_b for K=k (the
         # ranks on one device share it)
-        fp = batching.step_footprint(own_b, k // mesh.ref, cfg, "plain", "",
-                                     own_b < m).total
+        route = resolve_route("plain", "cpu", cfg, n_refs=k, mesh=mesh)
+        assert route.refs == k // mesh.ref
+        fp = batching.step_footprint(own_b, route, cfg, own_b < m).total
         return lambda device=None: ((int(fp / 0.8) + 64)
                                     * mesh.ranks_on_device)
 
     free = batching.device_memory_bytes
     try:
         batching.device_memory_bytes = memory(4)
+        route = resolve_route("plain", "cpu", cfg, n_refs=4, mesh=mesh)
         out[tag + "_plan_own"] = np.int64(batching.plan_batch_size(
-            m, 4 // mesh.ref, cfg, device="cpu", sampler="plain",
+            m, route, cfg, device="cpu",
             ranks_on_device=mesh.ranks_on_device))
-        out[tag + "_plan"] = np.int64(plan_batch(m, 4, cfg, "cpu",
+        out[tag + "_plan"] = np.int64(plan_batch(m, route, cfg, "cpu",
                                                  mesh=mesh))
         res = mref_ali2d(imgs4, base4, device="cpu", mesh=mesh, log=quiet,
                          **MREF)
@@ -695,15 +698,21 @@ def test_ranks_that_plan_apart_step_through_one_batch(ranks, run, layout):
 
 @pytest.mark.parametrize("random_method", ["", "SHC", "SCF"])
 def test_a_rank_searches_its_slice_or_every_reference(random_method):
-    """``searched_refs``: the standard search takes the rank's slice of
+    """A route's ``refs``: the standard search takes the rank's slice of
     K under a ``ref`` split; SHC and SCF keep every reference; without a
     split, or with ``ref`` 1, all K."""
     mesh = pm.ParticleMesh(1, 4, torch.device("cpu"), "gloo", ref=4)
     flat = pm.ParticleMesh(1, 4, torch.device("cpu"), "gloo")
     want = 8 if random_method else 2
-    assert searched_refs(8, mesh, random_method) == want
-    assert searched_refs(8, flat, random_method) == 8
-    assert searched_refs(8, None, random_method) == 8
+    cfg = AlignConfig(img_dim=48, ring_num=16, shift_rng_x=1.0,
+                      shift_rng_y=1.0)
+
+    def refs(m):
+        return resolve_route("auto", "cpu", cfg, random_method, n_refs=8,
+                             mesh=m).refs
+    assert refs(mesh) == want
+    assert refs(flat) == 8
+    assert refs(None) == 8
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))

@@ -230,13 +230,19 @@ def test_resolve_sampler_rules(sampler, device, scheme, method, want):
     cfg = _cfgs(ring_scheme=scheme)[1]
     if want is ValueError:
         with pytest.raises(ValueError, match="sampler"):
-            steps.resolve_sampler(sampler, device, cfg, method)
+            steps.resolve_route(sampler, device, cfg, method)
     else:
-        assert steps.resolve_sampler(sampler, device, cfg, method) == want
+        route = steps.resolve_route(sampler, device, cfg, method)
+        assert (route.search, route.method) == (want, method)
+        # the sums go with the search and the device
+        assert route.sums == ("shear" if want == "template" else
+                              "kernel" if device == "cuda" else "plain")
+        assert (route.plan is not None) == (want == "kernel"
+                                             and device == "cuda")
         cfg_h = _cfgs(mode="H")[1]
         if scheme == "cuda":
-            assert steps.resolve_sampler(sampler, device, cfg_h,
-                                         method) == want
+            assert steps.resolve_route(sampler, device, cfg_h,
+                                       method).search == want
 
 
 ENGINE_ERRORS = [
@@ -267,14 +273,15 @@ def test_shc_outside_the_kernel_gate_stays_plain(sampler, want):
     geometry: a device whose shared memory holds no block of it runs the
     plain SHC search under "auto" and refuses "kernel"."""
     cfg = _cfgs()[1]
-    assert steps.resolve_sampler(sampler, "cuda", cfg, "SHC") == "kernel"
+    assert steps.resolve_route(sampler, "cuda", cfg,
+                               "SHC").search == "kernel"
     if want is ValueError:
         with pytest.raises(ValueError, match="sampler='kernel'"):
-            steps.resolve_sampler(sampler, "cuda", cfg, "SHC",
-                                  smem_limit=48 * 1024)
+            steps.resolve_route(sampler, "cuda", cfg, "SHC",
+                                smem_limit=48 * 1024)
     else:
-        assert steps.resolve_sampler(sampler, "cuda", cfg, "SHC",
-                                     smem_limit=48 * 1024) == want
+        assert steps.resolve_route(sampler, "cuda", cfg, "SHC",
+                                   smem_limit=48 * 1024).search == want
 
 
 @pytest.mark.parametrize("sampler,want", [("auto", "plain"),
@@ -285,14 +292,14 @@ def test_shc_with_more_than_one_reference_stays_plain(sampler, want):
     plain search under "auto" and refuses "kernel", while the standard
     search with as many takes the kernel."""
     cfg = _cfgs()[1]
-    assert steps.resolve_sampler(sampler, "cuda", cfg, "", n_refs=8) == \
-        "kernel"
+    assert steps.resolve_route(sampler, "cuda", cfg, "",
+                               n_refs=8).search == "kernel"
     if want is ValueError:
         with pytest.raises(ValueError, match="SHC' with 8 references"):
-            steps.resolve_sampler(sampler, "cuda", cfg, "SHC", n_refs=8)
+            steps.resolve_route(sampler, "cuda", cfg, "SHC", n_refs=8)
     else:
-        assert steps.resolve_sampler(sampler, "cuda", cfg, "SHC",
-                                     n_refs=8) == want
+        assert steps.resolve_route(sampler, "cuda", cfg, "SHC",
+                                   n_refs=8).search == want
 
 
 def test_steps_call_the_kernel_shc_search_by_a_search_shc_name(monkeypatch):

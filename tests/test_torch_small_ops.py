@@ -213,12 +213,11 @@ def test_per_particle_ref_has_no_kernel():
     the plain search (logged), "kernel" raises, on the CPU plain."""
     cfg = AlignConfig(img_dim=48, ring_num=16, shift_rng_x=1.0,
                       shift_rng_y=1.0)
-    assert steps.resolve_sampler("auto", "cpu", cfg,
-                                 per_particle_ref=True) == "plain"
-    assert steps.resolve_sampler("auto", "cuda", cfg,
-                                 per_particle_ref=True) == "plain"
+    for dev in ("cpu", "cuda"):
+        assert steps.resolve_route("auto", dev, cfg,
+                                   per_particle_ref=True).search == "plain"
     with pytest.raises(ValueError, match="per_particle_ref"):
-        steps.resolve_sampler("kernel", "cuda", cfg, per_particle_ref=True)
+        steps.resolve_route("kernel", "cuda", cfg, per_particle_ref=True)
 
 
 @pytest.mark.parametrize("n_classes,with_valid", [(1, False), (3, True)])

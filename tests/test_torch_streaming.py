@@ -57,22 +57,25 @@ def _quiet():
                                             ("kernel", "SCF")])
 def test_plan_batch_size_monotone_and_fits(sampler, method):
     cfg = AlignConfig(**HEADLINE)
-    kw = dict(sampler=sampler, random_method=method)
-    sizes = [batching.plan_batch_size(10 ** 6, 8, cfg, limit_bytes=g * 2**30,
-                                      **kw) for g in (2, 8, 32)]
+    route = steps.resolve_route(sampler, "cuda", cfg, method, n_refs=8)
+    assert route.search == sampler
+    sizes = [batching.plan_batch_size(10 ** 6, route, cfg,
+                                      limit_bytes=g * 2**30)
+             for g in (2, 8, 32)]
     assert 1 <= sizes[0] <= sizes[1] <= sizes[2] < 10 ** 6
     for g, b in zip((2, 8, 32), sizes):
-        fp = batching.step_footprint(b, 8, cfg, streamed=True, **kw)
+        fp = batching.step_footprint(b, route, cfg, streamed=True)
         assert b == 1 or fp.total <= 0.8 * g * 2**30
         # a power of two, and the next one would not fit
         assert b & (b - 1) == 0
-        assert (batching.step_footprint(2 * b, 8, cfg, streamed=True,
-                                        **kw).total > 0.8 * g * 2**30)
+        assert (batching.step_footprint(2 * b, route, cfg,
+                                        streamed=True).total
+                > 0.8 * g * 2**30)
     # a tiny stack is resident; without a limit on the CPU, any stack is
-    assert batching.plan_batch_size(64, 8, cfg, limit_bytes=2 * 2**30,
-                                    **kw) == 64
-    assert batching.plan_batch_size(10 ** 6, 8, cfg, device="cpu",
-                                    **kw) == 10 ** 6
+    assert batching.plan_batch_size(64, route, cfg,
+                                    limit_bytes=2 * 2**30) == 64
+    assert batching.plan_batch_size(10 ** 6, route, cfg,
+                                    device="cpu") == 10 ** 6
     assert batching.device_memory_bytes("cpu") is None
 
 
@@ -80,13 +83,15 @@ def test_footprint_counts_what_the_port_allocates():
     """The transform block is fixed past its size, the plain search's
     samples are charged, streaming charges the second buffer."""
     cfg = AlignConfig(**HEADLINE)
-    a = batching.step_footprint(16384, 8, cfg)
-    b = batching.step_footprint(32768, 8, cfg)
+    kernel = steps.resolve_route("auto", "cuda", cfg, n_refs=8)
+    a = batching.step_footprint(16384, kernel, cfg)
+    b = batching.step_footprint(32768, kernel, cfg)
     assert a.transform == b.transform > 0
     assert b.images == 2 * a.images
-    assert (batching.step_footprint(16384, 8, cfg, streamed=True).images
+    assert (batching.step_footprint(16384, kernel, cfg, streamed=True).images
             == 2 * a.images)
-    plain = batching.step_footprint(16384, 8, cfg, sampler="plain")
+    plain = batching.step_footprint(
+        16384, steps.resolve_route("auto", "cpu", cfg, n_refs=8), cfg)
     assert plain.search > 10 * a.search
     # at 16384 x 90 px the model charges the images and the transform
     # block (2048 particles) and stays under 6 GiB
@@ -203,9 +208,9 @@ def test_finish_step_blocks_equal_one_block(block, monkeypatch):
     peak = torch.as_tensor(rng.normal(size=N).astype(np.float32))
     # the blocks of _finish_step's plain route (a CPU tensor)
     monkeypatch.setattr(classavg, "transform_block", lambda h, w: 10 ** 6)
-    want = steps._finish_step(x, params, peak, gidx, None, K)
+    want = steps._finish_step(x, params, peak, gidx, None, K, "plain")
     monkeypatch.setattr(classavg, "transform_block", lambda h, w: block)
-    got = steps._finish_step(x, params, peak, gidx, None, K)
+    got = steps._finish_step(x, params, peak, gidx, None, K, "plain")
     np.testing.assert_array_equal(got.counts.numpy(), want.counts.numpy())
     sums = want.class_sums.numpy()
     np.testing.assert_allclose(got.class_sums.numpy(), sums, rtol=0,
@@ -362,9 +367,11 @@ def test_cli_mref_streams_under_a_small_limit(tmp_path, monkeypatch, capsys):
     d_r, d_s = str(tmp_path / "resident"), str(tmp_path / "streamed")
     assert port_mref.main([stack, refs, d_r, *argv], device="cpu") == 0
     capsys.readouterr()
-    fits = batching.step_footprint(BATCH, K, AlignConfig(
-        img_dim=48, ring_num=16, shift_rng_x=1.0, shift_rng_y=1.0),
-        sampler="plain", streamed=True).total
+    cfg = AlignConfig(img_dim=48, ring_num=16, shift_rng_x=1.0,
+                      shift_rng_y=1.0)
+    fits = batching.step_footprint(
+        BATCH, steps.resolve_route("auto", "cpu", cfg, n_refs=K), cfg,
+        streamed=True).total
     monkeypatch.setattr(batching, "device_memory_bytes",
                         lambda device=None: int(fits / 0.8) + 1)
     assert port_mref.main([stack, refs, d_s, *argv], device="cpu") == 0

@@ -155,23 +155,26 @@ def test_mref_device_loop_template_matches_jax():
 
 
 def test_template_sampler_rules_and_engine():
-    """``resolve_sampler`` takes "template" only as asked: SCF, a
+    """``resolve_route`` takes "template" only as asked: SCF, a
     per-particle reference and a geometry outside the gate raise; "auto"
-    never picks it; the engine builds the splat spectra once and plans
-    with the template footprint."""
+    never picks it; the template route sums by the FFT shear; the engine
+    builds the splat spectra once and plans with the template
+    footprint."""
     _, cfg = _cfgs()
     for dev in ("cpu", "cuda"):
-        assert steps.resolve_sampler("template", dev, cfg) == "template"
-        assert steps.resolve_sampler("template", dev, cfg, "SHC") \
-            == "template"
-        assert steps.resolve_sampler("auto", dev, cfg) != "template"
+        route = steps.resolve_route("template", dev, cfg)
+        assert (route.search, route.sums, route.plan) == (
+            "template", "shear", None)
+        assert steps.resolve_route("template", dev, cfg,
+                                   "SHC").search == "template"
+        assert steps.resolve_route("auto", dev, cfg).search != "template"
     for kw, match in ((dict(random_method="SCF"), "SCF"),
                       (dict(per_particle_ref=True), "per_particle_ref"),
                       (dict(n_refs=40000), "geometry gate")):
         with pytest.raises(ValueError, match=match):
-            steps.resolve_sampler("template", "cpu", cfg, **kw)
+            steps.resolve_route("template", "cpu", cfg, **kw)
     with pytest.raises(ValueError, match="geometry gate"):
-        steps.resolve_sampler("template", "cpu", _cfgs(ring_num=29)[1])
+        steps.resolve_route("template", "cpu", _cfgs(ring_num=29)[1])
     data = np.zeros((4, NX, NX), np.float32)
     eng = AlignmentEngine(data, cfg, n_classes=K, device="cpu",
                           sampler="template")
@@ -189,8 +192,10 @@ def test_step_footprint_template_branch():
     cfg = AlignConfig(img_dim=90, ring_num=36, shift_rng_x=3.0,
                       shift_rng_y=3.0)
     n = 16384
-    fp = batching.step_footprint(n, 8, cfg, sampler="template")
-    kern = batching.step_footprint(n, 8, cfg, sampler="kernel")
+    route = steps.resolve_route("template", "cpu", cfg, n_refs=8)
+    fp = batching.step_footprint(n, route, cfg)
+    kern = batching.step_footprint(
+        n, steps.resolve_route("kernel", "cuda", cfg, n_refs=8), cfg)
     _, width, _ = ts.template_geometry(cfg)
     wp = ts._padded(width * width)
     assert wp == 6568 and wp % 8 == 0
@@ -203,10 +208,9 @@ def test_step_footprint_template_branch():
     assert fp.total > kern.total
     # a limit below the resident footprint streams, in powers of two
     limit = int(fp.total / 0.8) - 1
-    b = batching.plan_batch_size(n, 8, cfg, limit_bytes=limit,
-                                 sampler="template")
+    b = batching.plan_batch_size(n, route, cfg, limit_bytes=limit)
     assert b < n and b & (b - 1) == 0
-    assert batching.step_footprint(b, 8, cfg, "template",
+    assert batching.step_footprint(b, route, cfg,
                                    streamed=True).total <= 0.8 * limit
 
 
