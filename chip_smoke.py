@@ -10,8 +10,9 @@ Phases (any failure raises and the script exits non-zero):
   1. require CUDA; print the card, its power limit and the versions;
   2. build the search kernel (csrc/search.cu, nvcc for sm_90a; eight
      instantiations: mirror or not, angle mask or not, ref group 8 or 1,
-     the three ablation stages of the default one, and the SHC pick's
-     two: mirror or not, one reference) and the class-sum kernel
+     the three ablation stages of the mirrored, unmasked one at ref group
+     8 and 1, and the SHC pick's two: mirror or not, one reference) and
+     the class-sum kernel
      (csrc/class_sums.cu: its two passes, the first staged in shared
      memory or not); print ptxas' registers and spills and each shape's
      launch plan (shifts per group, image staged in shared memory,
@@ -3001,7 +3002,7 @@ def main():
     regs = ptxas_table(info["ptxas"])
     log(f"  registers, spill bytes by (NMIRR, MASK, KG, STAGE, PICK): "
         f"{regs}")
-    check(len(regs) == 13, f"ptxas reports {len(regs)} instantiations")
+    check(len(regs) == 16, f"ptxas reports {len(regs)} instantiations")
     for geom in (HEADLINE, BIG_BOX):
         n_shifts = geometry(geom).n_shifts
         for mirror in (1, 0):

@@ -50,11 +50,14 @@
 //                        :791) needs no variant: the ref-group loop covers any
 //                        K in one launch with the same priority rule.
 //   STAGE                the TPU kernel's ablation stages (stage in {no_ccf,
-//                        no_yred, sample_only}, :221-233, :329-348), default
-//                        instantiation only, reached through
-//                        ops/fused_search.py::fused_search_stage.  Their
-//                        outputs have the production shapes and values that
-//                        mean nothing.  raw4 (:174-176) is a TPU accumulator
+//                        no_yred, sample_only}, :221-233, :329-348), the
+//                        mirrored, unmasked instantiations at KG 8 and 1
+//                        only, reached through ops/fused_search.py::
+//                        fused_search_stage.  Their outputs have the
+//                        production shapes and values that mean nothing,
+//                        but for sample_only's rows: entry t is the largest
+//                        sample thread t drew, floored at 0.  raw4
+//                        (:174-176) is a TPU accumulator
 //                        layout with the default variant's outputs.
 //   PICK=PICK_SHC        stochastic hill climbing, the rule of
 //                        ops/search.py::_shc_fold (the TPU package has no
@@ -85,10 +88,14 @@
 // K x R x 129 ref spectra (297 KB at K=8, 2.4 MB at K=64), too large to
 // stay in L1: read once per shift they would be 238 GB per 16384-particle
 // headline search, and 80 GB at G=3.  Measured on one H100 SXM at a 700 W
-// limit (tools/torch_search_ablate.py): 68 ms per such search, of which
-// the sampling takes ~28 ms, the ccf ~21 ms, the forward FFTs ~11 ms and
-// the inverse FFTs and argmax ~7 ms; one block per SM (the shared memory)
-// leaves 8 warps to hide the latency of each stage.  What bounds the ccf
+// limit (tools/torch_search_ablate.py): 68 ms per such search with each
+// sample's position placed by f64 offsets, floorf, float-to-int
+// conversions and the clamp, of which the sampling took ~28 ms (about one
+// SM cycle a sample), the ccf ~21 ms, the forward FFTs ~11 ms and the
+// inverse FFTs and argmax ~7 ms; with the positions of stage a below, 52
+// ms, the sampling ~18 ms (K=1: 46 -> 31 ms, the sampling ~14 ms).  One
+// block per SM (the shared memory) leaves 8 warps to hide the latency of
+// each stage, and may hold all 255 registers a thread.  What bounds the ccf
 // is not measured: G=3 cut its assumed L2 reads threefold against the
 // earlier one-shift kernel, yet its time per ref stayed the same (2.65
 // against 2.62 ms), which argues against L2 bandwidth.
@@ -96,9 +103,17 @@
 // What the design does about it.  One 256-thread block per particle loops
 // over groups of G shifts (G chosen at launch by plan(), up to GMAX; the
 // last group is ragged).  For each group:
-//   a. forward FFTs.  The G*R rings of the group, in (shift, ring) order,
-//      are packed two by two into complex sequences z = x_a + i x_b (an odd
-//      count leaves the last ring paired with zeros).  Each 256-point FFT
+//   a. samples and forward FFTs.  The G*R rings of the group are packed
+//      two by two into complex sequences z = x_a + i x_b: ring r at shifts
+//      2i and 2i+1 (one radius, so one f64 offset product and conversion
+//      serve both samples of an angle), then the rings of an odd last
+//      shift as neighbours r, r+1 (an odd ring count leaves the last ring
+//      paired with zeros); the spectra keep their (shift, ring) slots.  A
+//      sample's position costs no conversion beyond its offset: its floor
+//      is a round-down add of 2^23.  A pair whose rings lie inside the
+//      image, by a test on the ring's centre and radius (ring_inside; all
+//      rings of the benchmark's jobs), skips the clamp; the samples are
+//      bit for bit those of ops/interp.py either way.  Each 256-point FFT
 //      runs as 16 x 16 on 16 threads: thread j samples the stride-16 column
 //      z[16 n1 + j] straight into registers, takes its 16-point DFT (radix
 //      4 x 4, quarter turns exact), multiplies by the 256-point twiddles
@@ -174,52 +189,56 @@ __device__ __forceinline__ bool takes(float v, int e, float bv, int be) {
   return PICK == PICK_SHC ? e < be : beats(v, e, bv, be);
 }
 
-// Pixel i of the image: from the block's copy in shared memory (SMEM) or
-// through the read-only cache.
+// Pixel `off` past p in the image: from the block's copy in shared memory
+// (SMEM) or through the read-only cache.
 template <bool SMEM>
-__device__ __forceinline__ float pixel(const float* __restrict__ img, int i) {
-  return SMEM ? img[i] : __ldg(img + i);
-}
-
-// Clamp-to-edge bilinear read, the operation order of ops/interp.py, with
-// explicit round-to-nearest intrinsics so nvcc contracts nothing into FMAs.
-template <bool SMEM>
-__device__ __forceinline__ float bilinear(const float* __restrict__ img,
-                                          int h, int w, float y, float x) {
-  x = fminf(fmaxf(x, 0.f), (float)(w - 1));
-  y = fminf(fmaxf(y, 0.f), (float)(h - 1));
-  const float x0 = floorf(x), y0 = floorf(y);
-  const int ix0 = (int)x0, iy0 = (int)y0;
-  const int ix1 = min(ix0 + 1, w - 1), iy1 = min(iy0 + 1, h - 1);
-  const float fx = __fsub_rn(x, x0), fy = __fsub_rn(y, y0);
-  const float gx = __fsub_rn(1.f, fx), gy = __fsub_rn(1.f, fy);
-  const float v00 = pixel<SMEM>(img, iy0 * w + ix0);
-  const float v01 = pixel<SMEM>(img, iy0 * w + ix1);
-  const float v10 = pixel<SMEM>(img, iy1 * w + ix0);
-  const float v11 = pixel<SMEM>(img, iy1 * w + ix1);
-  const float top = __fadd_rn(__fmul_rn(v00, gx), __fmul_rn(v01, fx));
-  const float bot = __fadd_rn(__fmul_rn(v10, gx), __fmul_rn(v11, fx));
-  return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy));
+__device__ __forceinline__ float pixel(const float* __restrict__ p, int off) {
+  return SMEM ? p[off] : __ldg(p + off);
 }
 
 // Ablation stages of the default instantiation; production runs STAGE_FULL.
 enum { STAGE_FULL = 0, STAGE_NO_CCF = 1, STAGE_SAMPLE_ONLY = 2,
        STAGE_NO_YRED = 3 };
 
-// no_yred: the top row of the bilinear read only (x interpolation, no
-// second pair of gathers), the counterpart of the TPU's slice in place of
-// the y-tent contraction
-template <bool SMEM>
-__device__ __forceinline__ float bilinear_top(const float* __restrict__ img,
-                                              int h, int w, float y, float x) {
-  x = fminf(fmaxf(x, 0.f), (float)(w - 1));
-  y = fminf(fmaxf(y, 0.f), (float)(h - 1));
-  const float x0 = floorf(x);
-  const int ix0 = (int)x0, iy0 = (int)floorf(y);
-  const int ix1 = min(ix0 + 1, w - 1);
+// floor(x) of 0 <= x < 2^22 with no conversion instruction: x + 2^23
+// rounded down is 2^23 + floor(x) exactly (floats in [2^23, 2^24) are the
+// integers), so its low mantissa bits are floor(x) as an integer.
+// Returns floor(x) as a float (exact) and sets i to it.
+__device__ __forceinline__ float floor_index(float x, int& i) {
+  const float t = __fadd_rd(x, 8388608.f);
+  i = __float_as_int(t) - 0x4B000000;   // less the bits of 2^23
+  return __fsub_rn(t, 8388608.f);
+}
+
+// Bilinear read at (y, x), the operation order of ops/interp.py, with
+// explicit round-to-nearest intrinsics so nvcc contracts nothing into
+// FMAs.  CLAMP: clamp-to-edge, as interp.py.  Without it the caller
+// guarantees 0 <= x <= w-2 and 0 <= y <= h-2, where the clamp's min and
+// max are identities: the same bits.  x is never -0 (no offset in the
+// tables is -0, and the centre is +0 or more), so floor_index gives the
+// x0 and the fx that floorf does.  STAGE_NO_YRED (ablation): the top row
+// only (x interpolation, no second pair of gathers), the counterpart of
+// the TPU's slice in place of the y-tent contraction.
+template <int STAGE, bool SMEM, bool CLAMP>
+__device__ __forceinline__ float bilinear(const float* __restrict__ img,
+                                          int h, int w, float y, float x) {
+  if (CLAMP) {
+    x = fminf(fmaxf(x, 0.f), (float)(w - 1));
+    y = fminf(fmaxf(y, 0.f), (float)(h - 1));
+  }
+  int ix0, iy0;
+  const float x0 = floor_index(x, ix0), y0 = floor_index(y, iy0);
+  const int dx = CLAMP ? min(ix0 + 1, w - 1) - ix0 : 1;        // to ix1
+  const int dy = CLAMP ? (min(iy0 + 1, h - 1) - iy0) * w : w;  // to iy1
+  const float* p = img + iy0 * w + ix0;
   const float fx = __fsub_rn(x, x0), gx = __fsub_rn(1.f, fx);
-  return __fadd_rn(__fmul_rn(pixel<SMEM>(img, iy0 * w + ix0), gx),
-                   __fmul_rn(pixel<SMEM>(img, iy0 * w + ix1), fx));
+  const float top = __fadd_rn(__fmul_rn(pixel<SMEM>(p, 0), gx),
+                              __fmul_rn(pixel<SMEM>(p, dx), fx));
+  if (STAGE == STAGE_NO_YRED) return top;
+  const float fy = __fsub_rn(y, y0), gy = __fsub_rn(1.f, fy);
+  const float bot = __fadd_rn(__fmul_rn(pixel<SMEM>(p, dy), gx),
+                              __fmul_rn(pixel<SMEM>(p, dy + dx), fx));
+  return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fy));
 }
 
 // The polar offset of a sample: f32(cos_or_sin(angle) * radius), the f64
@@ -229,33 +248,68 @@ __device__ __forceinline__ float polar_offset(double cs, double radius) {
   return __double2float_rn(__dmul_rn(cs, radius));
 }
 
+// Whether every sample of the ring of radius `rad` around (bx, by) lies in
+// [0, w-2] x [0, h-2], where bilinear needs no clamp.  An offset is
+// f32(cs * rad) with |cs| <= 1, so |offset| <= f32(rad) = r (rounding is
+// monotonic), and by the same monotony a sample f32(b + offset) lies
+// between f32(b - r) and f32(b + r), which the test bounds.  NaN fails.
+// tests/test_torch_sample_interior.py holds the rule in numpy.
+__device__ __forceinline__ bool ring_inside(float bx, float by, double rad,
+                                            int h, int w) {
+  const float r = __double2float_rn(rad);
+  return __fsub_rn(bx, r) >= 0.f && __fsub_rn(by, r) >= 0.f &&
+         __fadd_rn(bx, r) <= (float)(w - 2) &&
+         __fadd_rn(by, r) <= (float)(h - 2);
+}
+
 // The samples of one ring pair for thread j of its FFT: v[n1] = (ring a,
-// ring b) at angle 16 n1 + j, for the first pass of the forward FFT.  An
-// inactive thread (act) or a missing ring b (has_b) gives zeros.  The
-// (cos, sin) of an angle (4 KB for all, L1-resident) serves both rings.
-template <int STAGE, bool SMEM>
+// ring b) at angle 16 n1 + j, for the first pass of the forward FFT.  A
+// missing ring b (has_b) gives zeros.  The (cos, sin) of an angle (4 KB
+// for all, L1-resident) serves both rings; where they are one ring at two
+// shifts (ONE_RING: rad_b is rad_a, and ring b is always there) so does
+// its offset.  CLAMP as bilinear's.
+template <int STAGE, bool SMEM, bool CLAMP, bool ONE_RING>
 __device__ __forceinline__ void sample_pair(
     float2 (&v)[16], const float* __restrict__ img, int h, int w,
     const double2* __restrict__ polar, double rad_a, double rad_b,
-    float bxa, float bya, float bxb, float byb, bool act, bool has_b, int j) {
+    float bxa, float bya, float bxb, float byb, bool has_b, int j) {
 #pragma unroll
   for (int n1 = 0; n1 < 16; ++n1) {
     const double2 cs = __ldg(polar + 16 * n1 + j);
-    float va = 0.f, vb = 0.f;
-    if (act) {
-      const float x = __fadd_rn(bxa, polar_offset(cs.x, rad_a));
-      const float y = __fadd_rn(bya, polar_offset(cs.y, rad_a));
-      va = STAGE == STAGE_NO_YRED ? bilinear_top<SMEM>(img, h, w, y, x)
-                                  : bilinear<SMEM>(img, h, w, y, x);
-    }
-    if (has_b) {
-      const float x = __fadd_rn(bxb, polar_offset(cs.x, rad_b));
-      const float y = __fadd_rn(byb, polar_offset(cs.y, rad_b));
-      vb = STAGE == STAGE_NO_YRED ? bilinear_top<SMEM>(img, h, w, y, x)
-                                  : bilinear<SMEM>(img, h, w, y, x);
+    const float oxa = polar_offset(cs.x, rad_a);
+    const float oya = polar_offset(cs.y, rad_a);
+    const float va = bilinear<STAGE, SMEM, CLAMP>(
+        img, h, w, __fadd_rn(bya, oya), __fadd_rn(bxa, oxa));
+    float vb = 0.f;
+    if (ONE_RING || has_b) {
+      const float oxb = ONE_RING ? oxa : polar_offset(cs.x, rad_b);
+      const float oyb = ONE_RING ? oya : polar_offset(cs.y, rad_b);
+      vb = bilinear<STAGE, SMEM, CLAMP>(img, h, w, __fadd_rn(byb, oyb),
+                                        __fadd_rn(bxb, oxb));
     }
     v[n1] = make_float2(va, vb);
   }
+}
+
+// sample_pair's path for a pair: clamped unless both rings lie inside
+// (uniform over the FFT's 16 threads, so a warp splits only where its two
+// FFTs differ); a clamped pair of one ring computes its offsets twice,
+// the same bits.
+template <int STAGE, bool SMEM>
+__device__ __forceinline__ void sample_rings(
+    float2 (&v)[16], const float* __restrict__ img, int h, int w,
+    const double2* __restrict__ polar, double rad_a, double rad_b,
+    float bxa, float bya, float bxb, float byb, bool has_b, bool one_ring,
+    bool inside, int j) {
+  if (!inside)
+    sample_pair<STAGE, SMEM, true, false>(v, img, h, w, polar, rad_a, rad_b,
+                                          bxa, bya, bxb, byb, has_b, j);
+  else if (one_ring)
+    sample_pair<STAGE, SMEM, false, true>(v, img, h, w, polar, rad_a, rad_b,
+                                          bxa, bya, bxb, byb, has_b, j);
+  else
+    sample_pair<STAGE, SMEM, false, false>(v, img, h, w, polar, rad_a, rad_b,
+                                           bxa, bya, bxb, byb, has_b, j);
 }
 
 // ---- complex arithmetic and the 16-point DFT in registers.  SIGN = -1 is
@@ -484,8 +538,12 @@ static inline Plan plan(int n_rings, int n_mirr, int kg, int n_shifts,
   return {g_ldg, false, smem_bytes(n_rings, n_mirr, kg, g_ldg)};
 }
 
+// One block per SM at the rib80s geometry (the shared memory), so the
+// block may take every register: without the 1, ptxas held the K=1
+// instantiations to 128 registers and spilled.  A box and ring count
+// small enough for two blocks' shared memory run one block an SM.
 template <int NMIRR, bool MASK, int KG, int STAGE, int PICK>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 1)
 search_kernel(const float* __restrict__ images,   // (N, H, W)
               const float* __restrict__ acc_sx,   // (N,) accumulated shifts
               const float* __restrict__ acc_sy,   // (N,)
@@ -503,7 +561,8 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
               float* __restrict__ out_row,        // (N, L)
               int* __restrict__ out_aidx, int* __restrict__ out_sidx,
               int* __restrict__ out_ref, int* __restrict__ out_mirror,
-              int* __restrict__ out_groups) {     // (N,) groups run if SHC
+              int* __restrict__ out_groups,       // (N,) groups run if SHC
+              int* __restrict__ out_interior) {   // (N,) zeroed, or null
   static_assert(GMAX == 4, "the ccf switch covers groups of 1 to 4 shifts");
   constexpr int XS = x_stride(NMIRR);
   extern __shared__ __align__(16) float2 smem[];
@@ -542,20 +601,34 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
   float smax = -3.0e38f;    // ablation sink: the largest sample seen
   const float pm = PICK == PICK_SHC ? prevmax[n] : 0.f;
   int groups = 0;           // SHC: the shift groups run
+  int interior = 0;         // thread j = 0: its rings sampled unclamped
   __syncthreads();
 
   for (int s0 = 0; s0 < n_shifts; s0 += group) {
     const int gc = min(group, n_shifts - s0);
-    const int n_ring_all = gc * n_rings;
-    const int n_pairs = (n_ring_all + 1) / 2;
+    // the group's ring pairs: ring r at shifts 2i and 2i + 1 (one radius,
+    // so one offset product serves both), then an odd last shift's rings
+    // two by two (an odd ring count pairs its last ring with zeros)
+    const int n_cross = gc / 2 * n_rings;
+    const int n_pairs = n_cross + (gc & 1) * ((n_rings + 1) / 2);
 
     // a. samples and forward FFTs, 16 ring pairs per round
     for (int p0 = 0; p0 < n_pairs; p0 += NFFT) {
       const int p = p0 + q;
       const bool act = p < n_pairs;
-      const int ia = act ? 2 * p : 0;
-      const bool has_b = act && ia + 1 < n_ring_all;
-      const int ib = has_b ? ia + 1 : ia;
+      const bool one_ring = p < n_cross;
+      int ia, ib;   // the slots g * R + r of rings a and b
+      bool has_b = act;
+      if (one_ring) {
+        const int gp = p / n_rings;
+        ia = 2 * gp * n_rings + (p - gp * n_rings);
+        ib = ia + n_rings;
+      } else {
+        const int r = act ? 2 * (p - n_cross) : 0;
+        ia = act ? (gc - 1) * n_rings + r : 0;
+        has_b = act && r + 1 < n_rings;
+        ib = has_b ? ia + 1 : ia;
+      }
       const int ga = ia / n_rings, ra = ia - ga * n_rings;
       const int gb = ib / n_rings, rb = ib - gb * n_rings;
       const float bxa = __fadd_rn(cx, __fadd_rn(ax, shifts[2 * (s0 + ga)]));
@@ -563,13 +636,20 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
       const float bxb = __fadd_rn(cx, __fadd_rn(ax, shifts[2 * (s0 + gb)]));
       const float byb = __fadd_rn(cy, __fadd_rn(ay, shifts[2 * (s0 + gb) + 1]));
       const double rad_a = __ldg(radii + ra), rad_b = __ldg(radii + rb);
+      const bool inside = ring_inside(bxa, bya, rad_a, h, w) &&
+                          (!has_b || ring_inside(bxb, byb, rad_b, h, w));
+      if (act && inside && j == 0) interior += has_b ? 2 : 1;
       float2 v[16];
-      if (image_in_smem)
-        sample_pair<STAGE, true>(v, img_s, h, w, polar, rad_a, rad_b, bxa,
-                                 bya, bxb, byb, act, has_b, j);
-      else
-        sample_pair<STAGE, false>(v, img, h, w, polar, rad_a, rad_b, bxa,
-                                  bya, bxb, byb, act, has_b, j);
+      if (!act) {
+#pragma unroll
+        for (int n1 = 0; n1 < 16; ++n1) v[n1] = make_float2(0.f, 0.f);
+      } else if (image_in_smem) {
+        sample_rings<STAGE, true>(v, img_s, h, w, polar, rad_a, rad_b, bxa,
+                                  bya, bxb, byb, has_b, one_ring, inside, j);
+      } else {
+        sample_rings<STAGE, false>(v, img, h, w, polar, rad_a, rad_b, bxa,
+                                   bya, bxb, byb, has_b, one_ring, inside, j);
+      }
       if (STAGE == STAGE_NO_CCF || STAGE == STAGE_SAMPLE_ONLY) {
 #pragma unroll
         for (int n1 = 0; n1 < 16; ++n1)
@@ -749,6 +829,8 @@ search_kernel(const float* __restrict__ images,   // (N, H, W)
     out_mirror[n] = rest / n_refs / n_shifts;
     if (PICK == PICK_SHC) out_groups[n] = groups;
   }
+  if (out_interior != nullptr && interior > 0)
+    atomicAdd(out_interior + n, interior);
 }
 
 template <int NMIRR, bool MASK, int KG, int STAGE = STAGE_FULL,
@@ -762,7 +844,8 @@ static cudaError_t launch(const float* images, const float* acc_sx,
                           int h, int w, int n_rings, int n_shifts, int n_refs,
                           float* out_val, float* out_row, int* out_aidx,
                           int* out_sidx, int* out_ref, int* out_mirror,
-                          int* out_groups, cudaStream_t stream) {
+                          int* out_groups, int* out_interior,
+                          cudaStream_t stream) {
   const Plan pl = plan(n_rings, NMIRR, KG, n_shifts, h, w);
   cudaError_t err = cudaFuncSetAttribute(
       search_kernel<NMIRR, MASK, KG, STAGE, PICK>,
@@ -773,7 +856,7 @@ static cudaError_t launch(const float* images, const float* acc_sx,
       images, acc_sx, acc_sy, (const double2*)polar, radii, shifts,
       (const float2*)ref_fw, (const float2*)twiddle, mask, prevmax, h, w,
       n_rings, n_shifts, n_refs, pl.group, (int)pl.image, out_val, out_row,
-      out_aidx, out_sidx, out_ref, out_mirror, out_groups);
+      out_aidx, out_sidx, out_ref, out_mirror, out_groups, out_interior);
   return cudaGetLastError();
 }
 
@@ -786,31 +869,33 @@ static cudaError_t launch_kg(int n_refs, const float* images,
                              int h, int w, int n_rings, int n_shifts,
                              float* out_val, float* out_row, int* out_aidx,
                              int* out_sidx, int* out_ref, int* out_mirror,
-                             cudaStream_t stream) {
+                             int* out_interior, cudaStream_t stream) {
   if (ref_group(n_refs) == 1)
     return launch<NMIRR, MASK, 1>(images, acc_sx, acc_sy, polar, radii,
                                   shifts, ref_fw, twiddle, mask, nullptr, n,
                                   h, w, n_rings, n_shifts, n_refs, out_val,
                                   out_row, out_aidx, out_sidx, out_ref,
-                                  out_mirror, nullptr, stream);
+                                  out_mirror, nullptr, out_interior, stream);
   return launch<NMIRR, MASK, 8>(images, acc_sx, acc_sy, polar, radii, shifts,
                                 ref_fw, twiddle, mask, nullptr, n, h, w,
                                 n_rings, n_shifts, n_refs, out_val, out_row,
                                 out_aidx, out_sidx, out_ref, out_mirror,
-                                nullptr, stream);
+                                nullptr, out_interior, stream);
 }
 
 extern "C" {
 
 // Launch on `stream`; `mirror` is 0 or 1, `mask` is null for an unmasked
 // search, `stage` 0 (STAGE_FULL) except in the ablation harness, which
-// takes the default instantiation only; `polar` and `radii` are the f64
-// tables of ops/fused_search.py::polar_tables, `twiddle` the (16, 16)
-// complex table of ops/fused_search.py::fft_twiddles.  A non-null
-// `prevmax`, the (N,) f32 thresholds, picks the SHC search (PICK_SHC: one
-// reference, unmasked, full stage), which writes the shift groups each
-// block ran to the (N,) int32 `out_groups`; otherwise both are null.
-// Returns the cudaError_t of the launch (0 = success).
+// takes the mirrored, unmasked instantiations at KG 8 and 1 only; `polar`
+// and `radii` are the f64 tables of ops/fused_search.py::polar_tables,
+// `twiddle` the (16, 16) complex table of ops/fused_search.py::
+// fft_twiddles.  A non-null `prevmax`, the (N,) f32 thresholds, picks the
+// SHC search (PICK_SHC: one reference, unmasked, full stage), which writes
+// the shift groups each block ran to the (N,) int32 `out_groups`;
+// otherwise both are null.  A non-null `out_interior`, (N,) int32 zeros,
+// receives per particle the ring samplings (shift, ring) that took the
+// unclamped path.  Returns the cudaError_t of the launch (0 = success).
 int cryo_search_launch(const float* images, const float* acc_sx,
                        const float* acc_sy, const double* polar,
                        const double* radii, const float* shifts,
@@ -819,7 +904,8 @@ int cryo_search_launch(const float* images, const float* acc_sx,
                        int w, int n_rings, int n_shifts, int n_refs,
                        int mirror, int stage, float* out_val, float* out_row,
                        int* out_aidx, int* out_sidx, int* out_ref,
-                       int* out_mirror, int* out_groups, void* stream) {
+                       int* out_mirror, int* out_groups, int* out_interior,
+                       void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (prevmax) {
     if (mask || stage != STAGE_FULL || !out_groups || n_refs != 1)
@@ -828,23 +914,28 @@ int cryo_search_launch(const float* images, const float* acc_sx,
   launch<NM, false, 1, STAGE_FULL, PICK_SHC>(                                \
       images, acc_sx, acc_sy, polar, radii, shifts, ref_fw, twiddle,         \
       nullptr, prevmax, n, h, w, n_rings, n_shifts, n_refs, out_val,         \
-      out_row, out_aidx, out_sidx, out_ref, out_mirror, out_groups, st)
+      out_row, out_aidx, out_sidx, out_ref, out_mirror, out_groups,          \
+      out_interior, st)
     const cudaError_t err = mirror ? CRYO_SHC(2) : CRYO_SHC(1);
 #undef CRYO_SHC
     return (int)err;
   }
   if (stage != STAGE_FULL) {
-    if (!mirror || mask || ref_group(n_refs) != 8)
+    if (!mirror || mask)
       return (int)cudaErrorInvalidValue;
-#define CRYO_STAGE(ST)                                                        \
-  launch<2, false, 8, ST>(images, acc_sx, acc_sy, polar, radii, shifts,      \
-                          ref_fw, twiddle, mask, nullptr, n, h, w, n_rings,  \
-                          n_shifts, n_refs, out_val, out_row, out_aidx,      \
-                          out_sidx, out_ref, out_mirror, nullptr, st)
+#define CRYO_STAGE(KG, ST)                                                    \
+  launch<2, false, KG, ST>(images, acc_sx, acc_sy, polar, radii, shifts,     \
+                           ref_fw, twiddle, mask, nullptr, n, h, w, n_rings, \
+                           n_shifts, n_refs, out_val, out_row, out_aidx,     \
+                           out_sidx, out_ref, out_mirror, nullptr,           \
+                           out_interior, st)
+#define CRYO_STAGE_KG(ST)                                                     \
+  (ref_group(n_refs) == 1 ? CRYO_STAGE(1, ST) : CRYO_STAGE(8, ST))
     cudaError_t err = cudaErrorInvalidValue;
-    if (stage == STAGE_NO_CCF) err = CRYO_STAGE(STAGE_NO_CCF);
-    if (stage == STAGE_SAMPLE_ONLY) err = CRYO_STAGE(STAGE_SAMPLE_ONLY);
-    if (stage == STAGE_NO_YRED) err = CRYO_STAGE(STAGE_NO_YRED);
+    if (stage == STAGE_NO_CCF) err = CRYO_STAGE_KG(STAGE_NO_CCF);
+    if (stage == STAGE_SAMPLE_ONLY) err = CRYO_STAGE_KG(STAGE_SAMPLE_ONLY);
+    if (stage == STAGE_NO_YRED) err = CRYO_STAGE_KG(STAGE_NO_YRED);
+#undef CRYO_STAGE_KG
 #undef CRYO_STAGE
     return (int)err;
   }
@@ -852,7 +943,7 @@ int cryo_search_launch(const float* images, const float* acc_sx,
   launch_kg<NM, MK>(n_refs, images, acc_sx, acc_sy, polar, radii, shifts,   \
                     ref_fw, twiddle, mask, n, h, w, n_rings, n_shifts,      \
                     out_val, out_row, out_aidx, out_sidx, out_ref,          \
-                    out_mirror, st)
+                    out_mirror, out_interior, st)
   cudaError_t err;
   if (mirror)
     err = mask ? CRYO_LAUNCH(2, true) : CRYO_LAUNCH(2, false);

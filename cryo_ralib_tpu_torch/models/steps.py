@@ -292,15 +292,22 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
     device, its matmul sampler, or the template engine);
     ``cfg.mode == "H"`` searches half
     rings, through the kernel on a CUDA tensor like mode "F".
+
+    Where the ``step.search`` span records and the kernel runs, it sets
+    ``interior_rings``, the ring samplings (one ring at one shift) that
+    took the kernel's unclamped path (a device sum, read when the span's
+    ``attrs`` are read), and ``rings_full``, N x shifts x rings.
     """
     route = _as_route(sampler, images, cfg, "", refs.shape[0], mesh)
     part = _ref_part(refs, mesh)
     k = part.refs.shape[0]
     with span("step.search", images.device, sampler=route.search,
               N=images.shape[0], K=k,
-              **_search_size(images, cfg, route, k)):
+              **_search_size(images, cfg, route, k)) as sp:
+        interior = _interior_counter(sp, route, images, k)
         result = _search(images, part.refs, params, cfg, route.search, fast,
-                         angle_mask, sf)
+                         angle_mask, sf, interior)
+        _count_interior(sp, interior, cfg)
     if part.reduce is not None:
         result = merge_ref_slices(result, part.k0, cfg.n_shifts,
                                   part.n_refs, part.reduce)
@@ -310,11 +317,35 @@ def align_step(images, refs, params: AlignParams, global_index, valid,
                         valid, n_classes, route.sums, fast, mesh)
 
 
+def _interior_counter(sp, route: Route, images, k: int):
+    """(N,) int32 zeros for the kernel's count of unclamped ring
+    samplings where the span records and the kernel searches ``k`` > 0
+    references; else None."""
+    if not (sp.recording and route.plan is not None and k):
+        return None
+    return torch.zeros(images.shape[0], dtype=torch.int32,
+                       device=images.device)
+
+
+def _count_interior(sp, interior, cfg: AlignConfig, shifts=None):
+    """The span's ``interior_rings`` (the device sum of ``interior``, once
+    the search has filled it) and ``rings_full``, the ring samplings of
+    the search: N x shifts x rings, or where ``shifts`` (N,) holds each
+    particle's shifts searched (SHC's early stop), their sum x rings;
+    nothing where ``interior`` is None."""
+    if interior is not None:
+        searched = (interior.shape[0] * cfg.n_shifts if shifts is None
+                    else shifts.sum())
+        sp.set(interior_rings=interior.sum(),
+               rings_full=searched * cfg.ring_num)
+
+
 def _search(images, refs, params: AlignParams, cfg: AlignConfig,
-            sampler: str, fast: bool, angle_mask, sf):
+            sampler: str, fast: bool, angle_mask, sf, out_interior=None):
     """The resolved ``sampler``'s search of every particle against
     ``refs``; an empty slice of the references (fewer references than
-    ``ref`` ranks) searches nothing and loses every merge."""
+    ``ref`` ranks) searches nothing and loses every merge.
+    ``out_interior``: the kernel's count (``fused_search``'s)."""
     if refs.shape[0] == 0:
         return empty_result(images.shape[0], cfg.ring_len, images.device)
     if cfg.ring_scheme == "eman2":
@@ -332,8 +363,10 @@ def _search(images, refs, params: AlignParams, cfg: AlignConfig,
     if sampler == "matmul":
         return rotational_shift_search_mm(images, ref_fw, params, cfg,
                                           fast=fast, angle_mask=angle_mask)
-    search = fused_search if sampler == "kernel" else search_plain
-    return search(images, ref_fw, params, cfg, angle_mask=angle_mask)
+    if sampler == "kernel":
+        return fused_search(images, ref_fw, params, cfg,
+                            angle_mask=angle_mask, out_interior=out_interior)
+    return search_plain(images, ref_fw, params, cfg, angle_mask=angle_mask)
 
 
 def _finish_step(images, new_params: AlignParams, peak, global_index, valid,
@@ -426,7 +459,8 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
     device), it sets two attributes on the span: ``shc_groups``, the
     shift groups its blocks ran (a device sum, read when the span's
     ``attrs`` are read), and ``shc_groups_full``, the groups of a search
-    that ran them all (of the route's plan).
+    that ran them all (of the route's plan); and ``interior_rings`` and
+    ``rings_full`` as ``align_step`` does, over the shift groups run.
     """
     if cfg.ring_scheme != "cuda":
         raise ValueError("random_method='SHC' runs the standard ring "
@@ -447,9 +481,13 @@ def align_step_shc(images, refs, params: AlignParams, global_index, valid,
             count = sp.recording and route.plan is not None
             groups = (torch.empty(n, dtype=torch.int32, device=images.device)
                       if count else None)
-            result, found = fused_search_shc(images, ref_fw, params, cfg,
-                                             previousmax, out_groups=groups)
+            interior = _interior_counter(sp, route, images, refs.shape[0])
+            result, found = fused_search_shc(
+                images, ref_fw, params, cfg, previousmax, out_groups=groups,
+                out_interior=interior)
             if count:
+                _count_interior(sp, interior, cfg, (
+                    groups * route.plan.group).clamp_max(cfg.n_shifts))
                 sp.set(shc_groups=groups.sum(), shc_groups_full=n * -(
                     -cfg.n_shifts // route.plan.group))
         else:

@@ -126,11 +126,12 @@ def fft_twiddles() -> np.ndarray:
 
 # ---- a CPU model of the kernel's FFT plan (csrc/search.cu, steps a-c).
 # It follows the kernel's index maps on the same tables: rings packed two
-# by two, the 16 x 16 plan (a 16-point DFT over each stride-16 column,
-# the twiddles, the transpose, a 16-point DFT over each row), the split
-# through the partner thread's registers, the (DC, Nyquist) slot, the
-# ccf's row order and the packing of two real rows into one complex
-# inverse.  Tests hold it against torch.fft; the search never calls it.
+# by two (``ring_pairs``), the 16 x 16 plan (a 16-point DFT over each
+# stride-16 column, the twiddles, the transpose, a 16-point DFT over each
+# row), the split through the partner thread's registers, the (DC,
+# Nyquist) slot, the ccf's row order and the packing of two real rows
+# into one complex inverse.  Tests hold it against torch.fft; the search
+# never calls it.
 
 _C1, _S1, _H = 0.92387953251128674, 0.38268343236508978, 0.70710678118654757
 
@@ -171,17 +172,34 @@ def _fft256(z: torch.Tensor, sign: int) -> torch.Tensor:
     return _dft16(y.transpose(1, 2).contiguous(), sign)      # [k1, k2]
 
 
-def plan_rfft(rings) -> torch.Tensor:
+def ring_pairs(n_shifts: int, n_rings: int) -> np.ndarray:
+    """(P, 2) int: the kernel's ring pairs of a group of ``n_shifts``
+    shifts, as slots ``g * n_rings + r`` (-1: paired with zeros), in the
+    order its FFTs take them: ring r at shifts 2i and 2i+1, then the
+    rings of an odd last shift as neighbours r, r+1."""
+    cross = [(2 * i * n_rings + r, (2 * i + 1) * n_rings + r)
+             for i in range(n_shifts // 2) for r in range(n_rings)]
+    base = (n_shifts - 1) * n_rings
+    odd = [(base + r, base + r + 1 if r + 1 < n_rings else -1)
+           for r in range(0, n_rings, 2)] if n_shifts % 2 else []
+    return np.array(cross + odd, dtype=np.int64).reshape(-1, 2)
+
+
+def plan_rfft(rings, pairs=None) -> torch.Tensor:
     """(n, 256) f32 rings, in the kernel's (shift, ring) order -> (n, 129)
-    complex64 spectra as the kernel computes them: rings 2p and 2p+1 as
-    one complex sequence (an odd n pairs the last with zeros), split with
-    the value of the partner thread 16 - j at register 15 - k2 (thread 0:
-    its own register 16 - k2)."""
+    complex64 spectra as the kernel computes them: the rings of each of
+    ``pairs`` (``ring_pairs``' layout; by default 2p and 2p+1, an odd n
+    pairing the last with zeros) as one complex sequence, split with the
+    value of the partner thread 16 - j at register 15 - k2 (thread 0: its
+    own register 16 - k2)."""
     rings = torch.as_tensor(rings, dtype=torch.float32)
     n = rings.shape[0]
-    if n % 2:
-        rings = torch.cat([rings, rings.new_zeros(1, RING_LEN)])
-    zz = _fft256(torch.complex(rings[0::2], rings[1::2]), -1)
+    if pairs is None:
+        first = np.arange(0, n, 2)
+        pairs = np.stack([first, np.where(first + 1 < n, first + 1, -1)], 1)
+    pairs = torch.as_tensor(pairs)
+    padded = torch.cat([rings, rings.new_zeros(1, RING_LEN)])  # row -1: 0
+    zz = _fft256(torch.complex(padded[pairs[:, 0]], padded[pairs[:, 1]]), -1)
     j = torch.arange(16)[:, None]
     k2 = torch.arange(9)[None, :]
     pj = (16 - j) % 16 + 0 * k2
@@ -191,10 +209,9 @@ def plan_rfft(rings) -> torch.Tensor:
     xb = torch.complex(0.5 * (z.imag + pz.imag), 0.5 * (pz.real - z.real))
     f = (j + 16 * k2).reshape(-1)
     keep = f <= RING_LEN // 2                 # bins 0..128 (f = 128: j = 0)
-    out = torch.zeros((2 * zz.shape[0], RING_LEN // 2 + 1),
-                      dtype=torch.complex64)
-    out[0::2, f[keep]] = xa.reshape(xa.shape[0], -1)[:, keep]
-    out[1::2, f[keep]] = xb.reshape(xb.shape[0], -1)[:, keep]
+    out = torch.zeros((n + 1, RING_LEN // 2 + 1), dtype=torch.complex64)
+    out[pairs[:, 0, None], f[keep]] = xa.reshape(xa.shape[0], -1)[:, keep]
+    out[pairs[:, 1, None], f[keep]] = xb.reshape(xb.shape[0], -1)[:, keep]
     return out[:n]
 
 
@@ -259,9 +276,10 @@ def plan_irfft(rows) -> torch.Tensor:
 def plan_search_rows(polar, ref_fw, n_mirr: int) -> torch.Tensor:
     """(G, R, 256) samples of one shift group and (kn, R, 129) ref
     spectra -> (G, kn, n_mirr, 256) angle rows through the kernel's plan
-    (plan_rfft, pack_slots, plan_ccf, plan_irfft)."""
+    (plan_rfft on ring_pairs, pack_slots, plan_ccf, plan_irfft)."""
     g, r, _ = polar.shape
-    slots = pack_slots(plan_rfft(polar.reshape(g * r, RING_LEN)))
+    slots = pack_slots(plan_rfft(polar.reshape(g * r, RING_LEN),
+                                 ring_pairs(g, r)))
     rows = plan_irfft(plan_ccf(slots.reshape(g, r, -1), ref_fw, n_mirr))
     return rows.reshape(g, -1, n_mirr, RING_LEN)
 
@@ -281,7 +299,7 @@ def build() -> ctypes.CDLL:
     lib = load_library("search", ["search.cu"])
     ptr = ctypes.c_void_p
     lib.cryo_search_launch.argtypes = (
-        [ptr] * 10 + [ctypes.c_int] * 8 + [ptr] * 7 + [ptr])
+        [ptr] * 10 + [ctypes.c_int] * 8 + [ptr] * 8 + [ptr])
     lib.cryo_search_launch.restype = ctypes.c_int
     lib.cryo_search_plan.argtypes = [ctypes.c_int] * 6 + [ptr] * 2
     lib.cryo_search_plan.restype = ctypes.c_longlong
@@ -411,7 +429,7 @@ def _check(name, t, dtype, shape, device):
 
 
 def fused_search(images, ref_fw, params: AlignParams, cfg: AlignConfig,
-                 angle_mask=None) -> SearchResult:
+                 angle_mask=None, out_interior=None) -> SearchResult:
     """Search every (mirror, shift, ref, angle) candidate per particle.
 
     Args:
@@ -424,10 +442,15 @@ def fused_search(images, ref_fw, params: AlignParams, cfg: AlignConfig,
         (``delta_angle_mask``) on the device of ``images``, with at least
         one bin at 0.  The kernel's winning row is unmasked, the plain
         version's masked; decode either with ``refine=False``.
+      out_interior: optional (N,) int32 zeros on the device of ``images``,
+        to which the kernel adds each particle's ring samplings (one ring
+        at one shift) that took the unclamped path (the kernel only:
+        given with a CPU tensor it raises ``ValueError``).
     Returns:
       SearchResult, on the device of ``images``.
     """
     if images.device.type == "cpu":
+        _no_counter(out_interior)
         return search_plain(images, ref_fw, params, cfg,
                             angle_mask=angle_mask)
     if angle_mask is not None:
@@ -444,11 +467,17 @@ def fused_search(images, ref_fw, params: AlignParams, cfg: AlignConfig,
     return _launch(images, ref_fw, params, cfg, angle_mask, 0,
                    fused_search.launches,
                    variant(cfg, angle_mask is not None),
-                   fused_search.launches_by_k)
+                   fused_search.launches_by_k, out_interior=out_interior)
+
+
+def _no_counter(out_interior):
+    if out_interior is not None:
+        raise ValueError("out_interior counts the kernel's ring samplings; "
+                         "a CPU tensor runs the plain search")
 
 
 def fused_search_shc(images, ref_fw, params: AlignParams, cfg: AlignConfig,
-                     previousmax, out_groups=None):
+                     previousmax, out_groups=None, out_interior=None):
     """The SHC search (``random_method="SHC"``) on the kernel's candidates.
 
     The rule of ``ops/search.py::rotational_shift_search_shc``: each
@@ -467,6 +496,7 @@ def fused_search_shc(images, ref_fw, params: AlignParams, cfg: AlignConfig,
       out_groups: optional (N,) int32 tensor there, which receives the
         shift groups each particle's block ran (the kernel only: given
         with a CPU tensor it raises ``ValueError``).
+      out_interior: as ``fused_search``'s, over the shift groups run.
     Returns:
       ``(SearchResult, found)``, ``found`` an (N,) bool mask; a particle
       with no passing candidate has value -3e38, a zero row and zero
@@ -478,12 +508,13 @@ def fused_search_shc(images, ref_fw, params: AlignParams, cfg: AlignConfig,
         if out_groups is not None:
             raise ValueError("out_groups counts the kernel's shift groups; "
                              "a CPU tensor runs the plain SHC search")
+        _no_counter(out_interior)
         return rotational_shift_search_shc(images, ref_fw, params, cfg,
                                            previousmax)
     result = _launch(images, ref_fw, params, cfg, None, 0,
                      fused_search.launches, variant(cfg, False, shc=True),
                      fused_search.launches_by_k, previousmax=previousmax,
-                     out_groups=out_groups)
+                     out_groups=out_groups, out_interior=out_interior)
     return result, result.best_val > previousmax
 
 
@@ -493,15 +524,19 @@ STAGES = {"no_ccf": 1, "sample_only": 2, "no_yred": 3}
 
 
 def fused_search_stage(images, ref_fw, params: AlignParams,
-                       cfg: AlignConfig, stage: str) -> SearchResult:
+                       cfg: AlignConfig, stage: str,
+                       out_interior=None) -> SearchResult:
     """One ablated search kernel launch, for tools/torch_search_ablate.py.
 
     ``stage`` is one of ``STAGES``: "no_ccf" skips the forward DFT and
     the ccf (the inverse DFT and argmax run on zero spectra),
     "sample_only" keeps the polar samples only, and "no_yred" samples
-    the top row of each bilinear cell only.  The default variant only
-    (mirrored, unmasked, K > 1), on a CUDA tensor.  The outputs have the
-    production shapes; their values mean nothing.  Counted in
+    the top row of each bilinear cell only.  The mirrored, unmasked
+    variant (the default one, at K=1 the reference-free one), on a CUDA
+    tensor; ``out_interior`` as ``fused_search``'s.  The outputs have the
+    production shapes; their values mean nothing, but for "sample_only"'s
+    rows: entry t of a particle's row is the largest sample that the
+    kernel's thread t drew, floored at 0.  Counted in
     ``fused_search_stage.launches``; ``fused_search`` never calls it.
     """
     if stage not in STAGES:
@@ -509,20 +544,22 @@ def fused_search_stage(images, ref_fw, params: AlignParams,
                          f"not {stage!r}")
     if images.device.type != "cuda":
         raise ValueError("the ablation stages run on a CUDA tensor only")
-    if not cfg.mirror or ref_fw.shape[0] == 1:
-        raise ValueError("the ablation stages take the default variant "
-                         "only: mirrored, K > 1")
+    if not cfg.mirror:
+        raise ValueError("the ablation stages take the mirrored variant "
+                         "only")
     return _launch(images, ref_fw, params, cfg, None, STAGES[stage],
-                   fused_search_stage.launches, stage)
+                   fused_search_stage.launches, stage,
+                   out_interior=out_interior)
 
 
 def _launch(images, ref_fw, params: AlignParams, cfg: AlignConfig,
             angle_mask, stage: int, counts: dict, key: str,
             by_k: dict | None = None, previousmax=None,
-            out_groups=None) -> SearchResult:
+            out_groups=None, out_interior=None) -> SearchResult:
     """Check the inputs and launch the kernel on a CUDA tensor, its SHC
     pick where ``previousmax`` is given (the groups run go to
-    ``out_groups``, or to a buffer of its own; ``kernel_gate`` raises); a
+    ``out_groups``, or to a buffer of its own; ``kernel_gate`` raises),
+    adding the unclamped ring samplings to ``out_interior`` if given; a
     launch that succeeds adds one to ``counts[key]``, and to
     ``by_k[(key, K)]`` where given (an empty stack counts nothing)."""
     if images.device.type != "cuda":
@@ -544,6 +581,8 @@ def _launch(images, ref_fw, params: AlignParams, cfg: AlignConfig,
         if out_groups is None:
             out_groups = torch.empty(n, dtype=torch.int32, device=dev)
         _check("out_groups", out_groups, torch.int32, (n,), dev)
+    if out_interior is not None:
+        _check("out_interior", out_interior, torch.int32, (n,), dev)
     gate = kernel_gate(cfg, k, h, w, device=dev)
     if gate is not None:
         raise ValueError("the search kernel does not take " + gate)
@@ -568,7 +607,8 @@ def _launch(images, ref_fw, params: AlignParams, cfg: AlignConfig,
             n, h, w, r, s, k, int(cfg.mirror), stage,
             out_val.data_ptr(), out_row.data_ptr(),
             *[t.data_ptr() for t in out_i],
-            None if out_groups is None else out_groups.data_ptr(), stream)
+            *[None if t is None else t.data_ptr()
+              for t in (out_groups, out_interior)], stream)
     if rc != 0:
         raise RuntimeError("search kernel launch failed: "
                            + lib.cryo_search_error_string(rc).decode())

@@ -2,11 +2,11 @@
 ``plan_*``) against torch.fft.
 
 The model follows csrc/search.cu's index maps on the same Python-built
-twiddle table: rings packed two by two, the 16 x 16 plan with its
-transpose, the split through the partner thread's registers, the
-(DC, Nyquist) slot, the ccf's row order and the packing of two real rows
-into one complex inverse.  A fault in those maps shows here without a
-card.
+twiddle table: rings packed two by two (``ring_pairs``), the 16 x 16
+plan with its transpose, the split through the partner thread's
+registers, the (DC, Nyquist) slot, the ccf's row order and the packing
+of two real rows into one complex inverse.  A fault in those maps shows
+here without a card.
 
 Tolerance: 1e-5 of the largest magnitude (f32 rounding of a 256-point
 FFT, ~log2(256) x 6e-8, against torch's own f32 FFT).
@@ -66,6 +66,33 @@ def test_plan_rfft_matches_torch(shifts, rings):
     the last ring with zeros."""
     x = _rings(shifts * rings, seed=rings + shifts)
     _close(fs.plan_rfft(x), torch.fft.rfft(x, dim=-1))
+
+
+@pytest.mark.parametrize("shifts", [1, 2, 3, 4])
+@pytest.mark.parametrize("rings", [36, 35, 1])
+def test_ring_pairs_cover_the_group_once(shifts, rings):
+    """Every (shift, ring) slot of a group lies in one pair, in as many
+    FFTs as rings packed two by two; a pair across two shifts holds one
+    ring (one radius), and only the last pair of an odd shift with an odd
+    ring count holds zeros."""
+    pairs = fs.ring_pairs(shifts, rings)
+    assert pairs.shape == (-(-shifts * rings // 2), 2)
+    slots = pairs[pairs >= 0]
+    assert sorted(slots.tolist()) == list(range(shifts * rings))
+    cross = pairs[: shifts // 2 * rings]
+    assert (cross[:, 1] - cross[:, 0] == rings).all()
+    assert (cross[:, 0] % rings == cross[:, 1] % rings).all()
+    assert (pairs[:, 1] < 0).sum() == (shifts % 2) * (rings % 2)
+
+
+@pytest.mark.parametrize("shifts", [2, 3, 4])
+@pytest.mark.parametrize("rings", [36, 35])
+def test_plan_rfft_on_the_kernels_pairs_matches_torch(shifts, rings):
+    """The kernel's pairs of a group of G shifts (ring r at two shifts,
+    then an odd shift's neighbours) give every ring its own spectrum."""
+    x = _rings(shifts * rings, seed=3 * rings + shifts)
+    _close(fs.plan_rfft(x, fs.ring_pairs(shifts, rings)),
+           torch.fft.rfft(x, dim=-1))
 
 
 @pytest.mark.parametrize("n", [36, 35])

@@ -48,6 +48,24 @@ def _params(n, dev, seed=2):
         dev)
 
 
+def _edge_params(n, dev, cfg, seed=3):
+    """Accumulated shifts that leave some particles' rings inside the box
+    and put other rings across its edge (the kernel's clamped path): near
+    0, and a few pixels short of, past and far past the distance from
+    the outermost ring to the edge."""
+    room = cfg.img_dim // 2 - float(cfg.radii[-1]) - 1
+    rng = np.random.default_rng(seed)
+    steps = np.array([0.0, 0.25, -1.5, room - 2, -(room - 2.5), room + 3.5,
+                      -(room + 4.25), room + 9.25, -(room + 12.0)],
+                     np.float32)
+    return params_from_numpy(
+        {"angle": np.zeros(n, np.float32),
+         "shift_x": rng.choice(steps, n).astype(np.float32),
+         "shift_y": rng.choice(steps, n).astype(np.float32),
+         "mirror": np.zeros(n, np.int32), "ref_id": np.zeros(n, np.int32)},
+        dev)
+
+
 def _check(got, want, winners_equal=True, allowed=None):
     torch.cuda.synchronize()
     if winners_equal:
@@ -190,29 +208,36 @@ def test_kernel_winners_in_the_last_ref_group(cuda_device, k):
     assert searches[0].attrs["K"] == k
 
 
-# (img_dim, rings, xr, refs, mirror): shift grids of 49, 25, 9 and 1
-# shifts (a ragged last group of shifts where G does not divide S), 256 px
-# at ou=100 (one shift per group), 160 px at ou=48 (at K=4 the image read
-# through the cache for a larger G), an odd ring count, and K=1 with and
-# without the mirror channel (one ccf row per shift without it)
-SHIFT_GROUPS = [(90, 36, 3.0, 8, True), (90, 36, 2.0, 8, True),
-                (90, 36, 1.0, 8, True), (90, 36, 0.0, 8, True),
-                (256, 100, 1.0, 8, True), (160, 48, 2.0, 4, True),
-                (160, 48, 2.0, 1, False), (90, 35, 2.0, 8, True),
-                (90, 35, 2.0, 1, True), (90, 35, 2.0, 1, False),
-                (90, 36, 3.0, 1, False)]
+# (img_dim, rings, xr, refs, mirror, mode): shift grids of 49, 25, 9 and
+# 1 shifts (a ragged last group of shifts where G does not divide S),
+# 256 px at ou=100 (one shift per group), 160 px at ou=48 (at K=4 the
+# image read through the cache for a larger G), an odd ring count, K=1
+# with and without the mirror channel (one ccf row per shift without
+# it), and half rings at G=3 and G=4
+SHIFT_GROUPS = [(90, 36, 3.0, 8, True, "F"), (90, 36, 2.0, 8, True, "F"),
+                (90, 36, 1.0, 8, True, "F"), (90, 36, 0.0, 8, True, "F"),
+                (256, 100, 1.0, 8, True, "F"), (160, 48, 2.0, 4, True, "F"),
+                (160, 48, 2.0, 1, False, "F"), (90, 35, 2.0, 8, True, "F"),
+                (90, 35, 2.0, 1, True, "F"), (90, 35, 2.0, 1, False, "F"),
+                (90, 36, 3.0, 1, False, "F"), (90, 36, 3.0, 8, True, "H"),
+                (90, 36, 3.0, 1, True, "H")]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("acc", ["centred", "edge"])
 @pytest.mark.parametrize("geom", SHIFT_GROUPS, ids=str)
-def test_kernel_shift_groups_match_plain(cuda_device, geom):
+def test_kernel_shift_groups_match_plain(cuda_device, geom, acc):
     """Winners, peaks and rows equal the plain version's whatever the
     number of shifts per group G (chosen at launch from the shared
-    memory), however the last group falls, and whether the image is
-    staged in shared memory or read through the cache."""
-    nx, rings, xr, k, mirror = geom
+    memory), however the last group falls, whether the image is staged
+    in shared memory or read through the cache, and whether a ring pair
+    lies inside the box (unclamped) or crosses its edge (clamped): on a
+    centred stack every ring sampling is counted unclamped, on the edge
+    stack some and not all."""
+    nx, rings, xr, k, mirror, mode = geom
     cfg = AlignConfig(img_dim=nx, ring_num=rings, shift_step=1.0,
-                      shift_rng_x=xr, shift_rng_y=xr, mirror=mirror)
+                      shift_rng_x=xr, shift_rng_y=xr, mirror=mirror,
+                      mode=mode)
     plan = fs.kernel_plan(rings, mirror, k, cfg.n_shifts, nx, nx)
     assert 1 <= plan["group"] <= min(4, cfg.n_shifts)
     # a 90 px image is staged in shared memory; a 160 px one at K=1 only
@@ -227,13 +252,20 @@ def test_kernel_shift_groups_match_plain(cuda_device, geom):
     n = 48
     imgs = scattered_stack(tmpl, n, max_shift=1, noise=0.1, seed=6,
                            device=cuda_device, mirror=mirror)[0].contiguous()
-    params = _params(n, cuda_device, seed=5)
+    params = (_params(n, cuda_device, seed=5) if acc == "centred"
+              else _edge_params(n, cuda_device, cfg))
     rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
                                                      device=cuda_device), cfg)
-    got = fs.fused_search(imgs, rfw, params, cfg)
+    interior = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    got = fs.fused_search(imgs, rfw, params, cfg, out_interior=interior)
     _check(got, fs.search_plain(imgs, rfw, params, cfg))
     if not mirror:
         assert int(got.best_mirror.max()) == 0
+    full = n * cfg.n_shifts * rings
+    if acc == "centred":
+        assert int(interior.sum()) == full
+    else:
+        assert 0 < int(interior.sum()) < full
 
 
 @pytest.mark.cuda
@@ -358,13 +390,15 @@ def test_kernel_matches_plain_random_geometry(cuda_device, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 1])
 @pytest.mark.parametrize("stage", sorted(fs.STAGES))
-def test_kernel_ablation_stage_runs(cuda_device, stage):
-    """Each ablation stage launches, returns the production shapes and
-    moves its own counter only: no search counter, no other stage's."""
+def test_kernel_ablation_stage_runs(cuda_device, stage, k):
+    """Each ablation stage launches, at K=8 and at K=1 (the
+    reference-free shape), returns the production shapes and moves its
+    own counter only: no search counter, no other stage's."""
     cfg = AlignConfig(img_dim=90, ring_num=36, shift_step=1.0,
                       shift_rng_x=3.0, shift_rng_y=3.0)
-    tmpl = asymmetric_templates(8, 90)
+    tmpl = asymmetric_templates(k, 90)
     imgs = scattered_stack(tmpl, 32, max_shift=1, noise=0.1, seed=3,
                            device=cuda_device)[0].contiguous()
     params = _params(32, cuda_device)
@@ -381,8 +415,65 @@ def test_kernel_ablation_stage_runs(cuda_device, stage):
     for f in WINNERS:
         assert getattr(got, f).shape == (32,)
         assert getattr(got, f).dtype == torch.int32
-    with pytest.raises(ValueError, match="default variant"):
-        fs.fused_search_stage(imgs, rfw[:1].contiguous(), params, cfg, stage)
+    nomirror = AlignConfig(img_dim=90, ring_num=36, shift_step=1.0,
+                           shift_rng_x=3.0, shift_rng_y=3.0, mirror=False)
+    with pytest.raises(ValueError, match="mirrored"):
+        fs.fused_search_stage(imgs, rfw, params, nomirror, stage)
+
+
+# (img_dim, rings, xr, refs, mode): the rib80s shapes at K=8 (G=3) and
+# K=1 (G=4), half rings, 160 px through the cache (G=2) and 256 px (G=1)
+SAMPLE_GEOMETRIES = [(90, 36, 3.0, 8, "F"), (90, 36, 3.0, 1, "F"),
+                     (90, 36, 3.0, 8, "H"), (160, 48, 2.0, 4, "F"),
+                     (256, 100, 1.0, 2, "F")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc", ["centred", "edge"])
+@pytest.mark.parametrize("geom", SAMPLE_GEOMETRIES, ids=str)
+def test_kernel_samples_are_polar_resample_bit_for_bit(cuda_device, geom,
+                                                       acc):
+    """The samples themselves: the sample_only stage leaves in each
+    particle's row the largest sample of every thread, floored at 0, so
+    the row's largest entry is max(0, the particle's largest sample),
+    which must equal bit for bit the largest of ops/polar.py::
+    polar_resample over the same shifts.  On noisy images that sample is
+    interpolated (no pixel holds it) for most particles.  The edge stack
+    runs both paths in one launch, the unclamped and the clamped; the
+    centred one the unclamped path alone."""
+    from cryo_ralib_tpu_torch.ops.polar import polar_resample
+
+    nx, rings, xr, k, mode = geom
+    cfg = AlignConfig(img_dim=nx, ring_num=rings, shift_step=1.0,
+                      shift_rng_x=xr, shift_rng_y=xr, mode=mode)
+    tmpl = asymmetric_templates(k, nx)
+    n = 64
+    imgs = scattered_stack(tmpl, n, max_shift=1, noise=1.0, seed=11,
+                           device=cuda_device)[0].contiguous()
+    params = (_params(n, cuda_device, seed=4) if acc == "centred"
+              else _edge_params(n, cuda_device, cfg, seed=12))
+    rfw = search.prepare_ref_spectra(torch.as_tensor(tmpl,
+                                                     device=cuda_device), cfg)
+    interior = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    got = fs.fused_search_stage(imgs, rfw, params, cfg, "sample_only",
+                                out_interior=interior)
+    grid = torch.as_tensor(cfg.shifts, dtype=torch.float32,
+                           device=cuda_device)
+    polar = polar_resample(
+        imgs, torch.as_tensor(cfg.polar_coords, device=cuda_device),
+        params.shift_x[:, None] + grid[None, :, 0],
+        params.shift_y[:, None] + grid[None, :, 1])      # (N, S, R, L)
+    largest = polar.reshape(n, -1).amax(1)
+    want = largest.clamp_min(0.0)
+    assert torch.equal(got.best_row.amax(1).view(torch.int32),
+                       want.view(torch.int32))
+    on_pixel = (imgs.reshape(n, -1) == largest[:, None]).any(1)
+    assert int(on_pixel.sum()) <= n // 4
+    full = n * cfg.n_shifts * rings
+    if acc == "centred":
+        assert int(interior.sum()) == full
+    else:
+        assert 0 < int(interior.sum()) < full
 
 
 @pytest.mark.cuda

@@ -331,8 +331,9 @@ def test_steps_call_the_kernel_shc_search_by_a_search_shc_name(monkeypatch):
 @pytest.mark.parametrize("mirror", [True, False], ids=["mirror", "nomirror"])
 def test_fused_search_shc_on_the_cpu_is_the_plain_search(thresholds, mirror):
     """On a CPU tensor ``fused_search_shc`` is ``rotational_shift_search_shc``
-    bit for bit; it has no kernel whose shift groups ``out_groups`` could
-    count, so asking for them raises."""
+    bit for bit; it has no kernel whose shift groups ``out_groups`` or
+    unclamped ring samplings ``out_interior`` could count, so asking for
+    either raises (``fused_search``'s ``out_interior`` too)."""
     _, cfg, refs, imgs, _, tp = _case(3, 5, mirror=mirror)
     imgs = torch.as_tensor(imgs)
     rfw = search.prepare_ref_spectra(torch.as_tensor(refs), cfg)
@@ -351,6 +352,13 @@ def test_fused_search_shc_on_the_cpu_is_the_plain_search(thresholds, mirror):
         fused_search.fused_search_shc(
             imgs, rfw, tp, cfg, pm,
             out_groups=torch.zeros(N, dtype=torch.int32))
+    with pytest.raises(ValueError, match="out_interior"):
+        fused_search.fused_search_shc(
+            imgs, rfw, tp, cfg, pm,
+            out_interior=torch.zeros(N, dtype=torch.int32))
+    with pytest.raises(ValueError, match="out_interior"):
+        fused_search.fused_search(
+            imgs, rfw, tp, cfg, out_interior=torch.zeros(N, dtype=torch.int32))
     if thresholds == "init":
         assert found.all()
     if thresholds == "high":

@@ -217,6 +217,54 @@ def test_the_kernel_shc_search_counts_its_shift_groups():
     assert attrs["shc_groups_full"] == 3 * N
 
 
+def test_the_kernel_search_counts_its_unclamped_rings():
+    """A ``step.search`` span carries ``interior_rings`` and
+    ``rings_full`` only where the kernel ran: on the CPU, "kernel" runs
+    the plain search and the spans hold no count.  Where the span records
+    and the route launches the kernel, the step hands the kernel zeros
+    and sets the count's device sum, read as an int, beside N x shifts x
+    rings; under SHC beside the shifts each particle searched x rings."""
+    from cryo_ralib_tpu_torch.config import AlignConfig
+    from cryo_ralib_tpu_torch.models import steps
+    from cryo_ralib_tpu_torch.ops.fused_search import KernelPlan
+
+    imgs, _ = _stack()
+    with _profile():
+        ali2d_base(imgs, ou=12, xr=1, ts=1, maxit=MAXIT, device="cpu",
+                   log=RunLogger(None, quiet=True), sampler="kernel")
+    searches = [s for s in profiling.last_job() if s.name == "step.search"]
+    assert len(searches) == MAXIT
+    for s in searches:
+        assert "interior_rings" not in s.attrs
+        assert "rings_full" not in s.attrs
+    cfg = AlignConfig(img_dim=NX, ring_num=12, shift_step=1.0,
+                      shift_rng_x=1.0, shift_rng_y=1.0)
+    route = steps.Route("kernel", "kernel", 1,
+                        plan=KernelPlan(4, True, 200000, 1))
+    stack = torch.as_tensor(imgs)
+    assert steps._interior_counter(profiling.span("step.search"), route,
+                                   stack, 1) is None
+    with _profile():
+        with profiling.job():
+            for shifts in (None, torch.tensor([4, 9] * (N // 2))):
+                with profiling.span("step.search") as sp:
+                    assert steps._interior_counter(
+                        sp, steps.Route("plain", "plain", 1), stack,
+                        1) is None
+                    assert steps._interior_counter(sp, route, stack,
+                                                   0) is None
+                    counted = steps._interior_counter(sp, route, stack, 1)
+                    assert counted.dtype == torch.int32
+                    assert counted.shape == (N,) and not counted.any()
+                    counted += 7
+                    steps._count_interior(sp, counted, cfg, shifts)
+    first, second = [s.attrs for s in profiling.last_job()[1:]]
+    assert type(first["interior_rings"]) is int
+    assert first["interior_rings"] == second["interior_rings"] == 7 * N
+    assert first["rings_full"] == N * cfg.n_shifts * 12
+    assert second["rings_full"] == (4 + 9) * (N // 2) * 12
+
+
 MESH_WORKER = r"""
 import json, sys
 rank, world, store, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
