@@ -93,14 +93,17 @@ def refuse_forbidden():
 
 def run_job(cfg: dict, traffic: dict, images, refs, device, log,
             mesh=None, maxit: int | None = None):
-    """One call of the configuration's driver."""
+    """One call of the configuration's driver; the traffic's optional
+    ``batch_size`` streams the stack in batches of that many particles
+    (absent: the planner's choice, resident where the stack fits)."""
     from cryo_ralib_tpu_torch.models.mref import mref_ali2d
     from cryo_ralib_tpu_torch.models.reffree import ali2d_base
 
     kw = dict(outdir=None, ou=cfg["ou"], xr=cfg["xr"], yr=cfg["yr"],
               ts=cfg["ts"], center=cfg["center"],
               maxit=maxit or cfg["maxit"], log=log, device=device,
-              sampler=traffic["sampler"], mesh=mesh)
+              sampler=traffic["sampler"], mesh=mesh,
+              batch_size=traffic.get("batch_size"))
     if cfg["driver"] == "mref_ali2d":
         return mref_ali2d(images, refs, **kw)
     if cfg["driver"] == "ali2d_base":
@@ -194,6 +197,11 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         if trace and jobs == 0:
             prof = _profiler(cuda)
             prof.__enter__()
+            if mesh is not None:
+                # the profilers start in seconds that differ by rank: the
+                # ranks' profiled jobs start together, or the first to
+                # start would wait for the others in its first collective
+                torch.distributed.barrier(group=coord)
             with torch.profiler.record_function("bench.job"):
                 result = run_job(cfg, traffic, images, refs0, dev, log, mesh)
             prof.__exit__(None, None, None)
@@ -236,7 +244,9 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
     if mesh is not None:
         mine = {"records": [{"new": r["new"], "search": r["search"]}
                             for r in records],
-                "peak": peak, "busy": obs.get("trace", {}).get("busy_s")}
+                "peak": peak, "trace": {k: obs["trace"][k] for k in
+                                        ("busy_s", "window_s")}
+                if "trace" in obs else None}
         got = [None] * mesh.world_size if root else None
         torch.distributed.gather_object(mine, got, dst=0, group=coord)
         if not root:
@@ -246,15 +256,14 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
                           enumerate(g["records"])] for g in got[1:]])
         obs["memory_peak_bytes"] = max(g["peak"] for g in got)
         if "trace" in obs:
-            obs["trace"]["busy_s"] = float(np.mean([g["busy"]
-                                                    for g in got]))
+            obs["trace"].update(ranks_trace([g["trace"] for g in got]))
 
     # ---- correctness: the reference, after the program's state is freed
     t_check = time.perf_counter()
     mask = R.disc(cfg["ou"], nx)
     if mesh is not None:
         host = gen.stack(torch.as_tensor(tmpl, device=dev), seed, 0, n,
-                         dev)
+                         dev).cpu().numpy()
     imgs = check.prepared(host, cfg["driver"], mask, dev)
     del host
     geo = R.Geometry(nx, cfg["ou"], cfg["xr"], cfg["yr"], cfg["ts"],
@@ -311,6 +320,15 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         out["control_correct"] = bool(ctrl_correct)
     out["checks"] = table
     return out
+
+
+def ranks_trace(traces: list) -> dict:
+    """``busy_s`` and ``window_s`` of a mesh's traced job from each
+    rank's own: both means over the ranks (each rank's busy time lies
+    within its own profiled job, whose span differs a little by rank),
+    so that the busy time never exceeds the window."""
+    return {k: float(np.mean([t[k] for t in traces]))
+            for k in ("busy_s", "window_s")}
 
 
 _COORD: dict = {}

@@ -1,5 +1,7 @@
 """``device.idle_pct``: the share of one profiled job's span in which no
-kernel, copy or memset ran on the card (mean over the ranks), in %."""
+kernel, copy or memset ran on the card, in %; on several ranks the
+ranks' mean busy time over the mean of their jobs' spans (an NCCL
+kernel that waits for a slower rank counts as busy)."""
 
 
 def read(obs):

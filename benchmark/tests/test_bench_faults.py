@@ -17,6 +17,7 @@ import capture
 import harness
 from cryo_ralib_tpu_torch.models import engine as engine_mod
 from cryo_ralib_tpu_torch.models import steps as steps_mod
+from cryo_ralib_tpu_torch.utils import profiling
 
 
 def run(spec, fault=None):
@@ -90,8 +91,9 @@ def test_fault_is_not_correct(monkeypatch, make, driver, method):
     assert not out["correct"], out["checks"]
 
 
-def _rank(rank, world, store, fault, queue):
+def _rank(rank, world, store, fault, queue, trace=False):
     torch.set_num_threads(1)
+    import check
     from cryo_ralib_tpu_torch.parallel import mesh as mesh_mod
 
     m = mesh_mod.initialize_distributed(rank=rank, world_size=world,
@@ -100,22 +102,34 @@ def _rank(rank, world, store, fault, queue):
 
     def no_exchange():
         engine_mod.all_reduce_sums = lambda mesh, *t: t
+
+    # what the check's stack arrives as (on a card, a tensor there fails
+    # np.asarray; on the CPU it would pass unseen)
+    prepared, given = check.prepared, []
+
+    def spy(stack, *a, **k):
+        given.append(type(stack).__module__ + "." + type(stack).__name__)
+        return prepared(stack, *a, **k)
+    check.prepared = spy
+    spec = tiny_spec(n=384)
+    if trace:
+        spec["per_layer"].append({"name": "mesh.collective_ms",
+                                  "unit": "ms"})
     try:
-        out = harness.run_cell(tiny_spec(n=384), BIG_SEED, 0.0, False,
-                               "cpu", mesh=m,
+        out = harness.run_cell(spec, BIG_SEED, 0.0, trace, "cpu", mesh=m,
                                faults=no_exchange if fault else None)
         if out is not None:
+            out["prepared"] = given
             queue.put(json.dumps(out))
     finally:
         mesh_mod.shutdown()
 
 
-@pytest.mark.parametrize("fault", [False, True])
-def test_ranks_without_the_exchange_are_not_correct(tmp_path, fault):
+def _two_ranks(tmp_path, fault, trace=False):
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     procs = [ctx.Process(target=_rank, args=(r, 2, tmp_path / "store",
-                                             fault, queue))
+                                             fault, queue, trace))
              for r in range(2)]
     for p in procs:
         p.start()
@@ -124,6 +138,12 @@ def test_ranks_without_the_exchange_are_not_correct(tmp_path, fault):
         p.join(timeout=60)
         assert not p.is_alive() and p.exitcode == 0
     assert out["device"]["count"] == 2
+    return out
+
+
+@pytest.mark.parametrize("fault", [False, True])
+def test_ranks_without_the_exchange_are_not_correct(tmp_path, fault):
+    out = _two_ranks(tmp_path, fault)
     assert out["correct"] is (not fault), out["checks"]
     if fault:
         assert {"sums_err", "counts_err"} & failing(out)
@@ -148,3 +168,28 @@ def test_a_search_the_capture_misses_is_not_correct(monkeypatch, capsys):
     assert not out["correct"]
     assert math.isnan(out["checks"]["shc_gap"]["value"])
     assert "have no search record" in capsys.readouterr().err
+
+
+def test_ranks_check_a_host_stack_and_read_their_collectives(tmp_path):
+    """Under a mesh the check gets the whole stack as a host array, as
+    the one-rank path gives it, and rank 0's traced job reads the
+    collectives' time."""
+    out = _two_ranks(tmp_path, False, trace=True)
+    assert out["prepared"] == ["numpy.ndarray"]
+    assert out["correct"], out["checks"]
+    assert out["metrics"]["mesh.collective_ms"]["value"] > 0
+
+
+@pytest.mark.parametrize("driver", ["mref_ali2d", "ali2d_base"])
+def test_streamed_run_is_correct(driver):
+    """A traffic file's ``batch_size`` below N streams the stack in
+    batches (a step a batch), and the streamed job holds to the
+    reference."""
+    spec = tiny_spec(driver, maxit=2)
+    spec["traffic"]["batch_size"] = 128
+    out = harness.run_cell(spec, BIG_SEED, 0.0, True, "cpu")
+    assert out["correct"], out["checks"]
+    spans = profiling.last_job()
+    iterations = sum(s.name == "engine.iterate" for s in spans)
+    steps = sum(s.name == "engine.step" for s in spans)
+    assert iterations == 2 and steps == iterations * 512 // 128

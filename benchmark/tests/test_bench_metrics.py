@@ -4,6 +4,8 @@ reduction of a synthetic device trace."""
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import pytest
 
 import devtrace
@@ -86,3 +88,53 @@ def test_trace_reduction():
 def test_trace_without_device_work_fails():
     with pytest.raises(ValueError):
         devtrace.reduce_events([_ev("bench.job", 0, 100, "user_annotation")])
+
+
+def _span(name, ms=0.0):
+    return SimpleNamespace(name=name, attrs={}, device_ms=lambda: ms)
+
+
+def test_collectives_per_iteration(monkeypatch):
+    from cryo_ralib_tpu_torch.utils import profiling
+
+    spans = [_span("job"), _span("engine.iterate"), _span("step.search", 9.0),
+             _span("mesh.collective", 1.5), _span("mesh.collective", 0.25),
+             _span("engine.iterate"), _span("mesh.collective", 2.0),
+             _span("mesh.collective", 0.75)]
+    monkeypatch.setattr(profiling, "last_job", lambda: spans)
+    assert harness.reader("mesh.collective_ms")({}) == pytest.approx(2.25)
+
+
+def test_collectives_read_nothing_where_the_span_is_not_declared(
+        monkeypatch):
+    from cryo_ralib_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "SPANS", tuple(
+        s for s in profiling.SPANS if s != "mesh.collective"))
+    monkeypatch.setattr(profiling, "last_job",
+                        lambda: [_span("engine.iterate")])
+    assert harness.reader("mesh.collective_ms")({}) is None
+
+
+def test_collectives_fail_where_declared_and_missing(monkeypatch):
+    from cryo_ralib_tpu_torch.utils import profiling
+
+    assert "mesh.collective" in profiling.SPANS
+    monkeypatch.setattr(profiling, "last_job",
+                        lambda: [_span("job"), _span("engine.iterate"),
+                                 _span("step.search", 9.0)])
+    with pytest.raises(RuntimeError, match="no mesh.collective"):
+        harness.reader("mesh.collective_ms")({})
+
+
+def test_ranks_trace_never_reads_busier_than_its_window():
+    """Ranks whose profiled jobs span different times: the mean busy
+    time over the mean window, each rank's busy within its own."""
+    traces = [{"busy_s": 0.9, "window_s": 1.0},
+              {"busy_s": 1.7, "window_s": 1.9},
+              {"busy_s": 1.2, "window_s": 1.3},
+              {"busy_s": 1.0, "window_s": 1.2}]
+    t = harness.ranks_trace(traces)
+    assert t == {"busy_s": pytest.approx(1.2), "window_s": pytest.approx(1.35)}
+    assert harness.reader("device.idle_pct")({"trace": t}) == pytest.approx(
+        100 * (1 - 1.2 / 1.35))
